@@ -197,65 +197,6 @@ def hex2d_to_axial(x, y, xp=np):
     return astype(rq, np.int64), astype(-rr, np.int64)
 
 
-def _hex_round_rel(x, y, xp):
-    """Shared by the margin/alt helpers: rounded axial (ii, jj), the
-    residual (dx, dy) from the rounded center, and the three |projections|
-    onto the Voronoi boundary normals (1,0), (1/2,sin60), (−1/2,sin60)."""
-    ii, jj = hex2d_to_axial(x, y, xp)
-    iif = astype(ii, x.dtype)
-    jjf = astype(jj, x.dtype)
-    dx = x - (iif - 0.5 * jjf)
-    dy = y - jjf * C.SIN60
-    p1 = dx
-    p2 = 0.5 * dx + C.SIN60 * dy
-    p3 = -0.5 * dx + C.SIN60 * dy
-    return ii, jj, p1, p2, p3
-
-
-def hex_round_margins(x, y, xp=np):
-    """Distances (hex2d units) from (x, y) to the nearest and second-
-    nearest Voronoi boundaries of its rounded hex — how far the finest-res
-    cell decision is from flipping under coordinate noise (second margin
-    small = near a cell VERTEX, where three cells meet).
-
-    The Voronoi cell of this lattice (six unit neighbors (±1, 0),
-    ±(1/2, sin60), ±(−1/2, sin60)) is the regular hexagon of inradius 1/2
-    centred on the rounded lattice point, bounded by the planes
-    p·u_d = 1/2; margin = 1/2 − |p_rel·u_d|, sorted ascending over the
-    three boundary-normal axes.  The first may come out slightly negative
-    where the cube-rounding tie-fix picks the other center — those points
-    are maximally borderline, which the epsilon-band consumer (`sql.join`
-    recheck) treats correctly.
-    """
-    _, _, p1, p2, p3 = _hex_round_rel(x, y, xp)
-    a1, a2, a3 = xp.abs(p1), xp.abs(p2), xp.abs(p3)
-    hi = xp.maximum(a1, xp.maximum(a2, a3))
-    lo = xp.minimum(a1, xp.minimum(a2, a3))
-    mid = a1 + a2 + a3 - hi - lo
-    return 0.5 - hi, 0.5 - mid
-
-
-def hex_round_alt_axial(x, y, xp=np):
-    """Runner-up lattice point of the hex rounding (unnormalized axial):
-    the neighbor across the NEAREST Voronoi boundary.  For a point within
-    an epsilon band of one boundary (and only one — vertex neighborhoods
-    need a third candidate, see :func:`hex_round_margins`), the exact-
-    precision rounding lands on either the primary or this alternate."""
-    ii, jj, p1, p2, p3 = _hex_round_rel(x, y, xp)
-    a1, a2, a3 = xp.abs(p1), xp.abs(p2), xp.abs(p3)
-    use1 = (a1 >= a2) & (a1 >= a3)
-    use2 = ~use1 & (a2 >= a3)
-    one = xp.ones_like(ii)
-    s1 = xp.where(p1 >= 0, one, -one)
-    s2 = xp.where(p2 >= 0, one, -one)
-    s3 = xp.where(p3 >= 0, one, -one)
-    # boundary-normal -> axial neighbor offset: (1,0)->(1,0),
-    # (1/2,sin60)->(1,1), (-1/2,sin60)->(0,1)  [x = ii - jj/2, y = jj sin60]
-    di = xp.where(use1, s1, xp.where(use2, s2, xp.zeros_like(ii)))
-    dj = xp.where(use1, xp.zeros_like(jj), xp.where(use2, s2, s3))
-    return ii + di, jj + dj
-
-
 def _round_div7(n, xp):
     """Exact integer round-to-nearest(n / 7): floor((2n + 7) / 14).
 

@@ -47,7 +47,7 @@ class H3IndexSystem(IndexSystem):
         return list(range(C.MAX_RES + 1))
 
     # ---------------------------------------------------------------- core
-    def _geo(self, xy, resolution: int, **kw):
+    def _geo(self, xy, resolution: int):
         if isinstance(xy, torch.Tensor):
             xp = hm.TorchNamespace(xy.device)
             lng = torch.deg2rad(xy[..., 0])
@@ -57,26 +57,12 @@ class H3IndexSystem(IndexSystem):
             xy = np.asarray(xy)
             lng = np.radians(xy[..., 0])
             lat = np.radians(xy[..., 1])
-        return core.geo_to_cell(lat, lng, resolution, xp, **kw)
+        return core.geo_to_cell(lat, lng, resolution, xp)
 
     def point_to_cell(self, xy, resolution: int):
         """(N, 2) lng/lat degrees -> (N,) int64 cells: numpy for a numpy
         input, torch on the tensor's device (in its dtype) for a tensor."""
         return self._geo(xy, resolution)
-
-    def point_to_cell_margin(self, xy, resolution: int):
-        """Cells plus the (..., 2) relative margins of the finest-res hex
-        rounding (nearest and second-nearest boundary; see
-        `core._rel_margin`) — the epsilon-band input for the f64
-        borderline recheck."""
-        return self._geo(xy, resolution, with_margin=True)
-
-    def point_to_cell_alt(self, xy, resolution: int):
-        """Runner-up cell of the finest-res rounding: for a point flagged
-        borderline (small first margin, ample second), the true f64 cell
-        is the primary or this one. -1 where no valid alternate exists
-        (face-overage corner)."""
-        return self._geo(xy, resolution, alt=True)
 
     def cell_center(self, cells):
         if isinstance(cells, torch.Tensor):

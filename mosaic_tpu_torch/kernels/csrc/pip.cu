@@ -20,10 +20,11 @@
 //   the smallest slot geom >= 0 with odd parity (INT32_MAX when none or
 //   when the row is -1); optionally `near` = within sqrt(eps2) of a real
 //   edge. Bound on this card: the work is tiny (K points x E2 edges); a
-//   launch is latency-bound, and the 2 MB heavy tables sit in the 50 MB
+//   launch is latency-bound, and the ~3 MB heavy tables sit in the 50 MB
 //   L2. Design: one thread per point reads only its own row (the TPU
 //   kernel swept every row for every point block and masked), straight
 //   from global memory through L2 — the tables exceed shared memory.
+//   Rows are int32 and slot bits uint32, as in the reference kernel.
 //
 // Floating point: every operation is written with the round-to-nearest
 // intrinsics (__fadd_rn, __fsub_rn, __fmul_rn, __fdiv_rn), which nvcc never
@@ -103,25 +104,25 @@ pip_zone_kernel(const float2* __restrict__ pts, long long n,
 
 __global__ void __launch_bounds__(kHeavyThreads)
 pip_heavy_kernel(const float* __restrict__ px_, const float* __restrict__ py_,
-                 const long long* __restrict__ rows, long long K,
+                 const int* __restrict__ rows, long long K,
                  const float4* __restrict__ edges,
-                 const long long* __restrict__ bits,
+                 const unsigned int* __restrict__ bits,
                  const int* __restrict__ geom, int E2, int M2, float eps2,
                  int banded, int* __restrict__ best_out,
                  unsigned char* __restrict__ near_out) {
   const long long k = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (k >= K) return;
-  const long long row = rows[k];
+  const long long row = rows[k];  // widened: row * E2 may pass 2^31
   int best = INT_MAX;
   int near = 0;
   if (row >= 0) {
     const float px = px_[k], py = py_[k];
     const float4* er = edges + row * E2;
-    const long long* br = bits + row * E2;
+    const unsigned int* br = bits + row * E2;
     unsigned int par = 0u;
     for (int e = 0; e < E2; ++e) {
       const float4 ed = er[e];
-      const unsigned int b = (unsigned int)br[e];
+      const unsigned int b = br[e];
       const float ax = ed.x, ay = ed.y, bx = ed.z, by = ed.w;
       const bool straddle = (ay > py) != (by > py);
       const float denom = (by == ay) ? 1.0f : __fsub_rn(by, ay);
@@ -165,8 +166,8 @@ extern "C" int mosaic_pip_zone(const float* points, long long n,
 }
 
 extern "C" int mosaic_pip_heavy(const float* px, const float* py,
-                                const long long* rows, long long K,
-                                const float* edges, const long long* bits,
+                                const int* rows, long long K,
+                                const float* edges, const unsigned int* bits,
                                 const int* geom, int E2, int M2, float eps2,
                                 int banded, int* best, unsigned char* near,
                                 void* stream) {

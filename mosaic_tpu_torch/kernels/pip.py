@@ -228,13 +228,14 @@ def pip_heavy_plain(px, py, rows, heavy_edges, heavy_ebits, heavy_slot_geom,
     """Plain torch twin of the ``pip_heavy_tiled`` kernel.
 
     Same contract as :func:`pip_heavy_tiled`. The slot bits are held as
-    int64 (the reference's uint32 values widened; torch's uint32 support
-    is partial and 32 bits fit). torch has no XOR reduction, so parity is
-    XOR-accumulated in a loop over the E2 edges.
+    int32 with the reference's uint32 bit patterns (torch's uint32
+    support is partial); XOR, ``>>`` then ``& 1`` read the same bits.
+    torch has no XOR reduction, so parity is XOR-accumulated in a loop
+    over the E2 edges.
     """
     r = torch.clamp(rows.long(), min=0)
     edges = heavy_edges[r]  # (K, E2, 4)
-    bits = heavy_ebits[r].long()  # (K, E2)
+    bits = heavy_ebits[r].to(torch.int32)  # (K, E2)
     geoms = heavy_slot_geom[r]  # (K, M2)
     ax, ay = edges[..., 0], edges[..., 1]
     bx, by = edges[..., 2], edges[..., 3]
@@ -247,7 +248,7 @@ def pip_heavy_plain(px, py, rows, heavy_edges, heavy_ebits, heavy_slot_geom,
     par = torch.zeros_like(bits[:, 0])
     for e in range(vals.shape[1]):
         par = par ^ vals[:, e]
-    m = torch.arange(geoms.shape[1], device=par.device)
+    m = torch.arange(geoms.shape[1], dtype=torch.int32, device=par.device)
     inside = ((par[:, None] >> m) & 1) == 1
     hit = inside & (geoms >= 0)
     best = torch.where(hit, geoms, _I32_MAX).amin(dim=1)
@@ -281,9 +282,10 @@ def pip_heavy_tiled(
     """Heavy-cell probe: per-point slot parity against its own heavy row.
 
     ``px``/``py``: (K,) f32 compacted heavy-lane points; ``rows``: (K,)
-    heavy-table row per point (-1 = pad). ``heavy_edges`` (H, E2, 4) f32,
-    ``heavy_ebits`` (H, E2) int64 slot bitmasks and ``heavy_slot_geom``
-    (H, M2) int32 are the ChipIndex heavy tables. Returns ``(best, near)``
+    int32 heavy-table row per point (-1 = pad). ``heavy_edges`` (H, E2,
+    4) f32, ``heavy_ebits`` (H, E2) int32 slot bitmasks (uint32 bit
+    patterns) and ``heavy_slot_geom`` (H, M2) int32 are the ChipIndex
+    heavy tables. Returns ``(best, near)``
     with ``best`` (K,) int32 using int32-max as the no-hit sentinel and
     ``near`` (K,) bool when ``eps2`` is given, else None. CPU tensors run
     :func:`pip_heavy_plain`; CUDA tensors launch the kernel.
@@ -318,9 +320,9 @@ def pip_heavy_tiled(
         raise ValueError(f"pip_heavy_tiled: at most 32 slots per row, got {M2}")
     pxc = px.to(torch.float32).contiguous()
     pyc = py.to(torch.float32).contiguous()
-    rws = rows.to(torch.int64).contiguous()
+    rws = rows.to(torch.int32).contiguous()
     edges = heavy_edges.contiguous()
-    bits = heavy_ebits.to(torch.int64).contiguous()
+    bits = heavy_ebits.to(torch.int32).contiguous()
     geom = heavy_slot_geom.to(torch.int32).contiguous()
     best = torch.empty(K, dtype=torch.int32, device=dev)
     banded = eps2 is not None

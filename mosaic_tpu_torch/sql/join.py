@@ -20,10 +20,11 @@ What differs from the reference, and why:
 
 - tensors are torch, on the index's device; the index build is host numpy
   (the same code, so the same arrays), moved to the device at the end;
-- slot bits are int64 tensors holding the reference's uint32 values, and
-  the hash multiplier is the int64 bit pattern of its uint64: an int64
-  multiply wraps exactly like the uint64 one, and the logical shift is an
-  arithmetic shift followed by a mask;
+- slot bits are int32 tensors holding the bit patterns of the
+  reference's uint32 values (XOR, then ``>>`` and ``& 1``, read the same
+  bits), and the hash multiplier is the int64 bit pattern of its uint64:
+  an int64 multiply wraps exactly like the uint64 one, and the logical
+  shift is an arithmetic shift followed by a mask;
 - ``.at[].set(mode="drop")`` is a write into a buffer with one extra drop
   row, which is then sliced off;
 - ``lookup="mxu"|"mxu2"`` and ``compaction="mxu"`` are accepted and run
@@ -95,13 +96,13 @@ class ChipIndex:
     hash_mult (1,) int64 (bit pattern of the uint64 multiplier);
     table_cell (T, B) int64; table_slot (T, B) int32; table_pack (T, B)
     int64; pack_low (2,) int64;
-    cell_edges (U, E1, 4) f32; cell_ebits (U, E1) int64 (uint32 values);
-    cell_slot_geom (U, M1) int32; cell_slot_core (U, M1) bool;
+    cell_edges (U, E1, 4) f32; cell_ebits (U, E1) int32 (uint32 bit
+    patterns); cell_slot_geom (U, M1) int32; cell_slot_core (U, M1) bool;
     cell_heavy (U,) int32;
-    heavy_edges (H, E2, 4) f32; heavy_ebits (H, E2) int64;
+    heavy_edges (H, E2, 4) f32; heavy_ebits (H, E2) int32;
     heavy_slot_geom (H, M2) int32;
     cell_convex (U,) int32; convex_edges (Cv, KB, EB, 4) f32;
-    convex_ebits (Cv, KB, EB) int64; convex_geom (Cv,) int32;
+    convex_ebits (Cv, KB, EB) int32; convex_geom (Cv,) int32;
     convex_ybin (Cv, 3) f32.
 
     Indexes built by :func:`build_chip_index` also carry ``host``, the
@@ -174,7 +175,7 @@ class ChipIndex:
         for n in cls.field_names():
             a = np.asarray(arrays[n])
             if n in cls._BITS:
-                a = a.astype(np.int64)
+                a = a.astype(np.uint32).view(np.int32)
             elif n == "hash_mult":
                 a = a.astype(np.uint64).view(np.int64)
             kw[n] = put(a)
@@ -194,7 +195,7 @@ class ChipIndex:
         for n in self.field_names():
             a = getattr(self, n).cpu().numpy()
             if n in self._BITS:
-                a = a.astype(np.uint32)
+                a = a.view(np.uint32)
             elif n == "hash_mult":
                 a = a.view(np.uint64)
             out[n] = a
@@ -732,8 +733,8 @@ def _probe_counts(pcells: torch.Tensor, index: ChipIndex) -> torch.Tensor:
 def _ray_parity(px, py, edges, bits, eps2=None):
     """XOR-accumulated crossing parity bits.
 
-    px, py: (...,); edges: (..., E, 4) ax/ay/bx/by; bits: (..., E) int64
-    (uint32 values; 0 for pad edges). Returns (...,) int64 where bit m is
+    px, py: (...,); edges: (..., E, 4) ax/ay/bx/by; bits: (..., E) int32
+    (uint32 bit patterns; 0 for pad edges). Returns (...,) int32 where bit m is
     the ray-crossing parity of chip slot m. With ``eps2`` also returns the
     epsilon-band mask (within sqrt(eps2) of any real edge). torch has no
     XOR reduction, so the parity is accumulated in a loop over E.
@@ -767,10 +768,10 @@ def _ray_parity(px, py, edges, bits, eps2=None):
 def _slot_best(parity, geoms, cores=None):
     """Smallest geom id among hit slots (SENTINEL if none).
 
-    parity: (...,) int64; geoms: (..., M) int32 (-1 pad);
-    cores: (..., M) bool or None.
+    parity: (...,) int32 (uint32 bit patterns); geoms: (..., M) int32
+    (-1 pad); cores: (..., M) bool or None.
     """
-    m = torch.arange(geoms.shape[-1], device=geoms.device)
+    m = torch.arange(geoms.shape[-1], dtype=parity.dtype, device=geoms.device)
     inside = ((parity[..., None] >> m) & 1) == 1
     hit = inside if cores is None else (cores | inside)
     hit = hit & (geoms >= 0)
@@ -826,18 +827,18 @@ def _heavy_tier(
     K2 = int(heavy_cap) if heavy_cap else k2_default
     K2 = max(8, min(K2, k2_default))
     src2, valid2, over2, _ = _compact(hs >= 0, K2)
-    h2 = torch.clamp(hs[src2], min=0).long()
     pq2 = torch.stack([px, py], dim=1)[src2]
     if engine == "kernel":
         from ..kernels.pip import pip_heavy_tiled
 
-        rows2 = torch.where(valid2, h2, -1)
+        rows2 = torch.where(valid2, hs[src2], -1)  # int32, as cell_heavy
         best2k, near2 = pip_heavy_tiled(
             pq2[:, 0], pq2[:, 1], rows2,
             index.heavy_edges, index.heavy_ebits, index.heavy_slot_geom,
             eps2=eps2,
         )
     else:
+        h2 = torch.clamp(hs[src2], min=0).long()
         hedges, hebits = index.heavy_edges[h2], index.heavy_ebits[h2]
         r2 = _ray_parity(pq2[:, 0], pq2[:, 1], hedges, hebits, eps2=eps2)
         par2, near2 = r2 if eps2 is not None else (r2, None)

@@ -60,24 +60,6 @@ def test_f32_cells_equal_reference_outside_margin_band(region, res):
     np.testing.assert_array_equal(got[outside], want[outside])
 
 
-@pytest.mark.parametrize("variant", ["margin", "alt"])
-def test_margin_and_alt_variants_equal_reference_f64(variant):
-    """The device path's recheck inputs in f64: runner-up cells equal the
-    reference's (tolerance 0); margins agree within 1e-15 absolute — the
-    f64 sin/cos of torch and XLA differ in the last ulp, which moves a
-    margin by ~1e-16, a tenth of the f64 band (6·eps(f64) = 1.3e-15)."""
-    pts = _points("nyc", seed=7)
-    if variant == "margin":
-        wc, wm = REF.point_to_cell_margin(jnp.asarray(pts), 9)
-        gc, gm = PORT.point_to_cell_margin(torch.as_tensor(pts), 9)
-        np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
-        np.testing.assert_allclose(gm.numpy(), np.asarray(wm), rtol=0, atol=1e-15)
-    else:
-        want = np.asarray(REF.point_to_cell_alt(jnp.asarray(pts), 9))
-        got = PORT.point_to_cell_alt(torch.as_tensor(pts), 9).numpy()
-        np.testing.assert_array_equal(got, want)
-
-
 def test_host_helpers_equal_reference():
     """Boundaries, centers and polyfill candidates — the host methods
     tessellation calls — equal the reference's."""

@@ -92,4 +92,4 @@ def test_chip_index_from_reference_round_trips(built):
     # and it is the same index the port builds itself
     for n in TJ.ChipIndex.field_names():
         assert torch.equal(getattr(ix, n), getattr(port, n)), n
-    assert ix.cell_ebits.dtype == torch.int64 and ix.hash_mult.dtype == torch.int64
+    assert ix.cell_ebits.dtype == torch.int32 and ix.hash_mult.dtype == torch.int64

@@ -25,6 +25,7 @@ from mosaic_tpu.datasets import synthetic_zones as ref_zones
 from mosaic_tpu.sql import join as RJ
 from mosaic_tpu_torch.convert import chip_index_from_reference
 from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+from mosaic_tpu_torch.core.tessellate import tessellate
 from mosaic_tpu_torch.datasets import synthetic_zones
 from mosaic_tpu_torch.runtime.errors import CapacityOverflow
 from mosaic_tpu_torch.runtime.escalate import run_escalating
@@ -169,38 +170,39 @@ def test_probe_counts_equal_reference(ref_index, port_index, batches):
 
 
 @pytest.fixture(scope="module")
-def own_indexes():
-    """Each package tessellates and builds its own index."""
-    ref = RJ.build_chip_index(ref_tessellate(
-        ref_zones(3, 3, bbox=BBOX, verts=256), RefH3(), RES, keep_core_geoms=False
-    ))
+def own_indexes(ref_index):
+    """Each package tessellates and builds its own index (the reference's
+    is ``ref_index``; the port's is built here, once for the module)."""
     col = synthetic_zones(3, 3, bbox=BBOX, verts=256)
-    return ref, col
+    port = TJ.build_chip_index(
+        tessellate(col, H3IndexSystem(), RES, keep_core_geoms=False), device="cpu"
+    )
+    return ref_index, port
 
 
 @pytest.mark.parametrize(
     "probe, batch_size", [("scatter", None), ("adaptive", None), ("adaptive", 512)]
 )
 def test_pip_join_equals_reference(own_indexes, batches, probe, batch_size):
-    ref, col = own_indexes
+    ref, port = own_indexes
     pts = batches["mixed"][0]
     want = np.asarray(RJ.pip_join(
         pts, None, RefH3(), RES, chip_index=ref, recheck=False, probe=probe,
         cell_dtype=jnp.float64, batch_size=batch_size,
     ))
     got = TJ.pip_join(
-        pts, col, H3IndexSystem(), RES, probe=probe, cell_dtype=torch.float64,
-        batch_size=batch_size, device="cpu",
+        pts, None, H3IndexSystem(), RES, chip_index=port, probe=probe,
+        cell_dtype=torch.float64, batch_size=batch_size, device="cpu",
     )
     assert got.dtype == np.int32 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
 
 
-def test_host_join_equals_reference(own_indexes, port_index, batches):
-    ref, _ = own_indexes
+def test_host_join_equals_reference(own_indexes, batches):
+    ref, port = own_indexes
     pts = np.concatenate([batches["mixed"][0], batches["near_edge_band"][0]])
     want = RJ.host_join(pts, ref.host, RefH3(), RES)
-    got = TJ.host_join(pts, port_index.host, H3IndexSystem(), RES)
+    got = TJ.host_join(pts, port.host, H3IndexSystem(), RES)
     np.testing.assert_array_equal(got, want)
 
 

@@ -33,20 +33,22 @@ def cuda():
     return torch.device("cuda")
 
 
-def _heavy_inputs(K, seed=9, H=37, E2=64, M2=5, pad_rows=7):
-    """Random short edges with slot bits; the last ``pad_rows`` rows -1."""
+def _heavy_inputs(K, seed=9, H=37, E2=64, M2=32, pad_rows=7):
+    """Random short edges with slot bits (all 32 slots, so bit 31, the
+    sign bit of the int32 slot bits, is set); the last ``pad_rows`` rows
+    -1."""
     rng = np.random.default_rng(seed)
     a = rng.uniform(-1, 1, (H, E2, 2))
     b = a + rng.uniform(-0.5, 0.5, (H, E2, 2))
     edges = np.concatenate([a, b], axis=2).astype(np.float32)
     slot = rng.integers(0, M2, (H, E2))
-    bits = (np.int64(1) << slot).astype(np.int64)
+    bits = (np.uint32(1) << slot.astype(np.uint32)).view(np.int32)
     bits[:, -5:] = 0  # pad edges carry no bit
     geom = rng.integers(0, 50, (H, M2)).astype(np.int32)
     geom[0, 1] = -1  # an empty slot must never win
     px = rng.uniform(-1, 1, K).astype(np.float32)
     py = rng.uniform(-1, 1, K).astype(np.float32)
-    rows = rng.integers(0, H, K).astype(np.int64)
+    rows = rng.integers(0, H, K).astype(np.int32)
     rows[max(K - pad_rows, 0):] = -1
     return px, py, rows, edges, bits, geom
 

@@ -53,8 +53,8 @@ def _heavy_inputs(seed=9, H=3, E2=24, M2=4, K=300):
 def _port_heavy(px, py, rows, edges, bits, geom, eps2=None, device="cpu"):
     t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     return TP.pip_heavy_tiled(
-        t(px), t(py), t(rows.astype(np.int64)), t(edges),
-        t(bits.astype(np.int64)), t(geom),
+        t(px), t(py), t(rows.astype(np.int32)), t(edges),
+        t(bits.astype(np.uint32).view(np.int32)), t(geom),
         eps2=None if eps2 is None else torch.tensor(eps2, device=device),
     )
 
@@ -62,11 +62,18 @@ def _port_heavy(px, py, rows, edges, bits, geom, eps2=None, device="cpu"):
 # ------------------------------------------------------------ heavy kernel
 
 
+#: per seed, the heavy-table shape; seed 33 fills all 32 slots of a row,
+#: so bit 31 (the sign bit of the port's int32 slot bits) is set
+_HEAVY_SHAPES = {9: {}, 21: {}, 33: dict(H=4, E2=64, M2=32, K=600)}
+
+
 @pytest.mark.parametrize("banded", [False, True])
-@pytest.mark.parametrize("seed", [9, 21])
+@pytest.mark.parametrize("seed", sorted(_HEAVY_SHAPES))
 def test_pip_heavy_plain_equals_reference_kernel(banded, seed):
     """Tolerance 0: best and the band mask equal the Pallas kernel's."""
-    px, py, rows, edges, bits, geom = _heavy_inputs(seed)
+    px, py, rows, edges, bits, geom = _heavy_inputs(seed, **_HEAVY_SHAPES[seed])
+    if geom.shape[1] == 32:
+        assert (bits == np.uint32(1 << 31)).any()
     eps2 = np.float32(1e-3) if banded else None
     want_b, want_n = RP.pip_heavy_tiled(
         jnp.asarray(px), jnp.asarray(py), jnp.asarray(rows),
@@ -94,7 +101,7 @@ def test_pip_heavy_matches_ray_parity_reference():
     r = np.maximum(rows, 0)
     par, ref_near = TJ._ray_parity(
         torch.as_tensor(px), torch.as_tensor(py), torch.as_tensor(edges[r]),
-        torch.as_tensor(bits[r].astype(np.int64)), eps2=torch.tensor(eps2),
+        torch.as_tensor(bits[r].view(np.int32)), eps2=torch.tensor(eps2),
     )
     par = par.numpy()
     g = geom[r]
@@ -110,9 +117,9 @@ def test_pip_heavy_rejects_f64_tables():
     z = torch.zeros(1, dtype=torch.float32)
     with pytest.raises(ValueError, match="float32"):
         TP.pip_heavy_tiled(
-            z, z, torch.zeros(1, dtype=torch.int64),
+            z, z, torch.zeros(1, dtype=torch.int32),
             torch.zeros((1, 8, 4), dtype=torch.float64),
-            torch.zeros((1, 8), dtype=torch.int64),
+            torch.zeros((1, 8), dtype=torch.int32),
             torch.zeros((1, 2), dtype=torch.int32),
         )
 
@@ -122,9 +129,9 @@ def test_pip_heavy_rejects_untiled_tiles(kw):
     z = torch.zeros(16, dtype=torch.float32)
     with pytest.raises(TP.TilingError):
         TP.pip_heavy_tiled(
-            z, z, torch.zeros(16, dtype=torch.int64),
+            z, z, torch.zeros(16, dtype=torch.int32),
             torch.zeros((1, 8, 4), dtype=torch.float32),
-            torch.zeros((1, 8), dtype=torch.int64),
+            torch.zeros((1, 8), dtype=torch.int32),
             torch.zeros((1, 2), dtype=torch.int32), **kw,
         )
 
