@@ -6,7 +6,8 @@
 Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: compiles ``mosaic_tpu_torch/kernels/csrc/pip.cu`` with nvcc;
+2. build: compiles ``mosaic_tpu_torch/kernels/csrc/pip.cu`` and ``zonal.cu``,
+   one nvcc each, started together;
 3. index: tessellates the 256 ``synthetic_zones(16, 16, verts=256)`` zones
    at H3 resolution 9 and builds the join index on the card;
 4. pip_heavy_tiled: the kernel on the real heavy tables and the compacted
@@ -21,7 +22,26 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    (at least ``MIN_ORACLE_AGREEMENT``: f32 rounding near boundaries is
    expected, a wrong path is not); then where the time of one warm join
    goes (stage times and the profiler's device time by op);
-7. a ``kernels`` line with each kernel's launches, times and bound.
+7. zonal_tiled: the kernel on the segments the zones probe gives on one
+   256x256 tile (the raster path's launch) and one 2048x2048 tile of the
+   raster below, equal to its plain version (count, min and max exactly;
+   the sum exactly on integer-valued data, to ``ZONAL_SUM_RTOL`` of the
+   segment's sum of |v| on float data), timed against its bound and the
+   four-call torch composite; then the fold lane's sequential CUDA fold
+   against the CPU lane, bit for bit in f64;
+8. raster path: ``synthetic_raster(4800, 4800)`` (23.04M pixels of about
+   12 x 14 m) over the same zones and index, default (256, 256) tiles:
+   ``ZonalEngine.zones`` in the tiled lane (must launch ``zonal_tiled``
+   once per tile with live pixels, and ``pip_heavy_tiled``), in the fold
+   lane, and ``ZonalEngine.grid``, each with its warm wall time and
+   pixels/s, and its device idle share on a 1024x1024 crop (the profiler
+   traces 16 tiles; the whole raster's ~10**6 device ops take it minutes);
+   then where one warm tiled zones call spends its time, stage by stage,
+   on the host clock. Gates: fold zones and grid on the 1024x1024 crop
+   equal the f64 host oracles bit for bit (agreement 1.0), and the tiled
+   lane equals the fold lane bit for bit on the values-mod-113 twin of the
+   whole raster (every zone total under 2**24);
+9. a ``kernels`` line with each kernel's launches, times and bound.
 
 Every phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -42,6 +62,9 @@ N_POINTS = 4_000_000       # the bench's batch
 N_ZONE = 500_000           # the bench's zone-kernel lane
 N_ZONE_CHECK = 16_384      # subset held against the plain version
 N_ORACLE = 100_000         # subset held against the f64 host oracle
+RASTER = (4800, 4800)      # width, height: the Sentinel-2 10 m class over NYC
+CROP = 1024                # side of the crop held against the f64 oracles
+NODATA = 32767
 RES = 9
 SEED = 11
 ZONES = (16, 16)
@@ -62,15 +85,77 @@ OPS_ZONE = 8
 #: boundaries, which the later epsilon-band recheck repairs); a path that
 #: is wrong, and not merely rounded, falls far below it
 MIN_ORACLE_AGREEMENT = 0.99
+#: zonal_tiled sums in chunk order, its plain version in another order, both
+#: in f64 rounded once to f32: on float data the two sums may differ at a
+#: rounding tie, by one f32 ulp, far inside this share of the segment's sum
+#: of |v|
+ZONAL_SUM_RTOL = 1e-6
+
+
+START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase line carries the script's elapsed
+    seconds as ``t_s``."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     return 1
+
+
+def result_rows(r) -> dict:
+    """{key: (count, sum, min, max)} with the f64 bit patterns kept."""
+    return {
+        int(k): (int(c), float(s).hex(), float(mn).hex(), float(mx).hex())
+        for k, c, s, mn, mx in zip(r.keys, r.count, r.sum, r.min, r.max)
+    }
+
+
+def agreement(got, want) -> float:
+    """Share of the rows of either result that the other matches bit for
+    bit (keys, counts, and the f64 bits of sum, min and max)."""
+    a, b = result_rows(got), result_rows(want)
+    keys = set(a) | set(b)
+    return sum(a.get(k) == b.get(k) for k in keys) / len(keys) if keys else 1.0
+
+
+def profile_device(fn):
+    """(device busy ms, [(ms, op, calls)] by device op, wall ms) of one
+    call of ``fn`` under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        # device-side events only (kernels and copies): the host-side
+        # aten ops carry the same device time again
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        if ev.key.startswith("Activity Buffer"):  # profiler bookkeeping
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.key, ev.count))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows), rows, wall_ms
+
+
+def idle_share(busy_ms, rows, warm_ms) -> dict:
+    """Device busy time and idle share against an unprofiled warm call."""
+    if not rows:
+        return {"device_busy_ms": "not measured", "device_idle_share": "not measured"}
+    return {"device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / warm_ms)}
 
 
 def main() -> int:
@@ -84,14 +169,21 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    import dataclasses
+
     import numpy as np
 
     from mosaic_tpu_torch.core.geometry.device import pack_to_device
     from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
     from mosaic_tpu_torch.core.tessellate import tessellate
-    from mosaic_tpu_torch.datasets import NYC_BBOX, random_points, synthetic_zones
+    from mosaic_tpu_torch.datasets import (
+        NYC_BBOX, random_points, synthetic_raster, synthetic_zones,
+    )
     from mosaic_tpu_torch.kernels import _build
     from mosaic_tpu_torch.kernels import pip as K
+    from mosaic_tpu_torch.kernels import zonal as Z
+    from mosaic_tpu_torch.raster import Raster, ZonalEngine, plan_tiles, stack_tiles
+    from mosaic_tpu_torch.raster import zonal as RZ
     from mosaic_tpu_torch.sql import join as J
 
     dev = torch.device(DEVICE)
@@ -111,10 +203,13 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _build.load("pip")
+    _build.load_all()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.BUILD_LOGS.get("pip", "").splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+    ptxas = {
+        name: [ln.strip() for ln in log.splitlines()
+               if "registers" in ln or "Compiling entry" in ln]
+        for name, log in _build.BUILD_LOGS.items()
+    }
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
 
     # 3. index
@@ -313,27 +408,8 @@ def main() -> int:
     }
     out_dev = torch.from_numpy(out).to(dev)
     stage_ms = {k: cuda_ms(fn, reps=5) for k, fn in stages.items()}
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        J.pip_join(raw, None, H3, RES, chip_index=ix, probe="adaptive")
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    rows_ = []
-    for ev in prof.key_averages():
-        # device-side events only (kernels and copies): the host-side
-        # aten ops carry the same device time again
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
-            continue
-        if ev.key.startswith("Activity Buffer"):  # profiler bookkeeping
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows_.append((dev_us / 1e3, ev.key, ev.count))
-    rows_.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows_)
+    busy_ms, rows_, prof_wall_ms = profile_device(
+        lambda: J.pip_join(raw, None, H3, RES, chip_index=ix, probe="adaptive"))
     # the profiler adds host time to the call it traces: the idle share is
     # taken against the best unprofiled warm call, and the traced call's
     # own wall time is printed beside it
@@ -341,20 +417,275 @@ def main() -> int:
     emit({
         "phase": "breakdown", "points": N_POINTS, "stage_ms": stage_ms,
         "warm_wall_ms": warm_ms, "profiled_wall_ms": prof_wall_ms,
-        "device_busy_ms": busy_ms if rows_ else "not measured",
-        "device_idle_share": (
-            max(0.0, 1.0 - busy_ms / warm_ms) if rows_ else "not measured"
-        ),
+        **idle_share(busy_ms, rows_, warm_ms),
         "top_device_ops": [
             {"op": k[:80], "ms": ms, "calls": c} for ms, k, c in rows_[:10]
         ],
     })
 
-    # 7. the kernels line
+    # 7. zonal_tiled on the segments the zones probe gives on the raster of
+    # phase 8, at the two launch sizes: a default 256x256 tile, a 2048x2048
+    # tile; both tiles centred on the raster
+    raster = synthetic_raster(*RASTER, NYC_BBOX, nodata=NODATA, seed=SEED)
+    probe_eng = ZonalEngine(H3, RES, chip_index=ix, lane="tiled")
+    n_seg = probe_eng.num_zones
+    rng = np.random.default_rng(SEED)
+    tiled, segs = {}, {}
+    for side in (256, 2048):
+        plan = plan_tiles(raster, (side, side))
+        ny, nx = -(-raster.height // side), -(-raster.width // side)
+        one = dataclasses.replace(plan, origins=plan.origins[[(ny // 2) * nx + nx // 2]])
+        vals, mask = stack_tiles(raster, one, 1, dtype=np.float32)
+        maskf = mask.reshape(-1)
+        geom = probe_eng._tile_zone_rows(one, 0, maskf)
+        seg_np = segs[side] = np.where(maskf & (geom >= 0), geom, -1).astype(np.int32)
+        s_d = torch.from_numpy(seg_np).to(dev)
+        live = s_d >= 0
+        data = {
+            "integer": torch.from_numpy(vals.reshape(-1) % 113).to(dev),
+            "float": torch.from_numpy(
+                rng.uniform(0, 32000, seg_np.size).astype(np.float32)).to(dev),
+        }
+        res = {"pixels": int(seg_np.size), "live_pixels": int(live.sum()), "S": n_seg}
+        err = 0.0
+        for kind, v_d in data.items():
+            got = Z.zonal_tiled(v_d, s_d, n_seg)
+            want = Z.zonal_tiled_plain(v_d, s_d, n_seg)
+            torch.cuda.synchronize()
+            exact3 = all(torch.equal(got[i], want[i]) for i in (0, 2, 3))
+            abs_sum = torch.zeros(n_seg, dtype=torch.float64, device=dev)
+            abs_sum.index_add_(0, s_d[live].long(), v_d[live].abs().double())
+            sum_err = (got[1].double() - want[1].double()).abs()
+            if kind == "integer":
+                ok = exact3 and torch.equal(got[1], want[1])
+                res["integer_max_zone_total"] = float(want[1].max())
+            else:
+                ok = exact3 and bool((sum_err <= ZONAL_SUM_RTOL * abs_sum).all())
+                res["float_max_rel_sum_err"] = float(
+                    (sum_err / abs_sum.clamp(min=1.0)).max())
+            res[f"equal_{kind}"] = ok
+            err = max(err, float(sum_err.max()),
+                      *(float((got[i].double() - want[i].double()).abs().max())
+                        for i in (0, 2, 3)))
+        v_d = data["float"]
+        segc = torch.where(live, s_d, n_seg).long()
+        ones = torch.ones_like(v_d)
+
+        def composite():
+            # four torch calls computing the same function (not used by the port)
+            c = torch.zeros(n_seg + 1, device=dev).scatter_reduce_(0, segc, ones, "sum")
+            t_ = torch.zeros(n_seg + 1, device=dev).index_add_(0, segc, v_d)
+            lo = torch.full((n_seg + 1,), 1e30, device=dev).scatter_reduce_(
+                0, segc, v_d, "amin")
+            hi = torch.full((n_seg + 1,), -1e30, device=dev).scatter_reduce_(
+                0, segc, v_d, "amax")
+            return c, t_, lo, hi
+
+        n_bytes = seg_np.size * (4 + 4) + 4 * n_seg * 4
+        b_ms, b_by = bound(n_bytes, 4 * seg_np.size)
+        res.update({
+            "match": res["equal_integer"] and res["equal_float"], "max_abs_err": err,
+            "ms": cuda_ms(lambda: Z.zonal_tiled(v_d, s_d, n_seg)),
+            "plain_ms": cuda_ms(lambda: Z.zonal_tiled_plain(v_d, s_d, n_seg), reps=5),
+            "composite_ms": cuda_ms(composite),
+            "composite": "index_add_ + 3 scatter_reduce_ (count, min, max)",
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+        tiled[side] = res
+        emit({"phase": "zonal_tiled", "tile": [side, side], **res})
+        if not res["match"]:
+            return fail(f"zonal_tiled differs from zonal_tiled_plain on the {side} tile")
+        if res["integer_max_zone_total"] >= 2 ** 24:
+            return fail("the integer check's zone totals are not f32-exact")
+
+    # the fold lane's sequential CUDA fold against the CPU lane, f64, on the
+    # 256 tile's segments and float values
+    small = tiled[256]
+    seg_np = segs[256]
+    fv = torch.from_numpy(rng.uniform(0, 32000, seg_np.size))
+    fs = torch.from_numpy(seg_np)
+    fv_d, fs_d = fv.to(dev), fs.to(dev)
+    got = Z.zonal_fold(fv_d, fs_d, n_seg, acc_dtype=torch.float64)
+    t0 = time.perf_counter()
+    want = Z.zonal_fold(fv, fs, n_seg, acc_dtype=torch.float64)
+    fold_plain_ms = (time.perf_counter() - t0) * 1e3
+    fold_ok = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    fold_bytes = seg_np.size * (8 + 4) + n_seg * (4 + 3 * 8)
+    fold_bound, fold_by = bound(fold_bytes, 4 * seg_np.size)
+    emit({
+        "phase": "zonal_fold_seq", "pixels": int(seg_np.size), "S": n_seg,
+        "dtype": "float64", "equal_to_cpu_lane": fold_ok,
+        "ms": cuda_ms(lambda: Z.zonal_fold(fv_d, fs_d, n_seg, acc_dtype=torch.float64)),
+        "plain_cpu_ms": fold_plain_ms, "bound_ms": fold_bound, "bound_by": fold_by,
+    })
+    if not fold_ok:
+        return fail("the CUDA fold lane differs from the sequential CPU lane")
+
+    # 8. the raster path, each path with the counts set to 0 just before it
+    counted = {
+        "zonal_tiled": Z.zonal_tiled, "zonal_fold": Z.zonal_fold,
+        "pip_heavy_tiled": K.pip_heavy_tiled, "pip_zone": K.pip_zone,
+    }
+    engines = {
+        "zones_tiled": ZonalEngine(H3, RES, chip_index=ix, lane="tiled"),
+        "zones_fold": ZonalEngine(H3, RES, chip_index=ix, lane="fold"),
+        "grid": ZonalEngine(H3, RES),
+    }
+    calls = {
+        "zones_tiled": lambda r: engines["zones_tiled"].zones(r),
+        "zones_fold": lambda r: engines["zones_fold"].zones(r),
+        "grid": lambda r: engines["grid"].grid(r),
+    }
+    n_tiles = plan_tiles(raster).ntiles
+    real_pixels = raster.height * raster.width
+    # the crop held against the oracles below; the profiler traces each path
+    # on it (16 tiles), as tracing the whole raster's ~10**6 device ops
+    # takes minutes
+    r0 = (raster.height - CROP) // 2
+    c0 = (raster.width - CROP) // 2
+    wx, wy = raster.raster_to_world(c0, r0)
+    gt = raster.gt
+    crop = Raster(data=raster.data[:, r0:r0 + CROP, c0:c0 + CROP].copy(),
+                  gt=(float(wx), gt[1], gt[2], float(wy), gt[4], gt[5]),
+                  srid=raster.srid, nodata=raster.nodata)
+    crop_tiles = plan_tiles(crop).ntiles
+    launches = {}
+    results = {}
+    for name, call in calls.items():
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        results[name] = call(raster)
+        cold_s = time.perf_counter() - t0
+        launches[name] = {k: fn.launches for k, fn in counted.items()}
+        warm_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            call(raster)
+            warm_s.append(time.perf_counter() - t0)
+        crop_warm_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            call(crop)
+            crop_warm_s.append(time.perf_counter() - t0)
+        busy, rows_r, prof_ms = profile_device(lambda: call(crop))
+        out_r = results[name]
+        emit({
+            "phase": f"raster_{name}", "pixels": real_pixels, "tiles": n_tiles,
+            "tile": list(plan_tiles(raster).shape), "launches": launches[name],
+            "keys": int(out_r.keys.size), "pixels_folded": int(out_r.pixels),
+            "cold_s": cold_s, "warm_s": warm_s,
+            "pixels_per_s": real_pixels / min(warm_s),
+            "profiled_on": f"{CROP}x{CROP} crop, {crop_tiles} tiles",
+            "crop_warm_s": crop_warm_s, "profiled_wall_ms": prof_ms,
+            **idle_share(busy, rows_r, min(crop_warm_s) * 1e3),
+            "device_ops_per_tile": sum(c for _, _, c in rows_r) / crop_tiles,
+            "top_device_ops": [
+                {"op": k[:80], "ms": ms, "calls": c} for ms, k, c in rows_r[:6]
+            ],
+        })
+    zl = launches["zones_tiled"]
+    if zl["zonal_tiled"] <= 0 or zl["pip_heavy_tiled"] <= 0:
+        return fail(f"the tiled zones path launched {zl}: it must launch "
+                    "zonal_tiled and pip_heavy_tiled")
+    if zl["zonal_tiled"] != launches["zones_fold"]["zonal_fold"]:
+        return fail("zonal_tiled did not launch once per tile with live pixels "
+                    f"({zl['zonal_tiled']} against the fold lane's "
+                    f"{launches['zones_fold']['zonal_fold']})")
+    if launches["grid"]["zonal_fold"] <= 0:
+        return fail("the grid path never launched the fold")
+    for name, r in results.items():
+        ok = (r.keys.size > 0 and np.isfinite(r.sum).all() and (r.count > 0).all()
+              and r.pixels == int(r.count.sum()) and r.pixels <= real_pixels)
+        if name != "grid":
+            ok = ok and int(r.keys.min()) >= 0 and int(r.keys.max()) < len(zones)
+        if not ok:
+            return fail(f"raster {name} result is not well formed")
+
+    # where the time of one warm tiled zones call goes, on the host clock:
+    # each tile's probe (pixel centers, f64 H3 cells, pip_join_points), the
+    # rest of its zone rows (copy back, epsilon-band host re-join), its fold
+    # (copies in, zonal_tiled), and the rest (staging, per-tile merge)
+    eng = engines["zones_tiled"]
+    stage_s = {"probe": 0.0, "rows": 0.0, "fold": 0.0}
+
+    def timed(stage, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stage_s[stage] += time.perf_counter() - t0
+            return out
+        return run
+
+    eng._zones_probe = timed("probe", eng._zones_probe)
+    eng._tile_zone_rows = timed("rows", eng._tile_zone_rows)
+    eng._zones_fold = timed("fold", eng._zones_fold)
+    t0 = time.perf_counter()
+    eng.zones(raster)
+    total_s = time.perf_counter() - t0
+    del eng._zones_probe, eng._tile_zone_rows, eng._zones_fold
+    emit({
+        "phase": "raster_breakdown", "call": "zones_tiled", "tiles": n_tiles,
+        "wall_s": total_s,
+        "stage_s": {
+            "probe": stage_s["probe"],
+            "rows_copy_back_and_band_rejoin": stage_s["rows"] - stage_s["probe"],
+            "fold": stage_s["fold"],
+            "staging_and_merge": total_s - stage_s["rows"] - stage_s["fold"],
+        },
+        "ms_per_tile": total_s * 1e3 / n_tiles,
+    })
+
+    # gates: the fold lane and the grid against the f64 host oracles on the
+    # crop; the tiled lane against the fold lane on the mod-113 twin
+    t0 = time.perf_counter()
+    zones_agree = agreement(engines["zones_fold"].zones(crop),
+                            RZ.host_zonal_zones_oracle(crop, ix, H3, RES))
+    grid_agree = agreement(engines["grid"].grid(crop),
+                           RZ.host_zonal_grid_oracle(crop, RES, H3))
+    oracle_s = time.perf_counter() - t0
+    # f64 H3 cells of the crop's pixel centers: the card's against numpy's
+    cplan = plan_tiles(crop)
+    mismatch, first = 0, None
+    for t in range(cplan.ntiles):
+        d = engines["grid"]._assign(cplan.gt, cplan.origins[t], *cplan.shape).cpu().numpy()
+        pts = RZ.host_tile_centers(cplan, t)
+        h = H3.point_to_cell(pts, RES)
+        bad = np.nonzero(d != h)[0]
+        mismatch += bad.size
+        if bad.size and first is None:
+            first = {"tile": t, "pixel": int(bad[0]), "xy": pts[bad[0]].tolist(),
+                     "card": int(d[bad[0]]), "host": int(h[bad[0]])}
+    twin = Raster(
+        data=np.where(raster.data == NODATA, NODATA, raster.data % 113).astype(np.int16),
+        gt=raster.gt, srid=raster.srid, nodata=raster.nodata,
+    )
+    twin_fold = engines["zones_fold"].zones(twin)
+    twin_agree = agreement(engines["zones_tiled"].zones(twin), twin_fold)
+    emit({
+        "phase": "raster_gates", "crop": [CROP, CROP],
+        "fold_zones_vs_oracle": zones_agree, "grid_vs_oracle": grid_agree,
+        "oracle_s": oracle_s, "crop_cells_card_vs_host_mismatch": mismatch,
+        "first_cell_mismatch": first,
+        "tiled_vs_fold_on_twin": twin_agree,
+        "twin_max_zone_total": float(twin_fold.sum.max()),
+    })
+    if zones_agree != 1.0 or grid_agree != 1.0:
+        return fail(f"fold zones / grid agree with the f64 oracles on "
+                    f"{zones_agree} / {grid_agree} of the crop's rows")
+    if twin_fold.sum.max() >= 2 ** 24:
+        return fail("the twin's zone totals are not f32-exact")
+    if twin_agree != 1.0:
+        return fail(f"tiled zones agree with fold zones on {twin_agree} of the twin")
+
+    # 9. the kernels line
     src = "mosaic_tpu_torch/kernels/csrc/pip.cu"
     kernels = {"kernels": [
         {"name": "pip_heavy_tiled", "route": "cuda", "source": src,
          "replaces": "mosaic_tpu/kernels/pip.py:492", "launches": heavy_launches,
+         "launches_raster_zones_tiled": zl["pip_heavy_tiled"],
          "match": heavy_ok, "max_abs_err": heavy_err,
          "ms": heavy_ms, "plain_ms": heavy_plain_ms,
          "bound_ms": heavy_bound, "bound_by": heavy_by, "library_ms": None},
@@ -363,6 +694,16 @@ def main() -> int:
          "match": zone_ok, "max_abs_err": zone_err,
          "ms": zone_ms, "plain_ms": zone_plain_ms,
          "bound_ms": zone_bound, "bound_by": zone_by, "library_ms": None},
+        {"name": "zonal_tiled", "route": "cuda",
+         "source": "mosaic_tpu_torch/kernels/csrc/zonal.cu",
+         "replaces": "mosaic_tpu/kernels/zonal.py:196", "launches": zl["zonal_tiled"],
+         "match": small["match"] and tiled[2048]["match"],
+         "max_abs_err": max(small["max_abs_err"], tiled[2048]["max_abs_err"]),
+         "ms": small["ms"], "plain_ms": small["plain_ms"],
+         "bound_ms": small["bound_ms"], "bound_by": small["bound_by"],
+         "library_ms": small["composite_ms"], "library": small["composite"],
+         "pixels": small["pixels"], "ms_2048": tiled[2048]["ms"],
+         "bound_ms_2048": tiled[2048]["bound_ms"]},
     ]}
     print(card, flush=True)
     emit(kernels)

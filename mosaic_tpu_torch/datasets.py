@@ -51,6 +51,44 @@ def synthetic_zones(
     return b.build()
 
 
+def synthetic_raster(
+    width: int,
+    height: int,
+    bbox: tuple[float, float, float, float] = NYC_BBOX,
+    bands: int = 1,
+    nodata: int = 32767,
+    seed: int = 0,
+):
+    """A ``Raster`` of ``bands`` smooth int16 fields in ``[0, 32000]``
+    whose north-up geotransform covers ``bbox``, with ``nodata`` on about
+    a fifth of the pixels: an elliptical blob (~15%) plus speckle (~5%).
+    A sensor-tile stand-in (reflectance-like values, a masked region, a
+    nodata tag outside the value range)."""
+    from .raster.core import Raster
+
+    rng = np.random.default_rng(seed)
+    xmin, ymin, xmax, ymax = bbox
+    x = np.arange(width, dtype=np.float64)[None, :] / max(width, 1)
+    y = np.arange(height, dtype=np.float64)[:, None] / max(height, 1)
+    blob = ((x - 0.7) / 0.25) ** 2 + ((y - 0.3) / 0.2) ** 2 < 1.0
+    out = np.empty((bands, height, width), dtype=np.int16)
+    for b in range(bands):
+        phase = rng.uniform(0, 2 * np.pi, 2)
+        field = (
+            16000.0
+            + 9000.0 * np.sin(x * 9.0 + phase[0]) * np.cos(y * 7.0)
+            + 6000.0 * np.cos((x + 2.0 * y) * 5.0 + phase[1])
+        )
+        band = np.clip(field, 0, 32000).astype(np.int16)
+        band[blob | (rng.random((height, width)) < 0.05)] = nodata
+        out[b] = band
+    gt = (
+        float(xmin), (xmax - xmin) / width, 0.0,
+        float(ymax), 0.0, -(ymax - ymin) / height,
+    )
+    return Raster(data=out, gt=gt, srid=4326, nodata=float(nodata))
+
+
 def random_points(
     n: int,
     bbox: tuple[float, float, float, float] = NYC_BBOX,

@@ -4,7 +4,8 @@ Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes`` — no PyTorch headers, so a build
 takes seconds. Libraries go to ``kernels/.build/`` (ignored by git),
 named by a hash of the source and flags, and are built on first use:
-nothing is compiled when the package is imported.
+nothing is compiled when the package is imported. :func:`load_all`
+builds every missing library at once, one nvcc process per source.
 
 Flags: ``sm_90a`` (Hopper), ``-fmad=false`` so that no multiply-add is
 contracted, IEEE division and square root, no fast math — the kernels are
@@ -22,7 +23,10 @@ import threading
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = {"pip": _HERE / "csrc" / "pip.cu"}
+SOURCES = {
+    "pip": _HERE / "csrc" / "pip.cu",
+    "zonal": _HERE / "csrc" / "zonal.cu",
+}
 BUILD_DIR = _HERE / ".build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,6 +49,16 @@ SIGNATURES = {
         "mosaic_pip_heavy": (
             _P, _P, _P, _LL, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P,
         ),
+    },
+    "zonal": {
+        # vals, seg, n, S, tile_n, tile_s, partials, psum, cnt, sum, min,
+        # max, stream
+        "mosaic_zonal_tiled": (
+            _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+        ),
+        # sorted_vals, starts, counts, S, cnt, sum, min, max, stream
+        "mosaic_zonal_seq_fold_f32": (_P, _P, _P, _I, _P, _P, _P, _P, _P),
+        "mosaic_zonal_seq_fold_f64": (_P, _P, _P, _I, _P, _P, _P, _P, _P),
     },
 }
 
@@ -74,23 +88,44 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
 
 
-def compile_library(name: str) -> Path:
-    """Run nvcc for one source unless its library is already built."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOGS[name] = proc.stdout + proc.stderr
-    if proc.returncode:
-        raise RuntimeError(
-            f"nvcc failed for {SOURCES[name].name} (rc {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{BUILD_LOGS[name]}"
+def compile_libraries(names) -> None:
+    """Build every library in ``names`` that is not built yet: one nvcc
+    per source, all started together, then waited for."""
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
-    os.replace(tmp, out)
-    return out
+        jobs.append((name, out, tmp, cmd, proc))
+    failed = []
+    for name, out, tmp, cmd, proc in jobs:
+        stdout, stderr = proc.communicate()
+        BUILD_LOGS[name] = stdout + stderr
+        if proc.returncode:
+            failed.append(
+                f"nvcc failed for {SOURCES[name].name} (rc {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{BUILD_LOGS[name]}"
+            )
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _bind(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+    _LIBS[name] = lib
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -98,13 +133,19 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(compile_library(name)))
-            for fn, argtypes in SIGNATURES[name].items():
-                f = getattr(lib, fn)
-                f.argtypes = list(argtypes)
-                f.restype = ctypes.c_int
-            _LIBS[name] = lib
+            compile_libraries([name])
+            lib = _bind(name)
         return lib
+
+
+def load_all() -> dict[str, ctypes.CDLL]:
+    """Every library, bound; the missing ones are built in parallel."""
+    with _LOCK:
+        missing = [n for n in SOURCES if n not in _LIBS]
+        compile_libraries(missing)
+        for name in missing:
+            _bind(name)
+        return dict(_LIBS)
 
 
 def check(rc: int, what: str) -> None:

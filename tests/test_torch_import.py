@@ -20,8 +20,13 @@ MODULES = [
     "mosaic_tpu_torch.core.tessellate",
     "mosaic_tpu_torch.core.geometry.device",
     "mosaic_tpu_torch.core.index.h3",
+    "mosaic_tpu_torch.core.index.custom",
+    "mosaic_tpu_torch.dispatch.bucket",
     "mosaic_tpu_torch.kernels.pip",
+    "mosaic_tpu_torch.kernels.zonal",
     "mosaic_tpu_torch.kernels._build",
+    "mosaic_tpu_torch.raster",
+    "mosaic_tpu_torch.raster.zonal",
     "mosaic_tpu_torch.runtime.escalate",
     "mosaic_tpu_torch.sql.join",
 ]

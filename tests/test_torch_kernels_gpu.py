@@ -1,5 +1,5 @@
-"""The CUDA kernels of `mosaic_tpu_torch/kernels/csrc/pip.cu` against their
-plain torch versions, on the card.
+"""The CUDA kernels of `mosaic_tpu_torch/kernels/csrc/pip.cu` and
+`csrc/zonal.cu` against their plain torch versions, on the card.
 
 The kernels have no CPU mode, so every test here is marked ``gpu`` and
 skips without CUDA. The file imports neither JAX nor the JAX package (the
@@ -8,9 +8,14 @@ machine that has PyTorch, the CUDA toolkit and one card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-(``--noconftest``: the suite's conftest imports JAX.) The bar is bit
-equality with the plain version (tolerance 0): both evaluate every f32
-operation with round-to-nearest and no fused multiply-add.
+(``--noconftest``: the suite's conftest imports JAX.) The bar for the pip
+kernels is bit equality with the plain version (tolerance 0): both
+evaluate every f32 operation with round-to-nearest and no fused
+multiply-add. `zonal_tiled` sums in another order than its plain version
+(both in f64, rounded once to f32), so count, min and max must be equal,
+and the sum too on integer-valued data; on float data the sum is held to
+``rtol=1e-6`` of the segment's sum of |v|. The f64 fold lane must equal a sequential loop in pixel order bit
+for bit.
 """
 
 import numpy as np
@@ -20,6 +25,7 @@ import torch
 from mosaic_tpu_torch.core.geometry.device import pack_to_device
 from mosaic_tpu_torch.datasets import synthetic_zones
 from mosaic_tpu_torch.kernels import pip as TP
+from mosaic_tpu_torch.kernels import zonal as TZ
 
 pytestmark = pytest.mark.gpu
 
@@ -113,3 +119,108 @@ def test_pip_zone_kernel_rejects_f64(cuda):
     planes, n_real = TP.edge_planes(dev)
     with pytest.raises(ValueError, match="float32"):
         TP.pip_zone(torch.zeros((4, 2), dtype=torch.float64, device=cuda), planes, n_real)
+
+
+# ------------------------------------------------------------------ zonal
+
+
+ZONAL_SUM_RTOL = 1e-6
+
+
+def _zonal_inputs(n, k, integer, seed):
+    rng = np.random.default_rng(seed)
+    if integer:
+        vals = rng.integers(0, 100, n).astype(np.float32)
+    else:
+        vals = rng.uniform(-100, 100, n).astype(np.float32)
+    seg = rng.integers(-1, k, n).astype(np.int32)
+    return vals, seg
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "float"])
+@pytest.mark.parametrize("k", [1, 127, 129, 256])
+@pytest.mark.parametrize("n", [1, 2047, 2049, 20_001])
+def test_zonal_tiled_kernel_equals_plain(cuda, n, k, integer):
+    """Pixel counts off the 2048-pixel chunk, segment counts off the
+    128-segment block."""
+    vals, seg = _zonal_inputs(n, k, integer, seed=n * 1000 + k)
+    v, s = torch.from_numpy(vals).to(cuda), torch.from_numpy(seg).to(cuda)
+    before = TZ.zonal_tiled.launches
+    got = TZ.zonal_tiled(v, s, k)
+    want = TZ.zonal_tiled_plain(v, s, k)
+    torch.cuda.synchronize()
+    assert TZ.zonal_tiled.launches == before + 1
+    assert [g.dtype for g in got] == [torch.int32] + [torch.float32] * 3
+    for i in (0, 2, 3):
+        assert torch.equal(got[i], want[i])
+    if integer:
+        assert torch.equal(got[1], want[1])
+    else:
+        abs_sum = torch.zeros(k, dtype=torch.float64, device=cuda)
+        live = s >= 0
+        abs_sum.index_add_(0, s[live].long(), v[live].abs().double())
+        err = (got[1].double() - want[1].double()).abs()
+        assert bool((err <= ZONAL_SUM_RTOL * abs_sum).all())
+
+
+def test_zonal_tiled_kernel_long_runs(cuda):
+    """Raster-like segments: four runs of 16,384 pixels each, float data.
+    A sequential f32 sum over such a run drifts with the order by more
+    than the tolerance; the f64 accumulation does not."""
+    rng = np.random.default_rng(7)
+    v = torch.from_numpy(rng.uniform(0, 32000, 65_536).astype(np.float32)).to(cuda)
+    s = (torch.arange(65_536, device=cuda) // 16_384).to(torch.int32)
+    got = TZ.zonal_tiled(v, s, 4)
+    want = TZ.zonal_tiled_plain(v, s, 4)
+    torch.cuda.synchronize()
+    for i in (0, 2, 3):
+        assert torch.equal(got[i], want[i])
+    abs_sum = v.double().reshape(4, -1).sum(dim=1)
+    err = (got[1].double() - want[1].double()).abs()
+    assert bool((err <= ZONAL_SUM_RTOL * abs_sum).all())
+
+
+def test_zonal_tiled_kernel_all_segments_dropped(cuda):
+    v = torch.arange(5000, dtype=torch.float32, device=cuda)
+    for fill in (-1, 300):  # -1, and ids past the last segment
+        s = torch.full((5000,), fill, dtype=torch.int32, device=cuda)
+        cnt, sm, mn, mx = TZ.zonal_tiled(v, s, 256)
+        torch.cuda.synchronize()
+        assert int(cnt.abs().sum()) == 0 and float(sm.abs().sum()) == 0.0
+        assert bool((mn == 1e30).all()) and bool((mx == -1e30).all())
+
+
+def test_zonal_tiled_kernel_empty_batch(cuda):
+    """No pixels: no launch, the empty-segment sentinels."""
+    before = TZ.zonal_tiled.launches
+    cnt, sm, mn, mx = TZ.zonal_tiled(
+        torch.zeros(0, device=cuda), torch.zeros(0, dtype=torch.int32, device=cuda), 5
+    )
+    assert TZ.zonal_tiled.launches == before
+    assert cnt.shape == (5,) and cnt.dtype == torch.int32 and int(cnt.sum()) == 0
+    assert bool((mn == 1e30).all()) and bool((mx == -1e30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n, k", [(1, 1), (4096, 37), (200_000, 3), (65_536, 256)])
+def test_zonal_fold_cuda_is_sequential(cuda, n, k, dtype):
+    """The fold lane on the card: each segment summed in pixel order, so
+    it equals the CPU lane (a sequential loop) bit for bit."""
+    rng = np.random.default_rng(n + k)
+    vals = rng.uniform(-50, 50, n)
+    seg = rng.integers(-1, k, n).astype(np.int32)
+    before = TZ.zonal_fold.launches
+    got = TZ.zonal_fold(torch.from_numpy(vals).to(cuda), torch.from_numpy(seg).to(cuda),
+                        k, acc_dtype=dtype)
+    want = TZ.zonal_fold(torch.from_numpy(vals), torch.from_numpy(seg), k, acc_dtype=dtype)
+    torch.cuda.synchronize()
+    assert TZ.zonal_fold.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+    if dtype == torch.float64:
+        s = np.zeros(k)
+        for g_, v in zip(seg.tolist(), vals.tolist()):
+            if g_ >= 0:
+                s[g_] += v
+        assert got[1].cpu().numpy().tobytes() == s.tobytes()
