@@ -26,9 +26,13 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    256x256 tile (the raster path's launch) and one 2048x2048 tile of the
    raster below, equal to its plain version (count, min and max exactly;
    the sum exactly on integer-valued data, to ``ZONAL_SUM_RTOL`` of the
-   segment's sum of |v| on float data), timed against its bound and the
-   four-call torch composite; then the fold lane's sequential CUDA fold
-   against the CPU lane, bit for bit in f64;
+   segment's sum of |v| on float data; two calls equal bit for bit),
+   timed against its bound and the four-call torch composite; then the
+   fold lane's ``zonal_seq_fold`` against the CPU lane, bit for bit in
+   f64, on the 256x256 tile's integer values (the exact branch) and on
+   float values (the sequential branch): the wrapper's time, the
+   kernel's own, the longest run, the longest sequential-branch run and
+   the measured latency of one dependent ``__dadd_rn`` that bounds it;
 8. raster path: ``synthetic_raster(4800, 4800)`` (23.04M pixels of about
    12 x 14 m) over the same zones and index, default (256, 256) tiles:
    ``ZonalEngine.zones`` in the tiled lane (must launch ``zonal_tiled``
@@ -41,7 +45,17 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    equal the f64 host oracles bit for bit (agreement 1.0), and the tiled
    lane equals the fold lane bit for bit on the values-mod-113 twin of the
    whole raster (every zone total under 2**24);
-9. a ``kernels`` line with each kernel's launches, times and bound.
+9. a ``kernels`` line with each kernel's launches, times and bound, and
+   each raster kernel's device time per launch in the crop profile.
+
+A kernel's ``ms`` is its device time per launch from the profiler over
+repeated calls at the phase's shapes; ``wrapper_ms`` is CUDA events
+around the wrapper call, which a short kernel leaves to the host's
+dispatch.
+
+The build phase reports each kernel's FFMA/DFMA count in the SASS
+(``cuobjdump -sass``): the kernels build with ``-fmad=false``, so only
+IEEE division's own sequence holds any.
 
 Every phase prints one JSON line; any failed check exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -70,8 +84,14 @@ SEED = 11
 ZONES = (16, 16)
 DEVICE = "cuda"
 
-#: H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
-PEAK_F32 = 67e12
+#: H100 SXM rates: HBM3 bytes/s (NVIDIA data sheet); single f32 and f64
+#: operations per second outside the tensor cores. The data sheet's 67 and
+#: 34 TFLOP/s count a fused multiply-add as two operations; the kernels
+#: build with -fmad=false and the counts below are of single operations,
+#: so the rate is one per lane and clock: 132 SMs x 128 f32 lanes (64 f64
+#: lanes) x 1.98 GHz
+PEAK_F32 = 132 * 128 * 1.98e9
+PEAK_F64 = 132 * 64 * 1.98e9
 PEAK_BYTES = 3.35e12
 #: f32 operations per (point, real edge) test of the heavy kernel without
 #: the band: 3 compares, 1 equality test, 3 subtractions, 1 multiply,
@@ -116,6 +136,18 @@ def result_rows(r) -> dict:
     }
 
 
+def same_bits(a, b) -> bool:
+    """Tensors of two results equal bit for bit (-0.0 is not +0.0, NaN
+    payloads count)."""
+    import torch
+
+    def view(t):
+        t = t.detach().cpu().contiguous()
+        return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+    return all(x.dtype == y.dtype and torch.equal(view(x), view(y)) for x, y in zip(a, b))
+
+
 def agreement(got, want) -> float:
     """Share of the rows of either result that the other matches bit for
     bit (keys, counts, and the f64 bits of sum, min and max)."""
@@ -148,6 +180,58 @@ def profile_device(fn):
             rows.append((dev_us / 1e3, ev.key, ev.count))
     rows.sort(reverse=True)
     return sum(r[0] for r in rows), rows, wall_ms
+
+
+def sass_fma_counts(build) -> dict:
+    """{library: {kernel: {"FFMA": n, "DFMA": n}}} from ``cuobjdump -sass``
+    of each built library: multiply-adds the compiler fused on its own
+    (none with -fmad=false; IEEE division's own sequence uses FFMA), or
+    "not measured" without cuobjdump."""
+    out = {}
+    for name in build.SOURCES:
+        try:
+            tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+            sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                                  capture_output=True, text=True, timeout=120).stdout
+        except (OSError, RuntimeError) as exc:
+            return {"not measured": str(exc)[:200]}
+        counts, fn = {}, None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                fn = ln.split("Function :", 1)[1].strip()
+                counts[fn] = {"FFMA": 0, "DFMA": 0}
+            elif fn is not None:
+                for op in ("FFMA", "DFMA"):
+                    if f" {op} " in ln or f" {op}." in ln:
+                        counts[fn][op] += 1
+        out[name] = counts
+    return out
+
+
+#: device-op name fragments of each hand-written kernel, for the profiles
+KERNEL_OPS = {
+    "pip_heavy_tiled": ("pip_heavy_kernel",),
+    "pip_zone": ("pip_zone_kernel",),
+    "zonal_tiled": ("zonal_tiled_partial_kernel", "zonal_tiled_merge_kernel"),
+    "zonal_seq_fold": ("zonal_seq_fold_kernel",),
+}
+
+
+def kernel_times(rows) -> dict:
+    """{kernel: {"ms", "launches", "ms_per_launch"}} from a profile's device
+    ops; a kernel of two device kernels counts the first one's calls as its
+    launches."""
+    out = {}
+    for name, frags in KERNEL_OPS.items():
+        ms, calls = 0.0, 0
+        for dev_ms, key, c in rows:
+            if any(f in key for f in frags):
+                ms += dev_ms
+                if frags[0] in key:
+                    calls += c
+        if calls:
+            out[name] = {"ms": ms, "launches": calls, "ms_per_launch": ms / calls}
+    return out
 
 
 def idle_share(busy_ms, rows, warm_ms) -> dict:
@@ -210,7 +294,8 @@ def main() -> int:
                if "registers" in ln or "Compiling entry" in ln]
         for name, log in _build.BUILD_LOGS.items()
     }
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+          "sass_fma_by_kernel": sass_fma_counts(_build)})
 
     # 3. index
     H3 = H3IndexSystem()
@@ -255,8 +340,26 @@ def main() -> int:
         torch.cuda.synchronize()
         return s.elapsed_time(e) / reps
 
-    def bound(n_bytes, n_ops):
-        t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
+    def device_ms(fn, kernel, reps=20):
+        """Device time per launch of ``kernel`` over ``reps`` calls of
+        ``fn``, from the profiler: the kernel's own time, without the host
+        dispatch that CUDA events around a short call also catch."""
+        fn()
+        torch.cuda.synchronize()
+
+        def many():
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+
+        k = kernel_times(profile_device(many)[1]).get(kernel)
+        return k["ms_per_launch"] if k else "not measured"
+
+    def bound(n_bytes, n_ops, peak_ops=PEAK_F32, chain_s=0.0):
+        """(ms, "bytes" or "operations"): the larger of the bytes over the
+        memory rate and the operations over the peak rate, or a dependent
+        chain of operations (``chain_s``) where that is longer."""
+        t_b, t_o = n_bytes / PEAK_BYTES, max(n_ops / peak_ops, chain_s)
         return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
     # 4. pip_heavy_tiled on the compacted heavy points of the 4M batch,
@@ -287,6 +390,7 @@ def main() -> int:
         heavy_err = max(heavy_err, int((kb.long() - pb.long()).abs().max()))
         heavy_ok &= torch.equal(kb, pb) and (e2 is None or torch.equal(kn, pn))
     heavy_ms = cuda_ms(lambda: K.pip_heavy_tiled(*heavy_args))
+    heavy_dev_ms = device_ms(lambda: K.pip_heavy_tiled(*heavy_args), "pip_heavy_tiled")
     heavy_plain_ms = cuda_ms(lambda: K.pip_heavy_plain(*heavy_args), reps=3)
     real_edges = (ix.heavy_ebits != 0).sum(dim=1)
     heavy_tests = int(real_edges[rows].sum())
@@ -299,7 +403,7 @@ def main() -> int:
     emit({
         "phase": "pip_heavy_tiled", "points": nh, "rows": H, "E2": E2, "M2": M2,
         "edge_tests": heavy_tests, "equal": heavy_ok,
-        "ms": heavy_ms, "plain_ms": heavy_plain_ms,
+        "ms": heavy_dev_ms, "wrapper_ms": heavy_ms, "plain_ms": heavy_plain_ms,
         "bound_ms": heavy_bound, "bound_by": heavy_by,
     })
     if not heavy_ok:
@@ -318,13 +422,14 @@ def main() -> int:
     zone_err = int((kz.long() - pz.long()).abs().max())
     E, G = planes.shape[1], planes.shape[2]
     zone_ms = cuda_ms(lambda: K.pip_zone(zpts, planes, n_real), reps=5)
+    zone_dev_ms = device_ms(lambda: K.pip_zone(zpts, planes, n_real), "pip_zone", reps=5)
     zone_plain_ms = cuda_ms(lambda: K.pip_zone_plain(zpts, planes, n_real), reps=1)
     zone_bytes = N_ZONE * (8 + 4) + planes.numel() * 4
     zone_bound, zone_by = bound(zone_bytes, OPS_ZONE * N_ZONE * G * E)
     emit({
         "phase": "pip_zone", "points": N_ZONE, "zone_slots": G, "edges": E,
         "equal_on_subset": zone_ok, "subset": N_ZONE_CHECK,
-        "ms": zone_ms, "plain_ms": zone_plain_ms,
+        "ms": zone_dev_ms, "wrapper_ms": zone_ms, "plain_ms": zone_plain_ms,
         "bound_ms": zone_bound, "bound_by": zone_by,
     })
     if not zone_ok:
@@ -430,12 +535,13 @@ def main() -> int:
     probe_eng = ZonalEngine(H3, RES, chip_index=ix, lane="tiled")
     n_seg = probe_eng.num_zones
     rng = np.random.default_rng(SEED)
-    tiled, segs = {}, {}
+    tiled, segs, tile_vals = {}, {}, {}
     for side in (256, 2048):
         plan = plan_tiles(raster, (side, side))
         ny, nx = -(-raster.height // side), -(-raster.width // side)
         one = dataclasses.replace(plan, origins=plan.origins[[(ny // 2) * nx + nx // 2]])
         vals, mask = stack_tiles(raster, one, 1, dtype=np.float32)
+        tile_vals[side] = vals.reshape(-1)
         maskf = mask.reshape(-1)
         geom = probe_eng._tile_zone_rows(one, 0, maskf)
         seg_np = segs[side] = np.where(maskf & (geom >= 0), geom, -1).astype(np.int32)
@@ -450,9 +556,11 @@ def main() -> int:
         err = 0.0
         for kind, v_d in data.items():
             got = Z.zonal_tiled(v_d, s_d, n_seg)
+            again = Z.zonal_tiled(v_d, s_d, n_seg)
             want = Z.zonal_tiled_plain(v_d, s_d, n_seg)
             torch.cuda.synchronize()
             exact3 = all(torch.equal(got[i], want[i]) for i in (0, 2, 3))
+            exact3 = exact3 and same_bits(got, again)
             abs_sum = torch.zeros(n_seg, dtype=torch.float64, device=dev)
             abs_sum.index_add_(0, s_d[live].long(), v_d[live].abs().double())
             sum_err = (got[1].double() - want[1].double()).abs()
@@ -485,7 +593,8 @@ def main() -> int:
         b_ms, b_by = bound(n_bytes, 4 * seg_np.size)
         res.update({
             "match": res["equal_integer"] and res["equal_float"], "max_abs_err": err,
-            "ms": cuda_ms(lambda: Z.zonal_tiled(v_d, s_d, n_seg)),
+            "ms": device_ms(lambda: Z.zonal_tiled(v_d, s_d, n_seg), "zonal_tiled"),
+            "wrapper_ms": cuda_ms(lambda: Z.zonal_tiled(v_d, s_d, n_seg)),
             "plain_ms": cuda_ms(lambda: Z.zonal_tiled_plain(v_d, s_d, n_seg), reps=5),
             "composite_ms": cuda_ms(composite),
             "composite": "index_add_ + 3 scatter_reduce_ (count, min, max)",
@@ -498,25 +607,55 @@ def main() -> int:
         if res["integer_max_zone_total"] >= 2 ** 24:
             return fail("the integer check's zone totals are not f32-exact")
 
-    # the fold lane's sequential CUDA fold against the CPU lane, f64, on the
-    # 256 tile's segments and float values
+    # the fold lane's zonal_seq_fold against the CPU lane, f64 bit for bit,
+    # on the 256 tile's segments: the raster's integer values (the exact
+    # branch) and float values (the sequential branch)
     small = tiled[256]
     seg_np = segs[256]
-    fv = torch.from_numpy(rng.uniform(0, 32000, seg_np.size))
+    dadd_cycles, dadd_ns = Z.dadd_latency(dev)
     fs = torch.from_numpy(seg_np)
-    fv_d, fs_d = fv.to(dev), fs.to(dev)
-    got = Z.zonal_fold(fv_d, fs_d, n_seg, acc_dtype=torch.float64)
-    t0 = time.perf_counter()
-    want = Z.zonal_fold(fv, fs, n_seg, acc_dtype=torch.float64)
-    fold_plain_ms = (time.perf_counter() - t0) * 1e3
-    fold_ok = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
-    fold_bytes = seg_np.size * (8 + 4) + n_seg * (4 + 3 * 8)
-    fold_bound, fold_by = bound(fold_bytes, 4 * seg_np.size)
+    fs_d = fs.to(dev)
+    live_n = int((seg_np >= 0).sum())
+    fold = {}
+    for kind, fv in (
+        ("integer", torch.from_numpy(tile_vals[256].astype(np.float64))),
+        ("float", torch.from_numpy(rng.uniform(0, 32000, seg_np.size))),
+    ):
+        fv_d = fv.to(dev)
+        got = Z.zonal_fold(fv_d, fs_d, n_seg, acc_dtype=torch.float64)
+        again = Z.zonal_fold(fv_d, fs_d, n_seg, acc_dtype=torch.float64)
+        t0 = time.perf_counter()
+        want = Z.zonal_fold(fv, fs, n_seg, acc_dtype=torch.float64)
+        plain_cpu_ms = (time.perf_counter() - t0) * 1e3
+        ok = same_bits(got, want) and same_bits(got, again)
+        live_seg = want[0] > 0  # empty segments hold +-inf on both lanes
+        err = max(float((g.cpu().double() - w.double())[live_seg].abs().max())
+                  for g, w in zip(got, want)) if bool(live_seg.any()) else 0.0
+        segc = torch.where(fs_d >= 0, fs_d, n_seg)
+        counts = torch.bincount(segc, minlength=n_seg + 1)[:n_seg]
+        exact = Z.exact_sum_ok(fv_d, fs_d, n_seg)
+        seq_run = int(torch.where(exact, 0, counts).max())
+        # 8-byte value and 4-byte id in a pixel; count and three f64 out
+        n_bytes = seg_np.size * (8 + 4) + n_seg * (4 + 3 * 8)
+        # per live pixel: one f64 add, two f64 compares
+        b_ms, b_by = bound(n_bytes, 3 * live_n, PEAK_F64, seq_run * dadd_ns * 1e-9)
+        fold[kind] = {
+            "equal_to_cpu_lane": ok, "max_abs_err": err, "longest_run": int(counts.max()),
+            "longest_sequential_run": seq_run,
+            "exact_segments": int(exact.sum()),
+            "ms": device_ms(lambda: Z.zonal_fold(
+                fv_d, fs_d, n_seg, acc_dtype=torch.float64), "zonal_seq_fold"),
+            "wrapper_ms": cuda_ms(lambda: Z.zonal_fold(
+                fv_d, fs_d, n_seg, acc_dtype=torch.float64)),
+            "plain_ms": cuda_ms(lambda: Z.zonal_seq_fold_plain(
+                fv_d, fs_d, n_seg, acc_dtype=torch.float64), reps=5),
+            "plain_cpu_ms": plain_cpu_ms, "bound_ms": b_ms, "bound_by": b_by,
+        }
+    fold_ok = all(f["equal_to_cpu_lane"] for f in fold.values())
     emit({
-        "phase": "zonal_fold_seq", "pixels": int(seg_np.size), "S": n_seg,
-        "dtype": "float64", "equal_to_cpu_lane": fold_ok,
-        "ms": cuda_ms(lambda: Z.zonal_fold(fv_d, fs_d, n_seg, acc_dtype=torch.float64)),
-        "plain_cpu_ms": fold_plain_ms, "bound_ms": fold_bound, "bound_by": fold_by,
+        "phase": "zonal_fold_seq", "pixels": int(seg_np.size), "live_pixels": live_n,
+        "S": n_seg, "dtype": "float64", "dadd_latency_cycles": dadd_cycles,
+        "dadd_latency_ns": dadd_ns, **fold,
     })
     if not fold_ok:
         return fail("the CUDA fold lane differs from the sequential CPU lane")
@@ -551,6 +690,7 @@ def main() -> int:
     crop_tiles = plan_tiles(crop).ntiles
     launches = {}
     results = {}
+    crop_kernels = {}
     for name, call in calls.items():
         for fn in counted.values():
             fn.launches = 0
@@ -569,6 +709,7 @@ def main() -> int:
             call(crop)
             crop_warm_s.append(time.perf_counter() - t0)
         busy, rows_r, prof_ms = profile_device(lambda: call(crop))
+        crop_kernels[name] = kernel_times(rows_r)
         out_r = results[name]
         emit({
             "phase": f"raster_{name}", "pixels": real_pixels, "tiles": n_tiles,
@@ -580,6 +721,7 @@ def main() -> int:
             "crop_warm_s": crop_warm_s, "profiled_wall_ms": prof_ms,
             **idle_share(busy, rows_r, min(crop_warm_s) * 1e3),
             "device_ops_per_tile": sum(c for _, _, c in rows_r) / crop_tiles,
+            "crop_kernels": crop_kernels[name],
             "top_device_ops": [
                 {"op": k[:80], "ms": ms, "calls": c} for ms, k, c in rows_r[:6]
             ],
@@ -680,30 +822,54 @@ def main() -> int:
     if twin_agree != 1.0:
         return fail(f"tiled zones agree with fold zones on {twin_agree} of the twin")
 
-    # 9. the kernels line
+    # 9. the kernels line; "crop_ms_per_launch" is a kernel's device time
+    # per launch in the profiled crop call of the raster path named
+    def crop_ms(path, name):
+        k = crop_kernels[path].get(name)
+        return k["ms_per_launch"] if k else None
+
     src = "mosaic_tpu_torch/kernels/csrc/pip.cu"
+    zsrc = "mosaic_tpu_torch/kernels/csrc/zonal.cu"
+    fi, ff = fold["integer"], fold["float"]
     kernels = {"kernels": [
         {"name": "pip_heavy_tiled", "route": "cuda", "source": src,
          "replaces": "mosaic_tpu/kernels/pip.py:492", "launches": heavy_launches,
          "launches_raster_zones_tiled": zl["pip_heavy_tiled"],
+         "crop_ms_per_launch_zones_tiled": crop_ms("zones_tiled", "pip_heavy_tiled"),
          "match": heavy_ok, "max_abs_err": heavy_err,
-         "ms": heavy_ms, "plain_ms": heavy_plain_ms,
+         "ms": heavy_dev_ms, "wrapper_ms": heavy_ms, "plain_ms": heavy_plain_ms,
          "bound_ms": heavy_bound, "bound_by": heavy_by, "library_ms": None},
         {"name": "pip_zone", "route": "cuda", "source": src,
          "replaces": "mosaic_tpu/kernels/pip.py:245", "launches": zone_launches,
          "match": zone_ok, "max_abs_err": zone_err,
-         "ms": zone_ms, "plain_ms": zone_plain_ms,
+         "ms": zone_dev_ms, "wrapper_ms": zone_ms, "plain_ms": zone_plain_ms,
          "bound_ms": zone_bound, "bound_by": zone_by, "library_ms": None},
-        {"name": "zonal_tiled", "route": "cuda",
-         "source": "mosaic_tpu_torch/kernels/csrc/zonal.cu",
+        {"name": "zonal_tiled", "route": "cuda", "source": zsrc,
          "replaces": "mosaic_tpu/kernels/zonal.py:196", "launches": zl["zonal_tiled"],
+         "crop_ms_per_launch_zones_tiled": crop_ms("zones_tiled", "zonal_tiled"),
          "match": small["match"] and tiled[2048]["match"],
          "max_abs_err": max(small["max_abs_err"], tiled[2048]["max_abs_err"]),
-         "ms": small["ms"], "plain_ms": small["plain_ms"],
+         "ms": small["ms"], "wrapper_ms": small["wrapper_ms"], "plain_ms": small["plain_ms"],
          "bound_ms": small["bound_ms"], "bound_by": small["bound_by"],
          "library_ms": small["composite_ms"], "library": small["composite"],
          "pixels": small["pixels"], "ms_2048": tiled[2048]["ms"],
+         "wrapper_ms_2048": tiled[2048]["wrapper_ms"],
          "bound_ms_2048": tiled[2048]["bound_ms"]},
+        # a jnp segment reduce in the reference, not a Pallas kernel
+        {"name": "zonal_seq_fold", "route": "cuda", "source": zsrc,
+         "replaces": "mosaic_tpu/kernels/zonal.py:52",
+         "launches": launches["zones_fold"]["zonal_fold"],
+         "launches_grid": launches["grid"]["zonal_fold"],
+         "crop_ms_per_launch_zones_fold": crop_ms("zones_fold", "zonal_seq_fold"),
+         "crop_ms_per_launch_grid": crop_ms("grid", "zonal_seq_fold"),
+         "match": fold_ok, "max_abs_err": max(fi["max_abs_err"], ff["max_abs_err"]),
+         "ms": fi["ms"], "wrapper_ms": fi["wrapper_ms"], "plain_ms": fi["plain_ms"],
+         "bound_ms": fi["bound_ms"], "bound_by": fi["bound_by"], "library_ms": None,
+         "data": "integer raster values (exact branch), 256x256 tile",
+         "float_ms": ff["ms"], "float_wrapper_ms": ff["wrapper_ms"],
+         "float_bound_ms": ff["bound_ms"], "float_bound_by": ff["bound_by"],
+         "float_longest_sequential_run": ff["longest_sequential_run"],
+         "dadd_latency_ns": dadd_ns},
     ]}
     print(card, flush=True)
     emit(kernels)

@@ -39,6 +39,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_D = ctypes.c_double
 #: C signature of every entry point, by library
 SIGNATURES = {
     "pip": {
@@ -51,14 +52,16 @@ SIGNATURES = {
         ),
     },
     "zonal": {
-        # vals, seg, n, S, tile_n, tile_s, partials, psum, cnt, sum, min,
-        # max, stream
+        # vals, seg, n, S, tile_n, tile_s, scratch, cnt, sum, min, max,
+        # stream
         "mosaic_zonal_tiled": (
-            _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+            _P, _P, _LL, _I, _I, _I, _P, _P, _P, _P, _P, _P,
         ),
-        # sorted_vals, starts, counts, S, cnt, sum, min, max, stream
-        "mosaic_zonal_seq_fold_f32": (_P, _P, _P, _I, _P, _P, _P, _P, _P),
-        "mosaic_zonal_seq_fold_f64": (_P, _P, _P, _I, _P, _P, _P, _P, _P),
+        # sorted_vals, ends, S, cnt, sum, min, max, stream
+        "mosaic_zonal_seq_fold_f32": (_P, _P, _I, _P, _P, _P, _P, _P),
+        "mosaic_zonal_seq_fold_f64": (_P, _P, _I, _P, _P, _P, _P, _P),
+        # x, step, n, out, cycles, stream
+        "mosaic_dadd_chain": (_D, _D, _I, _P, _P, _P),
     },
 }
 

@@ -14,8 +14,12 @@ evaluate every f32 operation with round-to-nearest and no fused
 multiply-add. `zonal_tiled` sums in another order than its plain version
 (both in f64, rounded once to f32), so count, min and max must be equal,
 and the sum too on integer-valued data; on float data the sum is held to
-``rtol=1e-6`` of the segment's sum of |v|. The f64 fold lane must equal a sequential loop in pixel order bit
-for bit.
+``rtol=1e-6`` of the segment's sum of |v|; two calls must give the same
+bits. The fold lane (`zonal_seq_fold`, f64 and f32) must equal the CPU
+lane's bit patterns — a sequential loop in pixel order, ties and NaN
+payloads included — on integer, float, near-2**52 and special-valued
+runs; bits are compared through an integer view, as ``torch.equal``
+takes -0.0 for +0.0.
 """
 
 import numpy as np
@@ -137,20 +141,37 @@ def _zonal_inputs(n, k, integer, seed):
     return vals, seg
 
 
+def _bits(t):
+    """The bit patterns of a float tensor, on the CPU (``torch.equal``
+    takes -0.0 for +0.0)."""
+    t = t.detach().cpu().contiguous()
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def _same_bits(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(_bits(g) if g.is_floating_point() else g.cpu(),
+                           _bits(w) if w.is_floating_point() else w.cpu())
+
+
 @pytest.mark.parametrize("integer", [True, False], ids=["integer", "float"])
-@pytest.mark.parametrize("k", [1, 127, 129, 256])
+@pytest.mark.parametrize("k", [1, 127, 129, 256, 1000])
 @pytest.mark.parametrize("n", [1, 2047, 2049, 20_001])
 def test_zonal_tiled_kernel_equals_plain(cuda, n, k, integer):
-    """Pixel counts off the 2048-pixel chunk, segment counts off the
-    128-segment block."""
+    """Pixel counts off the chunk, segment counts off the 128-segment
+    block (1000 spans eight); two calls give the same bits."""
     vals, seg = _zonal_inputs(n, k, integer, seed=n * 1000 + k)
     v, s = torch.from_numpy(vals).to(cuda), torch.from_numpy(seg).to(cuda)
     before = TZ.zonal_tiled.launches
     got = TZ.zonal_tiled(v, s, k)
+    again = TZ.zonal_tiled(v, s, k)
     want = TZ.zonal_tiled_plain(v, s, k)
     torch.cuda.synchronize()
-    assert TZ.zonal_tiled.launches == before + 1
+    assert TZ.zonal_tiled.launches == before + 2
     assert [g.dtype for g in got] == [torch.int32] + [torch.float32] * 3
+    _same_bits(again, got)
     for i in (0, 2, 3):
         assert torch.equal(got[i], want[i])
     if integer:
@@ -163,6 +184,20 @@ def test_zonal_tiled_kernel_equals_plain(cuda, n, k, integer):
         assert bool((err <= ZONAL_SUM_RTOL * abs_sum).all())
 
 
+@pytest.mark.parametrize("tiling", [dict(tile_n=8), dict(tile_n=4096, tile_s=384),
+                                    dict(tile_s=1024)], ids=["tile_n8", "tile_s384", "tile_s1024"])
+def test_zonal_tiled_kernel_explicit_tiling(cuda, tiling):
+    """Explicit chunks and segment blocks wider than the kernel's
+    256-segment pass give the plain version's count, min and max."""
+    vals, seg = _zonal_inputs(30_000, 1000, True, seed=3)
+    v, s = torch.from_numpy(vals).to(cuda), torch.from_numpy(seg).to(cuda)
+    got = TZ.zonal_tiled(v, s, 1000, **tiling)
+    want = TZ.zonal_tiled_plain(v, s, 1000)
+    torch.cuda.synchronize()
+    for i in range(4):
+        assert torch.equal(got[i], want[i])
+
+
 def test_zonal_tiled_kernel_long_runs(cuda):
     """Raster-like segments: four runs of 16,384 pixels each, float data.
     A sequential f32 sum over such a run drifts with the order by more
@@ -173,6 +208,7 @@ def test_zonal_tiled_kernel_long_runs(cuda):
     got = TZ.zonal_tiled(v, s, 4)
     want = TZ.zonal_tiled_plain(v, s, 4)
     torch.cuda.synchronize()
+    _same_bits(TZ.zonal_tiled(v, s, 4), got)
     for i in (0, 2, 3):
         assert torch.equal(got[i], want[i])
     abs_sum = v.double().reshape(4, -1).sum(dim=1)
@@ -215,12 +251,76 @@ def test_zonal_fold_cuda_is_sequential(cuda, n, k, dtype):
     want = TZ.zonal_fold(torch.from_numpy(vals), torch.from_numpy(seg), k, acc_dtype=dtype)
     torch.cuda.synchronize()
     assert TZ.zonal_fold.launches == before + 1
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype
-        assert torch.equal(g.cpu(), w)
+    _same_bits(got, want)
     if dtype == torch.float64:
         s = np.zeros(k)
         for g_, v in zip(seg.tolist(), vals.tolist()):
             if g_ >= 0:
                 s[g_] += v
         assert got[1].cpu().numpy().tobytes() == s.tobytes()
+
+
+def _fold_case(case, rng):
+    """(values f64, segment ids, S) of one zonal_fold case."""
+    if case == "int_one_run_65536":  # one zone over a whole 256x256 tile
+        return rng.integers(-32768, 32768, 65_536).astype(np.float64), np.zeros(65_536, np.int32), 1
+    if case == "int16_S256":
+        n = 65_536
+        return (rng.integers(-32768, 32768, n).astype(np.float64),
+                rng.integers(-1, 256, n).astype(np.int32), 256)
+    if case == "uint16_S4096":
+        n = 200_000
+        return (rng.integers(0, 65536, n).astype(np.float64),
+                rng.integers(-1, 4096, n).astype(np.int32), 4096)
+    if case == "float_one_run_65536":
+        return rng.uniform(0, 32000, 65_536), np.zeros(65_536, np.int32), 1
+    if case == "float_S4096":
+        n = 100_000
+        return rng.normal(0, 1e3, n), rng.integers(-1, 4096, n).astype(np.int32), 4096
+    if case == "near_2_52":  # integers whose sums round: the sequential branch
+        n = 10_000
+        v = float(2 ** 52) + rng.integers(-64, 64, n).astype(np.float64)
+        v[::7] = rng.integers(-3, 4, v[::7].size)
+        return v, rng.integers(0, 17, n).astype(np.int32), 17
+    if case == "specials":
+        n = 20_000
+        pool = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1.5, -2.0, 3.0])
+        v = rng.choice(pool, n, p=[0.3, 0.3, 0.02, 0.02, 0.02, 0.12, 0.12, 0.1])
+        return v, rng.integers(-1, 256, n).astype(np.int32), 256
+    if case == "zero_ties":  # the min and max of many runs are 0 of either sign
+        n = 20_000
+        v = rng.choice(np.array([0.0, -0.0, 1.0]), n)
+        return v, rng.integers(0, 256, n).astype(np.int32), 256
+    if case == "all_dropped":
+        return rng.uniform(-1, 1, 5000), np.full(5000, -1, np.int32), 256
+    raise ValueError(case)
+
+
+FOLD_CASES = ["int_one_run_65536", "int16_S256", "uint16_S4096", "float_one_run_65536",
+              "float_S4096", "near_2_52", "specials", "zero_ties", "all_dropped"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", FOLD_CASES)
+def test_zonal_fold_cuda_equals_cpu_lane_bits(cuda, case, dtype):
+    """Count, sum, min and max equal the CPU lane's bit patterns (-0.0,
+    NaN payloads, infinities included), and two calls give the same bits.
+    The cases take both of the kernel's branches: integer values are
+    exact in any order, float values and integers near 2**52 are not."""
+    vals, seg, k = _fold_case(case, np.random.default_rng(FOLD_CASES.index(case)))
+    v_cpu = torch.from_numpy(vals).to(dtype)
+    s_cpu = torch.from_numpy(seg)
+    v, s = v_cpu.to(cuda), s_cpu.to(cuda)
+    before = TZ.zonal_fold.launches
+    got = TZ.zonal_fold(v, s, k)
+    again = TZ.zonal_fold(v, s, k)
+    want = TZ.zonal_fold(v_cpu, s_cpu, k)
+    torch.cuda.synchronize()
+    assert TZ.zonal_fold.launches == before + 2
+    _same_bits(got, want)
+    _same_bits(again, got)
+    exact = TZ.exact_sum_ok(v_cpu, s_cpu, k)
+    if case.startswith(("int", "uint")) and dtype == torch.float64:
+        assert bool(exact.all())
+    if case in ("float_one_run_65536", "near_2_52", "specials"):
+        assert not bool(exact.all())
