@@ -10,9 +10,13 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    one nvcc each, started together;
 3. index: tessellates the 256 ``synthetic_zones(16, 16, verts=256)`` zones
    at H3 resolution 9 and builds the join index on the card;
-4. pip_heavy_tiled: the kernel on the real heavy tables and the compacted
-   heavy points of a 4M-point batch, equal bit for bit to its plain torch
-   version with and without the epsilon band, timed against its bound;
+4. pip_heavy_tiled: the wrapper's kernels (a counting sort of the points
+   by heavy row, then the row-staged probe) on the real heavy tables and
+   the compacted heavy points of a 4M-point batch, with and without the
+   epsilon band, and on the banded launch of the crop tile (phase 8) with
+   the most heavy points; each equal bit for bit to its plain torch
+   version, its device time summed over every device op the wrapper
+   launches, timed against the bound of the work these inputs need;
 5. pip_zone: the brute-force zone kernel (the bench's zone lane) at 500k
    points, equal bit for bit to its plain version on a 16,384-point
    subset, timed on all 500k against its bound;
@@ -93,10 +97,17 @@ DEVICE = "cuda"
 PEAK_F32 = 132 * 128 * 1.98e9
 PEAK_F64 = 132 * 64 * 1.98e9
 PEAK_BYTES = 3.35e12
-#: f32 operations per (point, real edge) test of the heavy kernel without
-#: the band: 3 compares, 1 equality test, 3 subtractions, 1 multiply,
-#: 1 divide, 1 add
-OPS_HEAVY = 10
+#: f32 operations of the heavy kernel, counted on the work its inputs need:
+#: the straddle test of a (point, real edge) pair (2 compares, 1
+#: inequality); the crossing of a straddling pair (3 subtractions, 1
+#: multiply, 1 divide, 1 add, 1 compare); the band's distance of a real
+#: edge up to the first one within the band (4 subtractions for the edge
+#: and offset vectors, 3 for the squared length, 3 for the dot product, 2
+#: compares deciding the clamp, 4 for the residual, 3 for its squared
+#: length, 1 compare), plus its one divide where the clamp is not decided
+OPS_STRADDLE = 3
+OPS_CROSS = 7
+OPS_BAND = 20
 #: f32 operations per (point, zone slot, edge) test of the zone kernel, the
 #: count bench.py uses for the same lane
 OPS_ZONE = 8
@@ -208,9 +219,13 @@ def sass_fma_counts(build) -> dict:
     return out
 
 
-#: device-op name fragments of each hand-written kernel, for the profiles
+#: device-op name fragments of each hand-written kernel, for the profiles:
+#: every device kernel its wrapper launches, the one counted as the launch
+#: first (pip_heavy_tiled's memset of its row counts is a memset, not a
+#: named kernel: phase 4 counts it, the crop profiles cannot tell it apart)
 KERNEL_OPS = {
-    "pip_heavy_tiled": ("pip_heavy_kernel",),
+    "pip_heavy_tiled": ("pip_heavy_kernel", "pip_heavy_hist_kernel",
+                        "pip_heavy_scan_kernel", "pip_heavy_scatter_kernel"),
     "pip_zone": ("pip_zone_kernel",),
     "zonal_tiled": ("zonal_tiled_partial_kernel", "zonal_tiled_merge_kernel"),
     "zonal_seq_fold": ("zonal_seq_fold_kernel",),
@@ -219,8 +234,8 @@ KERNEL_OPS = {
 
 def kernel_times(rows) -> dict:
     """{kernel: {"ms", "launches", "ms_per_launch"}} from a profile's device
-    ops; a kernel of two device kernels counts the first one's calls as its
-    launches."""
+    ops; a kernel of several device kernels counts the first one's calls as
+    its launches."""
     out = {}
     for name, frags in KERNEL_OPS.items():
         ms, calls = 0.0, 0
@@ -362,8 +377,105 @@ def main() -> int:
         t_b, t_o = n_bytes / PEAK_BYTES, max(n_ops / peak_ops, chain_s)
         return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
+    # the raster of phase 8 and the crop held against the oracles there; the
+    # profiler traces each raster path on the crop (16 tiles), as tracing
+    # the whole raster's ~10**6 device ops takes minutes
+    raster = synthetic_raster(*RASTER, NYC_BBOX, nodata=NODATA, seed=SEED)
+    probe_eng = ZonalEngine(H3, RES, chip_index=ix, lane="tiled")
+    r0 = (raster.height - CROP) // 2
+    c0 = (raster.width - CROP) // 2
+    wx, wy = raster.raster_to_world(c0, r0)
+    gt = raster.gt
+    crop = Raster(data=raster.data[:, r0:r0 + CROP, c0:c0 + CROP].copy(),
+                  gt=(float(wx), gt[1], gt[2], float(wy), gt[4], gt[5]),
+                  srid=raster.srid, nodata=raster.nodata)
+
+    def wrapper_device_ms(fn, reps=20):
+        """(device ms per call, {device op: ms per call}) of ``fn`` alone
+        under the profiler: every device op it launches, memsets included."""
+        fn()
+        torch.cuda.synchronize()
+
+        def many():
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+
+        rows_ = profile_device(many)[1]
+        if not rows_:
+            return "not measured", {}
+        by_op = {}
+        for ms, key, _ in rows_:
+            name = next((f for frags in KERNEL_OPS.values() for f in frags if f in key),
+                        key[:40])
+            by_op[name] = by_op.get(name, 0.0) + ms / reps
+        return sum(by_op.values()), by_op
+
+    def heavy_work(px, py, rows_, edges, ebits, sgeom, e2):
+        """(bytes, f32 operations, counts) that one pip_heavy_tiled call
+        needs on these inputs, counted from the plain version's
+        intermediates: each point's row, coordinates and outputs; of the
+        table rows its points touch, every slot bit (a pad edge is known
+        by its bits alone), the real edges and the slot geoms; the
+        straddle test of every real edge of a point's row, the crossing
+        of each straddling one, and with the band its distance for the
+        real edges up to the first one within the band, dividing where
+        the clamp is not decided."""
+        live = rows_ >= 0
+        r = rows_[live].long()
+        qx, qy = px[live][:, None], py[live][:, None]
+        ed = edges[r]
+        real = ebits[r] != 0
+        ax, ay, bx, by = ed.unbind(-1)
+        n_real = int(real.sum())
+        n_cross = int((((ay > qy) != (by > qy)) & real).sum())
+        ops = OPS_STRADDLE * n_real + OPS_CROSS * n_cross
+        counts = {"real_edge_tests": n_real, "straddling": n_cross}
+        if e2 is not None:
+            ex, ey, dx, dy = bx - ax, by - ay, qx - ax, qy - ay
+            dd = ex * ex + ey * ey
+            dot = dx * ex + dy * ey
+            t = torch.clamp(dot / torch.where(dd == 0, torch.ones_like(dd), dd), 0.0, 1.0)
+            rx, ry = dx - t * ex, dy - t * ey
+            near = ((rx * rx + ry * ry <= e2) & real).int()
+            need = real & ((torch.cumsum(near, dim=1) - near) == 0)
+            decided = (dot <= 0) | ((dd > 0) & (dd < float("inf")) & (dot >= dd))
+            n_band, n_div = int(need.sum()), int((need & ~decided).sum())
+            ops += OPS_BAND * n_band + n_div
+            counts.update({"band_edges": n_band, "band_divides": n_div})
+        rows_hit = torch.unique(r)
+        touched = int(rows_hit.numel())
+        row_edges = int((ebits[rows_hit] != 0).sum())
+        n_bytes = (rows_.numel() * (4 + 4 + (1 if e2 is not None else 0))
+                   + int(live.sum()) * 8 + row_edges * 16
+                   + touched * (edges.shape[1] * 4 + sgeom.shape[1] * 4))
+        counts.update({"points": rows_.numel(), "live_points": int(live.sum()),
+                       "rows_touched": touched, "real_edges_of_touched_rows": row_edges})
+        return n_bytes, ops, counts
+
+    def heavy_case(args, e2):
+        """pip_heavy_tiled against its plain version on ``args``: equality,
+        device time (all of the wrapper's device ops), event-timed wrapper
+        and plain times, and the bound of the work these inputs need."""
+        kb, kn = K.pip_heavy_tiled(*args, eps2=e2)
+        pb, pn = K.pip_heavy_plain(*args, eps2=e2)
+        torch.cuda.synchronize()
+        ok = torch.equal(kb, pb) and (e2 is None or torch.equal(kn, pn))
+        err = int((kb.long() - pb.long()).abs().max()) if kb.numel() else 0
+        ms, by_op = wrapper_device_ms(lambda: K.pip_heavy_tiled(*args, eps2=e2))
+        n_bytes, ops, counts = heavy_work(*args, e2)
+        b_ms, b_by = bound(n_bytes, ops)
+        return {
+            **counts, "equal": ok, "max_abs_err": err, "ms": ms, "ms_by_op": by_op,
+            "wrapper_ms": cuda_ms(lambda: K.pip_heavy_tiled(*args, eps2=e2)),
+            "plain_ms": cuda_ms(lambda: K.pip_heavy_plain(*args, eps2=e2), reps=3),
+            "bytes": n_bytes, "ops": ops, "bound_ms": b_ms, "bound_by": b_by,
+        }
+
     # 4. pip_heavy_tiled on the compacted heavy points of the 4M batch,
-    # compacted exactly as pip_join_points(probe="adaptive") compacts them
+    # compacted exactly as pip_join_points(probe="adaptive") compacts them,
+    # without and with the band; then one tile-sized banded launch as the
+    # zones probe makes it
     cells = H3.point_to_cell(pts_f32, RES)
     u = J._probe_slot(cells, ix)
     found = u >= 0
@@ -381,30 +493,37 @@ def main() -> int:
         dtype=torch.float32, device=dev,
     )
     heavy_args = (hpx, hpy, rows, ix.heavy_edges, ix.heavy_ebits, ix.heavy_slot_geom)
-    heavy_ok = True
-    heavy_err = 0
-    for e2 in (None, eps2):
-        kb, kn = K.pip_heavy_tiled(*heavy_args, eps2=e2)
-        pb, pn = K.pip_heavy_plain(*heavy_args, eps2=e2)
-        torch.cuda.synchronize()
-        heavy_err = max(heavy_err, int((kb.long() - pb.long()).abs().max()))
-        heavy_ok &= torch.equal(kb, pb) and (e2 is None or torch.equal(kn, pn))
-    heavy_ms = cuda_ms(lambda: K.pip_heavy_tiled(*heavy_args))
-    heavy_dev_ms = device_ms(lambda: K.pip_heavy_tiled(*heavy_args), "pip_heavy_tiled")
-    heavy_plain_ms = cuda_ms(lambda: K.pip_heavy_plain(*heavy_args), reps=3)
-    real_edges = (ix.heavy_ebits != 0).sum(dim=1)
-    heavy_tests = int(real_edges[rows].sum())
+    # the launches the zones probe makes on the crop's 16 tiles, captured at
+    # the wrapper; the tile with the most heavy points is timed
+    captured = []
+    real_heavy = K.pip_heavy_tiled
+
+    def capture(*a, **kw):
+        captured.append((a, kw["eps2"]))
+        return real_heavy(*a, **kw)
+
+    capture.launches = 0
+    cplan = plan_tiles(crop)
+    K.pip_heavy_tiled = capture
+    try:
+        for t in range(cplan.ntiles):
+            probe_eng._zones_probe(np.asarray(cplan.gt, np.float64), cplan.origins[t],
+                                   *cplan.shape)
+    finally:
+        K.pip_heavy_tiled = real_heavy
+    tile_args, tile_eps2 = max(captured, key=lambda c: int((c[0][2] >= 0).sum()))
+    heavy = {
+        "join": heavy_case(heavy_args, None),
+        "join_banded": heavy_case(heavy_args, eps2),
+        "tile_banded": heavy_case(tile_args, tile_eps2),
+    }
     H, E2 = ix.heavy_ebits.shape
     M2 = ix.heavy_slot_geom.shape[1]
-    # per point: px, py, row (int32) in, best out; per table entry: one f32
-    # edge (16 B) and its uint32 slot bits; per slot: its int32 geom
-    heavy_bytes = nh * (4 + 4 + 4 + 4) + H * E2 * (16 + 4) + H * M2 * 4
-    heavy_bound, heavy_by = bound(heavy_bytes, heavy_tests * OPS_HEAVY)
+    heavy_ok = all(c["equal"] for c in heavy.values())
+    heavy_err = max(c["max_abs_err"] for c in heavy.values())
     emit({
-        "phase": "pip_heavy_tiled", "points": nh, "rows": H, "E2": E2, "M2": M2,
-        "edge_tests": heavy_tests, "equal": heavy_ok,
-        "ms": heavy_dev_ms, "wrapper_ms": heavy_ms, "plain_ms": heavy_plain_ms,
-        "bound_ms": heavy_bound, "bound_by": heavy_by,
+        "phase": "pip_heavy_tiled", "rows": H, "E2": E2, "M2": M2,
+        "tile_launches_captured": len(captured), "equal": heavy_ok, **heavy,
     })
     if not heavy_ok:
         return fail("pip_heavy_tiled differs from pip_heavy_plain")
@@ -531,8 +650,6 @@ def main() -> int:
     # 7. zonal_tiled on the segments the zones probe gives on the raster of
     # phase 8, at the two launch sizes: a default 256x256 tile, a 2048x2048
     # tile; both tiles centred on the raster
-    raster = synthetic_raster(*RASTER, NYC_BBOX, nodata=NODATA, seed=SEED)
-    probe_eng = ZonalEngine(H3, RES, chip_index=ix, lane="tiled")
     n_seg = probe_eng.num_zones
     rng = np.random.default_rng(SEED)
     tiled, segs, tile_vals = {}, {}, {}
@@ -677,16 +794,6 @@ def main() -> int:
     }
     n_tiles = plan_tiles(raster).ntiles
     real_pixels = raster.height * raster.width
-    # the crop held against the oracles below; the profiler traces each path
-    # on it (16 tiles), as tracing the whole raster's ~10**6 device ops
-    # takes minutes
-    r0 = (raster.height - CROP) // 2
-    c0 = (raster.width - CROP) // 2
-    wx, wy = raster.raster_to_world(c0, r0)
-    gt = raster.gt
-    crop = Raster(data=raster.data[:, r0:r0 + CROP, c0:c0 + CROP].copy(),
-                  gt=(float(wx), gt[1], gt[2], float(wy), gt[4], gt[5]),
-                  srid=raster.srid, nodata=raster.nodata)
     crop_tiles = plan_tiles(crop).ntiles
     launches = {}
     results = {}
@@ -831,14 +938,18 @@ def main() -> int:
     src = "mosaic_tpu_torch/kernels/csrc/pip.cu"
     zsrc = "mosaic_tpu_torch/kernels/csrc/zonal.cu"
     fi, ff = fold["integer"], fold["float"]
+    hj, hb, ht = heavy["join"], heavy["join_banded"], heavy["tile_banded"]
     kernels = {"kernels": [
         {"name": "pip_heavy_tiled", "route": "cuda", "source": src,
          "replaces": "mosaic_tpu/kernels/pip.py:492", "launches": heavy_launches,
          "launches_raster_zones_tiled": zl["pip_heavy_tiled"],
          "crop_ms_per_launch_zones_tiled": crop_ms("zones_tiled", "pip_heavy_tiled"),
          "match": heavy_ok, "max_abs_err": heavy_err,
-         "ms": heavy_dev_ms, "wrapper_ms": heavy_ms, "plain_ms": heavy_plain_ms,
-         "bound_ms": heavy_bound, "bound_by": heavy_by, "library_ms": None},
+         "ms": hj["ms"], "wrapper_ms": hj["wrapper_ms"], "plain_ms": hj["plain_ms"],
+         "bound_ms": hj["bound_ms"], "bound_by": hj["bound_by"], "library_ms": None,
+         "banded_ms": hb["ms"], "banded_bound_ms": hb["bound_ms"],
+         "tile_ms": ht["ms"], "tile_bound_ms": ht["bound_ms"],
+         "tile_bound_by": ht["bound_by"], "tile_points": ht["points"]},
         {"name": "pip_zone", "route": "cuda", "source": src,
          "replaces": "mosaic_tpu/kernels/pip.py:245", "launches": zone_launches,
          "match": zone_ok, "max_abs_err": zone_err,

@@ -45,11 +45,14 @@ SIGNATURES = {
     "pip": {
         # points, n, planes, E, G, n_real_g, out, stream
         "mosaic_pip_zone": (_P, _LL, _P, _I, _I, _I, _P, _P),
-        # px, py, rows, K, edges, bits, geom, E2, M2, eps2, banded,
-        # best, near, stream
+        # px, py, rows, K, H, edges, bits, geom, E2, M2, eps2, banded,
+        # best, near, scratch, scratch_ints, stream
         "mosaic_pip_heavy": (
-            _P, _P, _P, _LL, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P,
+            _P, _P, _P, _LL, _I, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P,
+            _LL, _P,
         ),
+        # K, H -> int32 scratch entries mosaic_pip_heavy needs
+        "mosaic_pip_heavy_scratch": (_LL, _I),
     },
     "zonal": {
         # vals, seg, n, S, tile_n, tile_s, scratch, cnt, sum, min, max,
@@ -64,6 +67,9 @@ SIGNATURES = {
         "mosaic_dadd_chain": (_D, _D, _I, _P, _P, _P),
     },
 }
+
+#: return types other than the CUDA error code (int)
+RESTYPES = {"mosaic_pip_heavy_scratch": _LL}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -126,7 +132,7 @@ def _bind(name: str) -> ctypes.CDLL:
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
-        f.restype = ctypes.c_int
+        f.restype = RESTYPES.get(fn, ctypes.c_int)
     _LIBS[name] = lib
     return lib
 

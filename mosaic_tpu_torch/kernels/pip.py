@@ -231,9 +231,11 @@ def pip_heavy_plain(px, py, rows, heavy_edges, heavy_ebits, heavy_slot_geom,
     int32 with the reference's uint32 bit patterns (torch's uint32
     support is partial); XOR, ``>>`` then ``& 1`` read the same bits.
     torch has no XOR reduction, so parity is XOR-accumulated in a loop
-    over the E2 edges.
+    over the E2 edges. A row past the table (>= H), like -1, is a pad, as
+    the reference kernel masks it.
     """
-    r = torch.clamp(rows.long(), min=0)
+    live = (rows >= 0) & (rows < heavy_edges.shape[0])
+    r = torch.where(live, rows.long(), 0)
     edges = heavy_edges[r]  # (K, E2, 4)
     bits = heavy_ebits[r].to(torch.int32)  # (K, E2)
     geoms = heavy_slot_geom[r]  # (K, M2)
@@ -252,7 +254,7 @@ def pip_heavy_plain(px, py, rows, heavy_edges, heavy_ebits, heavy_slot_geom,
     inside = ((par[:, None] >> m) & 1) == 1
     hit = inside & (geoms >= 0)
     best = torch.where(hit, geoms, _I32_MAX).amin(dim=1)
-    best = torch.where(rows >= 0, best, _I32_MAX).to(torch.int32)
+    best = torch.where(live, best, _I32_MAX).to(torch.int32)
     if eps2 is None:
         return best, None
     e2 = torch.as_tensor(eps2, dtype=heavy_edges.dtype, device=px.device)
@@ -263,7 +265,7 @@ def pip_heavy_plain(px, py, rows, heavy_edges, heavy_ebits, heavy_slot_geom,
     t = torch.clamp(t, 0.0, 1.0)
     rx, ry = qx - t * ex, qy - t * ey
     near = ((rx * rx + ry * ry <= e2) & (bits != 0)).any(dim=1)
-    return best, near & (rows >= 0)
+    return best, near & live
 
 
 def pip_heavy_tiled(
@@ -282,13 +284,16 @@ def pip_heavy_tiled(
     """Heavy-cell probe: per-point slot parity against its own heavy row.
 
     ``px``/``py``: (K,) f32 compacted heavy-lane points; ``rows``: (K,)
-    int32 heavy-table row per point (-1 = pad). ``heavy_edges`` (H, E2,
+    int32 heavy-table row per point (-1 or >= H = pad). ``heavy_edges`` (H, E2,
     4) f32, ``heavy_ebits`` (H, E2) int32 slot bitmasks (uint32 bit
     patterns) and ``heavy_slot_geom`` (H, M2) int32 are the ChipIndex
     heavy tables. Returns ``(best, near)``
     with ``best`` (K,) int32 using int32-max as the no-hit sentinel and
     ``near`` (K,) bool when ``eps2`` is given, else None. CPU tensors run
-    :func:`pip_heavy_plain`; CUDA tensors launch the kernel.
+    :func:`pip_heavy_plain`; CUDA tensors launch the kernels: one call
+    groups the points by row on the device (a counting sort into one int32
+    scratch tensor) and probes each group against its row staged in shared
+    memory, and counts one launch.
     """
     if heavy_edges.dtype != torch.float32:
         raise ValueError(
@@ -318,6 +323,8 @@ def pip_heavy_tiled(
     M2 = heavy_slot_geom.shape[1]
     if M2 > 32:
         raise ValueError(f"pip_heavy_tiled: at most 32 slots per row, got {M2}")
+    if K >= _I32_MAX:
+        raise ValueError(f"pip_heavy_tiled: at most 2**31 - 2 points, got {K}")
     pxc = px.to(torch.float32).contiguous()
     pyc = py.to(torch.float32).contiguous()
     rws = rows.to(torch.int32).contiguous()
@@ -333,13 +340,16 @@ def pip_heavy_tiled(
         return best, (near if banded else None)
     e2 = float(np.float32(float(eps2))) if banded else 0.0
     lib = _build.load("pip")
+    # the counting sort's counts, offsets, ranks, order and work items
+    n_scratch = lib.mosaic_pip_heavy_scratch(K, H)
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.mosaic_pip_heavy(
-            pxc.data_ptr(), pyc.data_ptr(), rws.data_ptr(), K,
+            pxc.data_ptr(), pyc.data_ptr(), rws.data_ptr(), K, H,
             edges.data_ptr(), bits.data_ptr(), geom.data_ptr(), E2, M2, e2,
             int(banded), best.data_ptr(), near.data_ptr() if banded else None,
-            stream,
+            scratch.data_ptr(), n_scratch, stream,
         )
     _build.check(rc, "pip_heavy_tiled")
     pip_heavy_tiled.launches += 1

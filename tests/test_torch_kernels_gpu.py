@@ -30,6 +30,7 @@ from mosaic_tpu_torch.core.geometry.device import pack_to_device
 from mosaic_tpu_torch.datasets import synthetic_zones
 from mosaic_tpu_torch.kernels import pip as TP
 from mosaic_tpu_torch.kernels import zonal as TZ
+from torch_heavy_layouts import LAYOUTS, heavy_layout
 
 pytestmark = pytest.mark.gpu
 
@@ -64,10 +65,21 @@ def _heavy_inputs(K, seed=9, H=37, E2=64, M2=32, pad_rows=7):
 
 
 @pytest.mark.parametrize("banded", [False, True])
-@pytest.mark.parametrize("K", [1, 129, 20_000])
-def test_pip_heavy_kernel_equals_plain(cuda, K, banded):
-    args = [torch.as_tensor(a, device=cuda) for a in _heavy_inputs(K)]
-    eps2 = torch.tensor(1e-3, dtype=torch.float32, device=cuda) if banded else None
+@pytest.mark.parametrize("case", [1, 129, 20_000] + sorted(LAYOUTS))
+def test_pip_heavy_kernel_equals_plain(cuda, case, banded):
+    """An int ``case`` is a batch of that many points on random rows with
+    pad rows at the tail; a named one is a skewed-row layout of
+    `torch_heavy_layouts` (one crowded row, interleaved pads, H >> K,
+    reversed rows, degenerate edges, the band's clamp at 0 and 1), the
+    same inputs the CPU tests hold against the Pallas kernel."""
+    if isinstance(case, int):
+        arrays, band = _heavy_inputs(case), 1e-3
+    else:
+        *arrays, band = heavy_layout(case)
+        arrays[4] = arrays[4].view(np.int32)  # uint32 slot bits, int32 tensor
+    args = [torch.as_tensor(a, device=cuda) for a in arrays]
+    K = args[0].shape[0]
+    eps2 = torch.tensor(band, dtype=torch.float32, device=cuda) if banded else None
     before = TP.pip_heavy_tiled.launches
     kb, kn = TP.pip_heavy_tiled(*args, eps2=eps2)
     pb, pn = TP.pip_heavy_plain(*args, eps2=eps2)

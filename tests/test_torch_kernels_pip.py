@@ -23,6 +23,7 @@ from mosaic_tpu_torch.core.types import PackedGeometry
 from mosaic_tpu_torch.kernels import pip as TP
 
 import fixtures as fx
+from torch_heavy_layouts import LAYOUTS, heavy_layout
 
 
 def _port_col(col):
@@ -68,13 +69,19 @@ _HEAVY_SHAPES = {9: {}, 21: {}, 33: dict(H=4, E2=64, M2=32, K=600)}
 
 
 @pytest.mark.parametrize("banded", [False, True])
-@pytest.mark.parametrize("seed", sorted(_HEAVY_SHAPES))
-def test_pip_heavy_plain_equals_reference_kernel(banded, seed):
-    """Tolerance 0: best and the band mask equal the Pallas kernel's."""
-    px, py, rows, edges, bits, geom = _heavy_inputs(seed, **_HEAVY_SHAPES[seed])
+@pytest.mark.parametrize("case", sorted(_HEAVY_SHAPES) + sorted(LAYOUTS))
+def test_pip_heavy_plain_equals_reference_kernel(banded, case):
+    """Tolerance 0: best and the band mask equal the Pallas kernel's, on
+    random rows (an int ``case`` is a seed) and on the skewed-row layouts
+    that the card's test feeds the CUDA kernel (`torch_heavy_layouts`)."""
+    if isinstance(case, int):
+        px, py, rows, edges, bits, geom = _heavy_inputs(case, **_HEAVY_SHAPES[case])
+        band = np.float32(1e-3)
+    else:
+        px, py, rows, edges, bits, geom, band = heavy_layout(case)
     if geom.shape[1] == 32:
         assert (bits == np.uint32(1 << 31)).any()
-    eps2 = np.float32(1e-3) if banded else None
+    eps2 = band if banded else None
     want_b, want_n = RP.pip_heavy_tiled(
         jnp.asarray(px), jnp.asarray(py), jnp.asarray(rows),
         jnp.asarray(edges), jnp.asarray(bits), jnp.asarray(geom),
@@ -87,6 +94,59 @@ def test_pip_heavy_plain_equals_reference_kernel(banded, seed):
         np.testing.assert_array_equal(got_n.numpy(), np.asarray(want_n))
     else:
         assert got_n is None and want_n is None
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUTS))
+def test_heavy_layouts_reach_their_cases(case):
+    """Each skewed-row layout holds what it is named for, in f32 as the
+    kernel computes it: a row with many times the points of a work item
+    (32), interleaved pads, more rows than points, descending rows,
+    ay == by and dd == 0 edges (dd == 0 with a positive projection
+    numerator among them), projections that clamp at exactly 0 and 1
+    inside and outside the band, rows whose edges past the kernel's first
+    and second staged chunks (512 edges each) change results, and rows
+    past the table's end."""
+    px, py, rows, edges, bits, geom, eps2 = heavy_layout(case)
+    live = (rows >= 0) & (rows < edges.shape[0])
+    r = rows[live]
+    ax, ay, bx, by = np.moveaxis(edges[r], -1, 0)
+    real = bits[r] != 0
+    ex, ey = bx - ax, by - ay
+    qx, qy = px[live][:, None] - ax, py[live][:, None] - ay
+    dd = ex * ex + ey * ey
+    dot = qx * ex + qy * ey
+    if case == "one_row":
+        assert (np.bincount(r) > 128 * 8).any()
+    elif case == "pads_interleaved":
+        assert (~live[: len(rows) // 2]).any() and live[-100:].any()
+    elif case == "sparse_rows":
+        assert edges.shape[0] > len(rows) and np.unique(r).size == r.size
+    elif case == "reverse_rows":
+        assert (np.diff(rows) <= 0).all() and np.unique(rows).size > 1
+    elif case == "degenerate":
+        assert ((ay == by) & real).any() and ((dd == 0) & (dot > 0) & real).any()
+        assert ((dd == 0) & (dot == 0) & real).any()
+    elif case == "wide_rows":
+        assert edges.shape[1] > 2 * 512 and edges.shape[1] % 512
+        pyl, pxl = py[live][:, None], px[live][:, None]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            xc = ax + (pyl - ay) * (bx - ax) / np.where(by == ay, 1, by - ay)
+        vals = np.where(((ay > pyl) != (by > pyl)) & (pxl < xc), bits[r], 0)
+        t = np.clip(dot / np.where(dd == 0, 1, dd), 0, 1)
+        near = ((qx - t * ex) ** 2 + (qy - t * ey) ** 2 <= eps2) & real
+        for e0 in (512, 1024):
+            assert (np.bitwise_xor.reduce(vals[:, e0:], axis=1) != 0).any()
+            assert (near[:, e0:].any(axis=1) & ~near[:, :e0].any(axis=1)).any()
+    elif case == "rows_past_table":
+        past = rows >= edges.shape[0]
+        assert past[: len(rows) // 2].any() and (rows == 2**31 - 1).any()
+        assert (rows == edges.shape[0]).any() and live.any()
+    else:
+        t = np.clip(dot / np.where(dd == 0, 1, dd), 0, 1)
+        dist = (qx - t * ex) ** 2 + (qy - t * ey) ** 2
+        for edge in (dot == 0, (dot == dd) & (dd > 0)):
+            assert (edge & real & (dist <= eps2)).any()
+            assert (edge & real & (dist > eps2)).any()
 
 
 def test_pip_heavy_matches_ray_parity_reference():
