@@ -25,7 +25,33 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    points/s and the agreement with the f64 host oracle on 100k points
    (at least ``MIN_ORACLE_AGREEMENT``: f32 rounding near boundaries is
    expected, a wrong path is not); then where the time of one warm join
-   goes (stage times and the profiler's device time by op);
+   goes (stage times, the profiler's device time by op, and the host
+   microseconds of a ``guarded_call``, a span and an event, each beside a
+   bare call); the warm joins are timed bare, the events checked on the
+   gated calls around them;
+6b. the exact join: ``pip_join(probe="adaptive", recheck=True)`` on the
+   4M batch must launch ``pip_heavy_tiled`` (banded), come back not
+   degraded and equal ``host_join`` exactly on its first ``N_EXACT``
+   points (agreement 1.0); prints its best warm points/s beside the
+   ``recheck=False`` figure, the cell band, ties and host-oracle rows,
+   and its stage times (margin cells, banded probe, narrow re-join, host
+   ties) on the host clock with a sync around each, and its device idle
+   share under the profiler;
+6c. drift: the port's calibration sweep on the card
+   (``mosaic_tpu_torch/tools/calibrate_margins.py``): CUDA's f32 cell
+   drift at H3 res 5, 7 and 9 over ``N_DRIFT`` global points for seeds 3
+   and 11 (and the sweep's BNG lane), and the edge drift over
+   ``synthetic_zones(12, 12)`` with ``N_DRIFT`` uniform and as many
+   near-edge points; both must
+   keep 2x headroom under ``CELL_MARGIN_K`` and ``EDGE_BAND_K``; the cell
+   maximum is printed beside the reference golden's;
+6d. faults: on ``N_FAULT`` points of the exact join, injected transient
+   errors give bit-identical ids and ``transient_retry`` events,
+   exhaustion raises ``RetryExhausted`` (a join on the card is never
+   answered from the CPU) and records no degradation, and a
+   planned stall under a short ``MOSAIC_WATCHDOG_PIP_JOIN_DEVICE``
+   deadline raises ``StalledDeviceError`` and is retried. Every gated
+   join of phases 6 and 6b must record no retry or degradation;
 7. zonal_tiled: the kernel on the segments the zones probe gives on one
    256x256 tile (the raster path's launch) and one 2048x2048 tile of the
    raster below, equal to its plain version (count, min and max exactly;
@@ -72,6 +98,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -80,6 +107,10 @@ N_POINTS = 4_000_000       # the bench's batch
 N_ZONE = 500_000           # the bench's zone-kernel lane
 N_ZONE_CHECK = 16_384      # subset held against the plain version
 N_ORACLE = 100_000         # subset held against the f64 host oracle
+N_EXACT = 1_000_000        # subset of the exact join held against host_join
+N_DRIFT = 1_000_000        # global points a drift-sweep configuration
+N_FAULT = 200_000          # points of each fault-pass join
+WATCHDOG_S = 2.0           # the fault pass's watchdog deadline
 RASTER = (4800, 4800)      # width, height: the Sentinel-2 10 m class over NYC
 CROP = 1024                # side of the crop held against the f64 oracles
 NODATA = 32767
@@ -111,11 +142,15 @@ OPS_BAND = 20
 #: f32 operations per (point, zone slot, edge) test of the zone kernel, the
 #: count bench.py uses for the same lane
 OPS_ZONE = 8
-#: floor on the join's agreement with the f64 host oracle. Exact agreement
-#: is not expected (f32 cells and edges differ from f64 near cell and zone
-#: boundaries, which the later epsilon-band recheck repairs); a path that
-#: is wrong, and not merely rounded, falls far below it
+#: floor on the recheck=False join's agreement with the f64 host oracle.
+#: Exact agreement is not expected there (f32 cells and edges differ from
+#: f64 near cell and zone boundaries; phase 6b's recheck join must agree
+#: exactly); a path that is wrong, and not merely rounded, falls far below
 MIN_ORACLE_AGREEMENT = 0.99
+#: events a timed or gated join must not record: only the fault pass
+#: injects faults
+FAULT_EVENTS = ("transient_retry", "degraded", "retry_exhausted", "watchdog_stall",
+                "capacity_overflow")
 #: zonal_tiled sums in chunk order, its plain version in another order, both
 #: in f64 rounded once to f32: on float data the two sums may differ at a
 #: rounding tie, by one f32 ulp, far inside this share of the segment's sum
@@ -283,7 +318,13 @@ def main() -> int:
     from mosaic_tpu_torch.kernels import zonal as Z
     from mosaic_tpu_torch.raster import Raster, ZonalEngine, plan_tiles, stack_tiles
     from mosaic_tpu_torch.raster import zonal as RZ
+    from mosaic_tpu_torch.dispatch import guarded_call
+    from mosaic_tpu_torch.obs import trace
+    from mosaic_tpu_torch.runtime import (
+        DegradedResult, RetryExhausted, StalledDeviceError, faults, telemetry,
+    )
     from mosaic_tpu_torch.sql import join as J
+    from mosaic_tpu_torch.tools import calibrate_margins as CM
 
     dev = torch.device(DEVICE)
 
@@ -354,6 +395,16 @@ def main() -> int:
         e.record()
         torch.cuda.synchronize()
         return s.elapsed_time(e) / reps
+
+    def host_us(fn, reps=20_000):
+        """Host microseconds a call of ``fn``, the best of three rounds."""
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            best = min(best, time.perf_counter() - t0)
+        return best / reps * 1e6
 
     def device_ms(fn, kernel, reps=20):
         """Device time per launch of ``kernel`` over ``reps`` calls of
@@ -488,10 +539,9 @@ def main() -> int:
     rows = torch.clamp(hs[src2[:nh]], min=0)  # int32, as the join passes them
     pq = shifted[src1][src2[:nh]]
     hpx, hpy = pq[:, 0].contiguous(), pq[:, 1].contiguous()
-    eps2 = torch.tensor(
-        (J.EDGE_BAND_K * float(np.finfo(np.float32).eps) * ix.host.coord_scale) ** 2,
-        dtype=torch.float32, device=dev,
-    )
+    # the band as the exact join passes it: a number rounded to f32 on the host
+    eps2 = float(np.float32(
+        (J.EDGE_BAND_K * float(np.finfo(np.float32).eps) * ix.host.coord_scale) ** 2))
     heavy_args = (hpx, hpy, rows, ix.heavy_edges, ix.heavy_ebits, ix.heavy_slot_geom)
     # the launches the zones probe makes on the crop's 16 tiles, captured at
     # the wrapper; the tile with the most heavy points is timed
@@ -554,11 +604,24 @@ def main() -> int:
     if not zone_ok:
         return fail("pip_zone differs from pip_zone_plain")
 
+    # every gated join of phases 6 and 6b keeps its events, and none may be
+    # a retry, a stall, an escalation or a degradation (the fault pass of 6d
+    # injects its own); the warm timings call pip_join bare, as a user does
+    gated_events = []
+
+    def gated(*a, **kw):
+        with telemetry.capture() as ev:
+            r = J.pip_join(*a, **kw)
+        gated_events.extend(ev)
+        if getattr(r, "degraded", False):
+            gated_events.append({"event": "degraded", "reason": r.reason})
+        return r
+
     # 6. the main paths, each with the counts set to 0 just before it
     K.pip_heavy_tiled.launches = 0
     K.pip_zone.launches = 0
     t0 = time.perf_counter()
-    out = J.pip_join(raw, None, H3, RES, chip_index=ix, probe="adaptive")
+    out = gated(raw, None, H3, RES, chip_index=ix, probe="adaptive")
     cold_s = time.perf_counter() - t0
     heavy_launches = K.pip_heavy_tiled.launches
     zone_lane_launches_in_join = K.pip_zone.launches
@@ -567,7 +630,7 @@ def main() -> int:
     lane = K.pip_zone(zpts, planes, n_real)
     torch.cuda.synchronize()
     zone_launches = K.pip_zone.launches
-    base = J.pip_join(raw, None, H3, RES, chip_index=ix, probe="scatter")
+    base = gated(raw, None, H3, RES, chip_index=ix, probe="scatter")
     same = bool(np.array_equal(out, base))
     warm = []
     for _ in range(3):
@@ -633,7 +696,22 @@ def main() -> int:
     out_dev = torch.from_numpy(out).to(dev)
     stage_ms = {k: cuda_ms(fn, reps=5) for k, fn in stages.items()}
     busy_ms, rows_, prof_wall_ms = profile_device(
-        lambda: J.pip_join(raw, None, H3, RES, chip_index=ix, probe="adaptive"))
+        lambda: gated(raw, None, H3, RES, chip_index=ix, probe="adaptive"))
+    # the host cost of the runtime a join passes through (two guarded
+    # calls, one span and one event a chunk), each against a bare call
+    def noop():
+        return None
+
+    def spanned():
+        with trace.span("join.pip", n=1):
+            return None
+
+    runtime_us = {
+        "bare_call": host_us(noop),
+        "guarded_call": host_us(lambda: guarded_call("pip_join.device", noop)),
+        "span": host_us(spanned),
+        "record": host_us(lambda: telemetry.record("probe_route", n=1)),
+    }
     # the profiler adds host time to the call it traces: the idle share is
     # taken against the best unprofiled warm call, and the traced call's
     # own wall time is printed beside it
@@ -641,11 +719,201 @@ def main() -> int:
     emit({
         "phase": "breakdown", "points": N_POINTS, "stage_ms": stage_ms,
         "warm_wall_ms": warm_ms, "profiled_wall_ms": prof_wall_ms,
+        "runtime_host_us": runtime_us,
         **idle_share(busy_ms, rows_, warm_ms),
         "top_device_ops": [
             {"op": k[:80], "ms": ms, "calls": c} for ms, k, c in rows_[:10]
         ],
     })
+
+    # 6b. the exact join, with the counts set to 0 just before it
+    K.pip_heavy_tiled.launches = 0
+    K.pip_zone.launches = 0
+    t0 = time.perf_counter()
+    exact = gated(raw, None, H3, RES, chip_index=ix, probe="adaptive", recheck=True)
+    exact_cold_s = time.perf_counter() - t0
+    recheck_launches = K.pip_heavy_tiled.launches
+    recheck_zone_launches = K.pip_zone.launches
+    narrow = [e for e in gated_events if e["event"] == "recheck_narrow"]
+    warm_exact = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        J.pip_join(raw, None, H3, RES, chip_index=ix, probe="adaptive", recheck=True)
+        warm_exact.append(time.perf_counter() - t0)
+    # host_join on the first N_EXACT points, in chunks
+    t0 = time.perf_counter()
+    want = np.concatenate([
+        J.host_join(raw[i:min(i + 250_000, N_EXACT)], ix.host, H3, RES)
+        for i in range(0, N_EXACT, 250_000)
+    ])
+    exact_oracle_s = time.perf_counter() - t0
+    exact_agree = float((want == exact[:N_EXACT]).mean())
+    # stage times of one more warm exact join, a sync around each stage:
+    # margin cells, the banded probe (and its copy back), the narrow
+    # re-join (runner-up cells and the band's scatter probe) and the host
+    # oracle's tie rows; the rest is counts, staging and host numpy
+    stage_s = {"margin_cells": 0.0, "banded_probe": 0.0, "narrow_rejoin": 0.0,
+               "host_ties": 0.0}
+    host_rows = []
+    real = {"margin": H3.point_to_cell_margin, "alt": H3.point_to_cell_alt,
+            "probe": J.pip_join_points, "host": J.host_join}
+
+    def synced(stage, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            stage_s[stage(a, k) if callable(stage) else stage] += time.perf_counter() - t0
+            return r
+        return run
+
+    def host_ties(chunk, *a, **k):
+        host_rows.append(len(chunk))
+        return real["host"](chunk, *a, **k)
+
+    H3.point_to_cell_margin = synced("margin_cells", real["margin"])
+    H3.point_to_cell_alt = synced("narrow_rejoin", real["alt"])
+    J.pip_join_points = synced(
+        lambda a, k: "banded_probe" if k.get("edge_eps2") is not None else "narrow_rejoin",
+        real["probe"])
+    J.host_join = synced("host_ties", host_ties)
+    try:
+        t0 = time.perf_counter()
+        staged = gated(raw, None, H3, RES, chip_index=ix, probe="adaptive", recheck=True)
+        staged_s = time.perf_counter() - t0
+    finally:
+        del H3.point_to_cell_margin, H3.point_to_cell_alt
+        J.pip_join_points, J.host_join = real["probe"], real["host"]
+    busy_x, rows_x, prof_x_ms = profile_device(
+        lambda: gated(raw, None, H3, RES, chip_index=ix, probe="adaptive", recheck=True))
+    bad_events = [e for e in gated_events if e["event"] in FAULT_EVENTS]
+    nar = narrow[0] if narrow else {}
+    emit({
+        "phase": "exact_join", "points": N_POINTS, "probe": "adaptive", "recheck": True,
+        "pip_heavy_tiled_launches": recheck_launches,
+        "pip_zone_launches": recheck_zone_launches,
+        "degraded": bool(getattr(exact, "degraded", False)),
+        "host_join_agreement": exact_agree, "exact_points": N_EXACT,
+        "oracle_s": exact_oracle_s, "equal_to_staged_call": bool(np.array_equal(exact, staged)),
+        "cold_s": exact_cold_s, "warm_s": warm_exact,
+        "points_per_s": N_POINTS / min(warm_exact),
+        "recheck_false_points_per_s": N_POINTS / min(warm),
+        "cell_band": nar.get("band"), "band_cap": nar.get("cap"),
+        "narrow_caps": nar.get("caps"), "ties": nar.get("ties"),
+        "host_oracle_rows": sum(host_rows),
+        "staged_wall_s": staged_s, "stage_s": {
+            **stage_s, "rest": staged_s - sum(stage_s.values())},
+        "profiled_wall_ms": prof_x_ms, **idle_share(busy_x, rows_x, min(warm_exact) * 1e3),
+        "top_device_ops": [{"op": k[:80], "ms": ms, "calls": c} for ms, k, c in rows_x[:6]],
+        "changed_vs_recheck_false": int((exact != out).sum()),
+        "unexpected_events": bad_events[:5],
+    })
+    if recheck_launches <= 0:
+        return fail("pip_join(recheck=True) never launched pip_heavy_tiled")
+    if getattr(exact, "degraded", False) or isinstance(exact, DegradedResult):
+        return fail("the exact join came back degraded")
+    if exact_agree != 1.0:
+        return fail(f"the exact join agrees with host_join on {exact_agree} "
+                    f"of {N_EXACT} points (must be 1.0)")
+    if len(narrow) != 1 or nar.get("mode") != "alt_rejoin":
+        return fail(f"the exact join recorded {narrow[:2]} as its narrow re-join")
+    if bad_events:
+        return fail(f"a timed or gated join recorded {bad_events[:3]}")
+
+    # 6c. the port's calibration sweep on the card (CUDA's trigonometry)
+    t0 = time.perf_counter()
+    sweep = CM.run_sweep(N_DRIFT, seeds=(3, 11), device=dev, resolutions=(5, 7, 9))
+    cell_sweep = sweep["cell_margin"]["sweep"]
+    edge_sweep = sweep["edge_band"]["sweep"]
+    cell_max = sweep["cell_margin"]["max_observed_k"]
+    edge_max = sweep["edge_band"]["max_observed_k"]
+    golden = os.path.join(HERE, "tests", "goldens", "recheck_margins.json")
+    ref_golden = None
+    if os.path.exists(golden):
+        with open(golden) as fh:
+            g = json.load(fh)
+        ref_golden = {"cell_max_k": g["cell_margin"]["max_observed_k"],
+                      "edge_max_k": g["edge_band"]["max_observed_k"]}
+    emit({
+        "phase": "drift", "device": str(dev), "seconds": time.perf_counter() - t0,
+        "CELL_MARGIN_K": J.CELL_MARGIN_K, "EDGE_BAND_K": J.EDGE_BAND_K,
+        "cell_max_observed_k": cell_max, "edge_max_observed_k": edge_max,
+        "cell_headroom": J.CELL_MARGIN_K / max(cell_max, 1e-9),
+        "edge_headroom": J.EDGE_BAND_K / max(edge_max, 1e-9),
+        "reference_golden_xla_cpu": ref_golden,
+        "cell_sweep": cell_sweep, "edge_sweep": edge_sweep,
+    })
+    if not all(any(r["n_disagreements"] for r in sw) for sw in (cell_sweep, edge_sweep)):
+        return fail("a drift sweep found no f32 disagreement: no signal")
+    if 2 * cell_max > J.CELL_MARGIN_K:
+        return fail(f"CUDA cell drift {cell_max} eps leaves < 2x headroom under "
+                    f"CELL_MARGIN_K={J.CELL_MARGIN_K}")
+    if 2 * edge_max > J.EDGE_BAND_K:
+        return fail(f"CUDA edge drift {edge_max} eps*scale leaves < 2x headroom "
+                    f"under EDGE_BAND_K={J.EDGE_BAND_K}")
+
+    # 6d. the fault pass on the first N_FAULT points of the exact join
+    fpts = raw[:N_FAULT]
+    fclean = exact[:N_FAULT]
+
+    def fjoin():
+        return J.pip_join(fpts, None, H3, RES, chip_index=ix, probe="adaptive",
+                          recheck=True)
+
+    with telemetry.capture() as ev_t:
+        with faults.transient_errors(2, sites=("pip_join.device",)):
+            f_transient = fjoin()
+    # past the retry budget a join on the card raises: its work never
+    # moves to the CPU
+    f_exhaust = None
+    with telemetry.capture() as ev_x:
+        with faults.transient_errors(50, sites=("pip_join.device",)):
+            try:
+                f_exhaust = fjoin()
+            except RetryExhausted as e:
+                exhausted = e
+    f_host = J.host_join(fpts, ix.host, H3, RES)
+    site = "pip_join.device"
+    os.environ["MOSAIC_WATCHDOG_PIP_JOIN_DEVICE"] = str(WATCHDOG_S)
+    try:
+        with telemetry.capture() as ev_s:
+            with faults.stalls(2 * WATCHDOG_S, sites=(site,)):
+                f_stall = fjoin()
+    finally:
+        del os.environ["MOSAIC_WATCHDOG_PIP_JOIN_DEVICE"]
+        for th in threading.enumerate():  # the abandoned attempt ends here
+            if th.name == f"mosaic-watchdog:{site}":
+                th.join(timeout=60)
+        torch.cuda.synchronize()
+
+    def kinds(ev):
+        return [e["event"] for e in ev if e["event"] != "span"]
+
+    stall_retry = [e for e in ev_s if e["event"] == "transient_retry"]
+    checks = {
+        "transient_bit_identical": bool(np.array_equal(f_transient, fclean))
+        and not getattr(f_transient, "degraded", False),
+        "transient_retries": kinds(ev_t).count("transient_retry"),
+        "exhausted_raised": f_exhaust is None,
+        "exhausted_attempts": exhausted.attempts if f_exhaust is None else 0,
+        "exhausted_degraded": "degraded" in kinds(ev_x),
+        "stall_bit_identical": bool(np.array_equal(f_stall, fclean))
+        and not getattr(f_stall, "degraded", False),
+        "stall_events": [k for k in kinds(ev_s) if k != "probe_route"],
+        "stall_retried_as": stall_retry[0]["error"][:80] if stall_retry else None,
+        "clean_equals_host_join": bool(np.array_equal(fclean, f_host)),
+    }
+    emit({"phase": "faults", "points": N_FAULT, "watchdog_s": WATCHDOG_S,
+          "exhausted_events": sorted(set(kinds(ev_x))), **checks})
+    if not (checks["transient_bit_identical"] and checks["transient_retries"] == 2):
+        return fail(f"injected transient errors: {checks}")
+    if not (checks["exhausted_raised"] and checks["exhausted_attempts"] >= 3
+            and not checks["exhausted_degraded"]):
+        return fail(f"retry exhaustion on the card did not raise RetryExhausted: {checks}")
+    if not (checks["stall_bit_identical"] and "watchdog_stall" in checks["stall_events"]
+            and stall_retry and StalledDeviceError.__name__ in stall_retry[0]["error"]):
+        return fail(f"the planned stall was not raised and retried: {checks}")
 
     # 7. zonal_tiled on the segments the zones probe gives on the raster of
     # phase 8, at the two launch sizes: a default 256x256 tile, a 2048x2048
@@ -941,7 +1209,9 @@ def main() -> int:
     hj, hb, ht = heavy["join"], heavy["join_banded"], heavy["tile_banded"]
     kernels = {"kernels": [
         {"name": "pip_heavy_tiled", "route": "cuda", "source": src,
-         "replaces": "mosaic_tpu/kernels/pip.py:492", "launches": heavy_launches,
+         "replaces": "mosaic_tpu/kernels/pip.py:492",
+         "launches": heavy_launches + recheck_launches,
+         "launches_join": heavy_launches, "launches_exact_join": recheck_launches,
          "launches_raster_zones_tiled": zl["pip_heavy_tiled"],
          "crop_ms_per_launch_zones_tiled": crop_ms("zones_tiled", "pip_heavy_tiled"),
          "match": heavy_ok, "max_abs_err": heavy_err,

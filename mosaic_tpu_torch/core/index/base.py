@@ -61,6 +61,27 @@ class IndexSystem(abc.ABC):
     def point_to_cell(self, xy: Array, resolution: int) -> Array:
         """(N, 2) coords -> (N,) int64 cell ids. """
 
+    def point_to_cell_margin(self, xy: Array, resolution: int):
+        """(N, 2) coords -> (cells, rel_margins | None).
+
+        ``rel_margins`` is (N, 2): each point's distance to the nearest
+        and second-nearest cell-assignment decision boundaries, divided by
+        the coordinate noise scale — compare against k·eps(dtype) to flag
+        points whose cell id may differ under higher precision, and whose
+        neighborhood has a third candidate (both margins small = near a
+        cell corner), for the `sql.join` epsilon-band recheck. Systems
+        without a margin implementation return None: callers then skip
+        the cell-band part of the recheck."""
+        return self.point_to_cell(xy, resolution), None
+
+    def point_to_cell_alt(self, xy: Array, resolution: int):
+        """(N, 2) coords -> (N,) runner-up cell ids, or None when the
+        system has no alternate-rounding implementation. For borderline
+        points (first margin small, second ample) the exact-precision
+        cell is the primary or this alternate; -1 entries mean no valid
+        alternate (callers escalate those rows to the exact host path)."""
+        return None
+
     @abc.abstractmethod
     def cell_center(self, cells: Array) -> Array:
         """(N,) int64 -> (N, 2) cell center coordinates."""

@@ -42,13 +42,45 @@ def _tables_for(xp):
     )
 
 
-def geo_to_cell(lat, lng, res: int, xp=np):
-    """(N,) lat/lng radians -> (N,) int64 H3 cell ids at ``res``."""
+def _rel_margin(x, y, res: int, xp):
+    """(..., 2) margins of the finest-res hex rounding (nearest and
+    second-nearest boundary), relative to the coordinate noise scale
+    (compare against k·eps(dtype); `sql.join` epsilon band).
+
+    The geo→hex2d map magnifies angular noise (radians, O(1) magnitudes
+    with relative rounding eps) by ~ √7^res / RES0_U_GNOMONIC, growing
+    toward face edges — the |x|, |y| terms fold that in, and also cover
+    noise from the hex-space arithmetic itself."""
+    m1, m2 = hm.hex_round_margins(x, y, xp)
+    s0 = float(C.SQRT7**res / C.RES0_U_GNOMONIC)
+    s = xp.maximum(xp.maximum(xp.abs(x), xp.abs(y)), s0)
+    return xp.stack([m1 / s, m2 / s], axis=-1)
+
+
+def _alt_ijk(x, y, xp):
+    """Runner-up finest-res rounding, normalized to ijk."""
+    ii, jj = hm.hex_round_alt_axial(x, y, xp)
+    return hm.ijk_normalize(ii, jj, xp.zeros_like(ii), xp)
+
+
+def geo_to_cell(
+    lat, lng, res: int, xp=np, with_margin: bool = False, alt: bool = False
+):
+    """(N,) lat/lng radians -> (N,) int64 H3 cell ids at ``res``.
+
+    ``with_margin=True`` additionally returns the (..., 2) relative
+    rounding margins (:func:`_rel_margin`) of each point's finest-res cell
+    decision — the epsilon-band input for the f64 borderline recheck.
+    ``alt=True`` resolves the RUNNER-UP finest-res rounding instead (the
+    cell across the nearest boundary): everything after the rounding is
+    exact integer math, so for a borderline point the true cell is the
+    primary or this alternate (or, near a vertex, flagged by margin 2)."""
     if xp is not np:
-        return _geo_to_cell_device(lat, lng, res, xp)
+        return _geo_to_cell_device(lat, lng, res, xp, with_margin, alt)
     t, fijk_bc, fijk_rot, is_pent, pent_cw = _tables_for(xp)
     face, x, y = hm.geo_to_hex2d(lat, lng, res, xp=xp)
-    i, j, k = hm.hex2d_to_ijk(x, y, xp)
+    margin = _rel_margin(x, y, res, xp) if with_margin else None
+    i, j, k = _alt_ijk(x, y, xp) if alt else hm.hex2d_to_ijk(x, y, xp)
 
     digits = xp.full(lat.shape + (C.MAX_RES,), C.INVALID_DIGIT, dtype=np.int64)
     for r in range(res, 0, -1):
@@ -62,11 +94,19 @@ def geo_to_cell(lat, lng, res: int, xp=np):
         di, dj, dk = hm.ijk_normalize(li - ci, lj - cj, lk - ck, xp)
         digits[..., r - 1] = hm.unit_ijk_to_digit(di, dj, dk, xp)
 
+    # the alt (runner-up) rounding can step outside the 3x3x3 base-cell
+    # coverage of this face near overage regions, or hit a combo with no
+    # base cell: those alts are reported as -1 (caller escalates to the
+    # exact host path) rather than silently clipped to a wrong cell
+    bad = ((i > 2) | (j > 2) | (k > 2)) if alt else None
     i = xp.clip(i, 0, 2)
     j = xp.clip(j, 0, 2)
     k = xp.clip(k, 0, 2)
     bc = fijk_bc[face, i, j, k]
     rot = fijk_rot[face, i, j, k]
+    if alt:
+        bad = bad | (bc < 0)
+        bc = xp.maximum(bc, 0)
 
     pent = is_pent[bc]
     if xp is np and digits.ndim == 2:
@@ -94,7 +134,10 @@ def geo_to_cell(lat, lng, res: int, xp=np):
         digits = hm.ROT60_CCW_POW[np.where(pent, 0, rot)[:, None], digits]
         if prows.size:
             digits[prows] = dsub
-        return hm.pack(bc, digits, res, np)
+        cells = hm.pack(bc, digits, res, np)
+        if alt:
+            cells = np.where(bad, np.int64(-1), cells)
+        return (cells, margin) if with_margin else cells
 
     lead = hm.leading_nonzero_digit(digits, res, xp)
     cw_off = (pent_cw[bc, 0] == face) | (pent_cw[bc, 1] == face)
@@ -114,10 +157,15 @@ def geo_to_cell(lat, lng, res: int, xp=np):
         rotated = xp.where(pent[..., None], pentrot, hexrot)
         digits = xp.where((rot >= n)[..., None], rotated, digits)
 
-    return hm.pack(bc, digits, res, xp)
+    cells = hm.pack(bc, digits, res, xp)
+    if alt:
+        cells = xp.where(bad, xp.asarray(-1, dtype=cells.dtype), cells)
+    return (cells, margin) if with_margin else cells
 
 
-def _geo_to_cell_device(lat, lng, res: int, xp):
+def _geo_to_cell_device(
+    lat, lng, res: int, xp, with_margin: bool = False, alt: bool = False
+):
     """Device geo_to_cell over torch tensors (``xp`` a
     :class:`~.hexmath.TorchNamespace`): int32 digit math of width ``res``,
     one gather from the composed (face, ijk) -> (base cell, rotation,
@@ -129,10 +177,12 @@ def _geo_to_cell_device(lat, lng, res: int, xp):
     float arithmetic (projection and hex rounding, in ``hexmath``) is the
     same op for op; the TPU select-chains become gathers, which give the
     same integers. Bit-identical to the numpy path in float64.
+    ``with_margin`` and ``alt`` are :func:`geo_to_cell`'s.
     """
     t = derive()
     face, x, y = hm.geo_to_hex2d(lat, lng, res, xp=xp)
-    i, j, k = hm.hex2d_to_ijk(x, y, xp)
+    margin = _rel_margin(x, y, res, xp) if with_margin else None
+    i, j, k = _alt_ijk(x, y, xp) if alt else hm.hex2d_to_ijk(x, y, xp)
     i = i.to(xp.int32)
     j = j.to(xp.int32)
     k = k.to(xp.int32)
@@ -154,6 +204,9 @@ def _geo_to_cell_device(lat, lng, res: int, xp):
         else xp.zeros(tuple(lat.shape) + (0,), xp.int32)
     )  # (N, res) int32
 
+    # alt roundings outside this face's 3x3x3 base-cell coverage (or on a
+    # combo with no base cell, bc < 0 below) come back -1 — see geo_to_cell
+    bad = ((i > 2) | (j > 2) | (k > 2)) if alt else None
     i = xp.clip(i, 0, 2)
     j = xp.clip(j, 0, 2)
     k = xp.clip(k, 0, 2)
@@ -171,6 +224,9 @@ def _geo_to_cell_device(lat, lng, res: int, xp):
     pent = (combo & 1).to(xp.bool)
     rot = (combo >> 1) & 7
     bc = (combo >> 4) - 1
+    if alt:
+        bad = bad | (bc < 0)
+        bc = xp.maximum(bc, 0)
 
     # hexagons: all `rot` ccw rotations composed into one (6, 8) table
     rot_eff = xp.where(pent, 0, rot)
@@ -194,7 +250,10 @@ def _geo_to_cell_device(lat, lng, res: int, xp):
         digits = xp.where(pent[..., None], d, digits_hex)
     else:
         digits = digits_hex
-    return hm.pack_packed(bc, digits, res, xp)
+    cells = hm.pack_packed(bc, digits, res, xp)
+    if alt:
+        cells = xp.where(bad, xp.asarray(-1, dtype=cells.dtype), cells)
+    return (cells, margin) if with_margin else cells
 
 
 def _rot_tab(digits, table, xp):

@@ -22,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..runtime.errors import KernelCompileError, KernelLaunchError
+
 _HERE = Path(__file__).resolve().parent
 SOURCES = {
     "pip": _HERE / "csrc" / "pip.cu",
@@ -85,7 +87,7 @@ def nvcc_path() -> str:
     default = os.path.join(home, "bin", "nvcc")
     if os.path.exists(default):
         return default
-    raise RuntimeError(
+    raise KernelCompileError(
         "nvcc not found: the CUDA kernels are built from source on first "
         "use and need the CUDA toolkit (nvcc on PATH or under $CUDA_HOME)"
     )
@@ -124,7 +126,7 @@ def compile_libraries(names) -> None:
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelCompileError("\n".join(failed))
 
 
 def _bind(name: str) -> ctypes.CDLL:
@@ -160,4 +162,4 @@ def load_all() -> dict[str, ctypes.CDLL]:
 def check(rc: int, what: str) -> None:
     """Raise when a C entry point reports a CUDA error."""
     if rc:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+        raise KernelLaunchError(f"{what}: CUDA launch failed with cudaError {rc}")

@@ -287,7 +287,9 @@ def pip_heavy_tiled(
     int32 heavy-table row per point (-1 or >= H = pad). ``heavy_edges`` (H, E2,
     4) f32, ``heavy_ebits`` (H, E2) int32 slot bitmasks (uint32 bit
     patterns) and ``heavy_slot_geom`` (H, M2) int32 are the ChipIndex
-    heavy tables. Returns ``(best, near)``
+    heavy tables. ``eps2`` is the squared band width: pass a Python float
+    already rounded to f32 (a tensor also works, at the cost of reading
+    it back from the device on every call). Returns ``(best, near)``
     with ``best`` (K,) int32 using int32-max as the no-hit sentinel and
     ``near`` (K,) bool when ``eps2`` is given, else None. CPU tensors run
     :func:`pip_heavy_plain`; CUDA tensors launch the kernels: one call

@@ -178,13 +178,15 @@ class ZonalEngine:
             # and exact f64 — those are re-joined on the host per tile.
             # Cells are assigned in f64 from f64 centers, so only the
             # parity band can drift.
+            # The band is a number rounded once to the table dtype on the
+            # host, so the probe's kernel never reads it back from the card.
             if self._host is not None:
                 dtype = chip_index.border.verts.dtype
                 eps = float(torch.finfo(dtype).eps)
                 self._eps2 = torch.tensor(
                     (EDGE_BAND_K * eps * self._host.coord_scale) ** 2,
-                    dtype=dtype, device=dev,
-                )
+                    dtype=dtype,
+                ).item()
 
     # ------------------------------------------------------------ device
     def _assign(self, gt6, origin, th: int, tw: int) -> torch.Tensor:

@@ -6,8 +6,9 @@ a cap come back as the :data:`~mosaic_tpu_torch.sql.join.OVERFLOW` sentinel
 instead of a wrong answer. This module owns the ONE policy that turns
 that sentinel into an exact answer: re-run with every involved cap grown
 ``growth``× (clamped to its ceiling), up to ``max_attempts`` times. It is
-a host copy of ``mosaic_tpu/runtime/escalate.py`` without its telemetry
-events (the port's observability layer is a later slice).
+a host copy of ``mosaic_tpu/runtime/escalate.py``, telemetry events
+included (``capacity_overflow`` per overflowing attempt,
+``escalation_resolved`` when a later attempt is exact).
 
 Env knobs: ``MOSAIC_ESCALATE_ATTEMPTS`` (default 16),
 ``MOSAIC_ESCALATE_GROWTH`` (default 2).
@@ -19,6 +20,7 @@ import dataclasses
 import os
 from typing import Callable
 
+from . import telemetry
 from .errors import CapacityOverflow
 
 
@@ -71,10 +73,19 @@ def run_escalating(
         result = attempt_fn(dict(caps))
         n_over = int(overflow_count(result))
         if not n_over:
+            if attempt > 1:
+                telemetry.record(
+                    "escalation_resolved", stage=stage, attempts=attempt,
+                    caps=dict(caps),
+                )
             return result, caps
         at_ceiling = all(
             caps[k] >= int(ceilings.get(k, caps[k])) for k in caps
         ) or not caps
+        telemetry.record(
+            "capacity_overflow", stage=stage, attempt=attempt,
+            overflow=n_over, caps=dict(caps), at_ceiling=at_ceiling,
+        )
         if at_ceiling or attempt >= policy.max_attempts:
             raise CapacityOverflow(
                 f"{stage or 'device call'}: {n_over} rows still overflow "

@@ -30,25 +30,37 @@ What differs from the reference, and why:
 - ``lookup="mxu"|"mxu2"`` and ``compaction="mxu"`` are accepted and run
   the plain gather and scatter lanes: they are matmul workarounds for the
   TPU, and their results are the same;
-- ``pip_join`` runs the ``recheck=False`` path with no mesh. The
-  epsilon-band recheck, ``mesh=`` and ``profile=`` raise
-  ``NotImplementedError`` (ROADMAP queue 1, item 4); there is no retry or
-  degradation layer yet, so a device or kernel fault propagates.
+- ``pip_join`` runs with and without the epsilon-band recheck, with the
+  reference's escalation, retry, watchdog and degradation; ``mesh=`` and
+  ``profile=`` raise ``NotImplementedError`` (ROADMAP queue 1, items 12
+  and 13). Besides the probe attempts, the cell assignment with its
+  count read-back and the recheck's narrow re-join also run under
+  ``guarded_call("pip_join.device", ...)``, so every wait on the card
+  has a watchdog. Degradation to the host oracle follows only a
+  transient error that exhausted its retries; the port's own device
+  errors are never transient (`runtime/errors.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
+import time
 
 import numpy as np
 import torch
 
 from .. import FLOAT, resolve_device
+from ..context import current_config
 from ..core.geometry.device import DeviceGeometry, recenter_shift, to_device
 from ..core.index.base import IndexSystem
 from ..core.tessellate import ChipTable, tessellate
 from ..core.types import GeometryBuilder, GeometryType, PackedGeometry
+from ..dispatch import core as _dispatch
+from ..obs import trace as _obs_trace
+from ..runtime import faults as _faults, telemetry as _telemetry
+from ..runtime.errors import DegradedResult, RetryExhausted
 from ..runtime.escalate import run_escalating
 
 _SENTINEL = int(np.iinfo(np.int32).max)
@@ -69,8 +81,14 @@ OVERFLOW = -2
 #: edge intermediate)
 _DIRECT_CHUNK = 1 << 20
 
-#: edge epsilon-band multiplier: the band is EDGE_BAND_K·eps(f32)·coord
-#: scale wide (sizes the convex buckets' pad; the recheck is a later slice)
+#: epsilon-band multipliers (the reference's, calibrated by
+#: ``tools/calibrate_margins.py``): a point is borderline when its
+#: cell-rounding margin (`IndexSystem.point_to_cell_margin`) is below
+#: CELL_MARGIN_K·eps(dtype), or within EDGE_BAND_K·eps·coord_scale of a
+#: probed chip edge. The port's own sweep
+#: (`mosaic_tpu_torch/tools/calibrate_margins.py`, on the CPU in the tests
+#: and on the card in ``chip_smoke.py``) must keep 2x headroom under both.
+CELL_MARGIN_K = 6.0
 EDGE_BAND_K = 16.0
 
 #: convex-lane table shape: y-scanline buckets per convex cell and the
@@ -78,9 +96,13 @@ EDGE_BAND_K = 16.0
 CONVEX_BUCKETS = 8
 CONVEX_EDGE_CAP = 16
 
-_RECHECK_TODO = (
-    "is not ported yet (ROADMAP queue 1, item 4: the managed join's "
-    "epsilon-band recheck, mesh and tune knobs)"
+_MESH_TODO = (
+    "is not ported yet (ROADMAP queue 1, item 12: the multi-device "
+    "lanes)"
+)
+_PROFILE_TODO = (
+    "is not ported yet (ROADMAP queue 1, item 13: the tune knobs of "
+    "tune/resolve.py)"
 )
 
 
@@ -1116,6 +1138,8 @@ def pip_join(
     cell_dtype=None,
     writeback: "str | None" = None,
     lookup: str | None = None,
+    cell_margin_k: float | None = None,
+    edge_band_k: float | None = None,
     probe: "str | None" = None,
     mesh=None,
     profile=None,
@@ -1129,21 +1153,38 @@ def pip_join(
     must live on that device. ``batch_size`` chunks the point axis. The
     compaction caps are sized exactly from the three device counts
     (`_probe_counts`) and grow through `run_escalating` should a cap
-    overflow anyway, so :data:`OVERFLOW` never escapes.
+    overflow anyway (shrunken by `runtime.faults`), so :data:`OVERFLOW`
+    never escapes. Every device step runs through
+    ``dispatch.guarded_call("pip_join.device", ...)``: under the site's
+    watchdog deadline, with transient failures retried. Past the retry
+    budget a join on the CPU degrades to the exact f64 host oracle and the
+    result is flagged :class:`~mosaic_tpu_torch.runtime.DegradedResult`; a
+    join on the card raises :class:`~mosaic_tpu_torch.runtime.RetryExhausted`
+    instead, as its work never moves to the CPU. The port's own device
+    errors (no card, a kernel that does not build or launch, a CUDA error)
+    are never transient: they propagate.
+
+    ``recheck`` (default: the ``exact_recheck`` config flag) switches on
+    the epsilon-band recheck — the answer then equals :func:`host_join`'s
+    exact f64 answer. Points whose f32 cell-rounding margin is below
+    ``cell_margin_k``·eps (default :data:`CELL_MARGIN_K`) re-join once,
+    band-compacted, against their runner-up cell
+    (`IndexSystem.point_to_cell_alt`); only those whose two answers
+    differ, cell-corner points, invalid alternates, and points within
+    ``edge_band_k``·eps·coord_scale (default :data:`EDGE_BAND_K`) of a
+    probed chip edge go to the f64 host oracle. Requires the index's
+    ``host`` companion.
 
     ``cell_dtype`` is the dtype cells are computed in (default float32,
     the port's device coordinate type; the reference defaults to the input
     array's dtype). ``writeback``/``lookup``/``probe`` are the knobs of
-    :func:`pip_join_points`. ``recheck=True``, ``mesh`` and ``profile``
-    raise ``NotImplementedError`` (the recheck's ``cell_margin_k`` and
-    ``edge_band_k`` come with it).
+    :func:`pip_join_points`. ``mesh`` and ``profile`` raise
+    ``NotImplementedError``.
     """
-    if recheck:
-        raise NotImplementedError(f"pip_join(recheck=True) {_RECHECK_TODO}")
     if mesh is not None:
-        raise NotImplementedError(f"pip_join(mesh=...) {_RECHECK_TODO}")
+        raise NotImplementedError(f"pip_join(mesh=...) {_MESH_TODO}")
     if profile is not None:
-        raise NotImplementedError(f"pip_join(profile=...) {_RECHECK_TODO}")
+        raise NotImplementedError(f"pip_join(profile=...) {_PROFILE_TODO}")
     if resolution is None:
         raise ValueError("pip_join needs a resolution")
     dev = resolve_device(device)
@@ -1162,8 +1203,16 @@ def pip_join(
         raise ValueError(
             f"chip_index lives on {chip_index.device}, the join runs on {dev}"
         )
+    if recheck is None:
+        recheck = current_config().exact_recheck
     dev = chip_index.device
     host: HostRecheck | None = getattr(chip_index, "host", None)
+    if recheck and host is None:
+        raise ValueError(
+            "exact_recheck needs the index's f64 host companion — present "
+            "on build_chip_index products; rebuild the index in-process "
+            "or restore it via HostRecheck.from_arrays"
+        )
     raw = np.asarray(points, dtype=np.float64)
     shift = (
         host.shift if host is not None
@@ -1172,20 +1221,43 @@ def pip_join(
     np_dtype = np.dtype(str(chip_index.border.verts.dtype).removeprefix("torch."))
     cdt = FLOAT if cell_dtype is None else _as_torch_dtype(cell_dtype)
     n = raw.shape[0]
+    if recheck:
+        # the edge band, rounded once to the table dtype on the host: the
+        # probe and its kernel read it as a number, never from the device
+        ebk = EDGE_BAND_K if edge_band_k is None else float(edge_band_k)
+        eps2 = float(np_dtype.type(
+            (ebk * float(np.finfo(np_dtype).eps) * host.coord_scale) ** 2
+        ))
+    need_counts = writeback != "direct" or chip_index.num_heavy_cells
+
+    def assign(chunk: np.ndarray):
+        """Cells (and margins) of a chunk and its three probe counts."""
+        pts = torch.from_numpy(np.ascontiguousarray(chunk)).to(dev).to(cdt)
+        if recheck:
+            cells, margins = index_system.point_to_cell_margin(pts, resolution)
+        else:
+            cells, margins = index_system.point_to_cell(pts, resolution), None
+        counts = (
+            _probe_counts(cells, chip_index).tolist() if need_counts else None
+        )
+        return pts, cells, margins, counts
 
     def run(chunk: np.ndarray) -> np.ndarray:
         m = chunk.shape[0]
-        pts = torch.from_numpy(np.ascontiguousarray(chunk)).to(dev).to(cdt)
-        cells = index_system.point_to_cell(pts, resolution)
+        pts, cells, margins, counts = _dispatch.guarded_call(
+            "pip_join.device", assign, chunk
+        )
         if writeback == "direct":
             fcap = ccap = None
             hcap = (
-                min(_next_pow2(int(_probe_counts(cells, chip_index)[1]) + 1), m)
+                min(_next_pow2(counts[1] + 1), m)
                 if chip_index.num_heavy_cells
                 else None
             )
+            caps = _faults.clamp_caps({"heavy_cap": hcap})
+            hcap = caps["heavy_cap"]
         else:
-            nf, nh, nc = _probe_counts(cells, chip_index).tolist()
+            nf, nh, nc = counts
             fcap = min(_next_pow2(nf + 1), m)
             hcap = (
                 min(_next_pow2(nh + 1), fcap)
@@ -1197,32 +1269,186 @@ def pip_join(
                 if probe != "scatter" and chip_index.num_convex_cells
                 else None
             )
-        caps = {"found_cap": fcap, "heavy_cap": hcap, "convex_cap": ccap}
+            # fault injection may clamp the exactly-sized caps (no-op
+            # without an active plan); the escalation loop grows them back
+            caps = _faults.clamp_caps(
+                {"found_cap": fcap, "heavy_cap": hcap, "convex_cap": ccap}
+            )
+            fcap, hcap, ccap = (
+                caps["found_cap"], caps["heavy_cap"], caps["convex_cap"]
+            )
+            if probe != "scatter":
+                # lane populations: how the router splits this chunk
+                _telemetry.record(
+                    "probe_route", n=m, probe=probe,
+                    found=nf, heavy=nh, convex=nc, light=nf - nc,
+                )
         shifted = torch.from_numpy((chunk - shift).astype(np_dtype)).to(dev)
+        # every cap that exists escalates together toward the row-count
+        # ceiling, at which overflow is structurally impossible
         grow = {k: v for k, v in caps.items() if v is not None}
+        ceilings = {k: m for k in grow}
+        band = eps2 if recheck else None
 
         def attempt(c):
-            return pip_join_points(
+            # the copy back ends the attempt, so the watchdog's deadline
+            # covers the device work
+            r = pip_join_points(
                 shifted, cells, chip_index,
                 heavy_cap=c.get("heavy_cap", hcap),
-                found_cap=c.get("found_cap", fcap),
+                found_cap=c.get("found_cap", fcap), edge_eps2=band,
                 writeback=writeback, lookup=lookup, probe=probe,
                 convex_cap=c.get("convex_cap", ccap),
-            ).cpu().numpy()
+            )
+            if band is None:
+                return r.cpu().numpy()
+            return r[0].cpu().numpy(), r[1].cpu().numpy()
 
-        out, _ = run_escalating(
-            attempt, grow, {k: m for k in grow},
-            overflow_count=lambda o: int((o == OVERFLOW).sum()),
-            stage="pip_join",
+        if not recheck:
+            out, _ = run_escalating(
+                lambda c: _dispatch.guarded_call("pip_join.device", attempt, c),
+                grow, ceilings,
+                overflow_count=lambda o: int((o == OVERFLOW).sum()),
+                stage="pip_join",
+            )
+            return out
+
+        # --- epsilon-band recheck ------------------------------------
+        (out, host_mask), _ = run_escalating(
+            lambda c: _dispatch.guarded_call("pip_join.device", attempt, c),
+            grow, ceilings,
+            overflow_count=lambda r: int((r[0] == OVERFLOW).sum()),
+            stage="pip_join.recheck",
         )
+        if margins is not None:
+            cmk = CELL_MARGIN_K if cell_margin_k is None else float(cell_margin_k)
+            km = cmk * float(torch.finfo(margins.dtype).eps)
+            t_rc = time.perf_counter()
+            nar = _dispatch.guarded_call(
+                "pip_join.device", _narrow_rejoin, pts, shifted, margins, km,
+                index_system, resolution, chip_index, lookup,
+            )
+            if nar is not None:
+                n_flag, cap, src_np, alt_join = nar
+                if alt_join is None:  # system without alternate-rounding
+                    host_mask[src_np] = True
+                    _telemetry.record(
+                        "recheck_narrow", n=m, band=n_flag, cap=cap,
+                        ties=n_flag, mode="host_all",
+                        seconds=round(time.perf_counter() - t_rc, 6),
+                    )
+                else:
+                    caps2, r_alt, vertex, alt_np = alt_join
+                    tie = (r_alt != out[src_np]) | vertex | (alt_np < 0)
+                    host_mask[src_np[tie]] = True
+                    _telemetry.record(
+                        "recheck_narrow", n=m, band=n_flag, cap=cap,
+                        caps=caps2, ties=int(tie.sum()), mode="alt_rejoin",
+                        seconds=round(time.perf_counter() - t_rc, 6),
+                    )
+        rows = np.nonzero(host_mask)[0]
+        if rows.size:
+            out[rows] = host_join(chunk[rows], host, index_system, resolution)
         return out
 
-    if batch_size is None or n <= batch_size:
-        return run(raw)
-    out = np.empty(n, dtype=np.int32)
-    for s in range(0, n, batch_size):
-        out[s : s + batch_size] = run(raw[s : s + batch_size])
-    return out
+    def run_resilient(chunk: np.ndarray) -> np.ndarray:
+        """`run`, degrading to the exact f64 host oracle when the device
+        path fails past the transient-retry budget (result flagged
+        :class:`DegradedResult` — never a silent zero/wrong answer). Only
+        a join on the CPU degrades: on the card a retried stall queues
+        behind the hung work, and the chunk's work stays on the card, so
+        :class:`RetryExhausted` propagates."""
+        try:
+            return run(chunk)
+        except RetryExhausted as e:
+            if host is None or dev.type != "cpu":
+                raise
+            _telemetry.record(
+                "degraded", label="pip_join", attempts=e.attempts,
+                error=repr(e.last)[:200],
+            )
+            logging.getLogger("mosaic_tpu_torch.runtime").warning(
+                "pip_join: device path failed %d times (%r); answering "
+                "from the f64 host oracle", e.attempts, e.last,
+            )
+            return DegradedResult.wrap(
+                host_join(chunk, host, index_system, resolution),
+                reason=f"pip_join device retries exhausted ({e.last!r})"[:300],
+                attempts=e.attempts,
+            )
+
+    def run_spanned(chunk: np.ndarray) -> np.ndarray:
+        """One lane span per chunk when routing is pinned:
+        `join.probe.<lane>` attributes the chunk's wall clock to that lane
+        (the lane populations of `adaptive` ride the `probe_route`
+        event instead)."""
+        if probe.startswith("adaptive-"):
+            with _obs_trace.span(
+                f"join.probe.{probe.removeprefix('adaptive-')}",
+                n=chunk.shape[0],
+            ):
+                return run_resilient(chunk)
+        return run_resilient(chunk)
+
+    # one span per pip_join call: escalation/retry/degradation/recheck
+    # events inside attach to it
+    with _obs_trace.span("join.pip", n=n, recheck=bool(recheck), probe=probe):
+        if batch_size is None or n <= batch_size:
+            return run_spanned(raw)
+        out = np.empty(n, dtype=np.int32)
+        degraded: list[DegradedResult] = []
+        for s in range(0, n, batch_size):
+            r = run_spanned(raw[s : s + batch_size])
+            if isinstance(r, DegradedResult):
+                degraded.append(r)
+            out[s : s + batch_size] = r
+        if degraded:
+            return DegradedResult.wrap(
+                out,
+                reason=degraded[0].reason,
+                attempts=max(d.attempts for d in degraded),
+                detail={"degraded_batches": len(degraded)},
+            )
+        return out
+
+
+def _narrow_rejoin(
+    pts, shifted, margins, km, index_system, resolution, chip_index, lookup
+):
+    """The recheck's band-compacted narrow re-join, on the device.
+
+    The points whose first cell margin is below ``km`` are compacted once
+    (`_compact`) and re-joined once against their runner-up cell, on the
+    scatter probe with caps sized exactly from the band's own counts (pad
+    rows duplicate row 0, so the counts bound the band from above). The
+    full point axis is never re-probed. Returns None when no point is in
+    the band, else ``(n_flag, cap, src, alt_join)`` on the host: ``src``
+    the band's row ids, and ``alt_join`` None for a system without an
+    alternate rounding, else ``([found_cap, heavy_cap], alt result,
+    vertex flags, alt cells)`` of the band's rows.
+    """
+    flagged = margins[:, 0] < km
+    n_flag = int(flagged.sum())
+    if not n_flag:
+        return None
+    cap = min(_next_pow2(n_flag), pts.shape[0])
+    src, _, _, _ = _compact(flagged, cap)
+    alt = index_system.point_to_cell_alt(pts[src], resolution)
+    src_np = src[:n_flag].cpu().numpy()
+    if alt is None:
+        return n_flag, cap, src_np, None
+    nf2, nh2, _ = _probe_counts(alt, chip_index).tolist()
+    fcap2 = min(_next_pow2(nf2 + 1), cap)
+    hcap2 = (
+        min(_next_pow2(nh2 + 1), fcap2) if chip_index.num_heavy_cells else None
+    )
+    r_alt = pip_join_points(
+        shifted[src], alt, chip_index, heavy_cap=hcap2, found_cap=fcap2,
+        lookup=lookup,
+    )[:n_flag].cpu().numpy()
+    vertex = (margins[src[:n_flag], 1] < km).cpu().numpy()
+    alt_np = alt[:n_flag].cpu().numpy()
+    return n_flag, cap, src_np, ([fcap2, hcap2], r_alt, vertex, alt_np)
 
 
 def _as_torch_dtype(dt) -> torch.dtype:

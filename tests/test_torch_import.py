@@ -27,7 +27,14 @@ MODULES = [
     "mosaic_tpu_torch.kernels._build",
     "mosaic_tpu_torch.raster",
     "mosaic_tpu_torch.raster.zonal",
+    "mosaic_tpu_torch.runtime",
     "mosaic_tpu_torch.runtime.escalate",
+    "mosaic_tpu_torch.runtime.watchdog",
+    "mosaic_tpu_torch.obs.trace",
+    "mosaic_tpu_torch.context",
+    "mosaic_tpu_torch.dispatch.core",
+    "mosaic_tpu_torch.core.index.bng",
+    "mosaic_tpu_torch.tools.calibrate_margins",
     "mosaic_tpu_torch.sql.join",
 ]
 
@@ -94,6 +101,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
     pts = np.asarray([[-73.995, 40.705]])
     with pytest.raises(DeviceUnavailable):
         pip_join(pts, zones, H3IndexSystem(), 9)
+    with pytest.raises(DeviceUnavailable):  # never answered by the host oracle
+        pip_join(pts, zones, H3IndexSystem(), 9, recheck=True)
     with pytest.raises(DeviceUnavailable):
         pack_to_device(zones)
     from mosaic_tpu_torch.core.tessellate import tessellate
@@ -105,3 +114,6 @@ def test_entry_points_raise_without_cuda(no_cuda):
     ix = build_chip_index(table, device="cpu")
     out = pip_join(pts, None, H3IndexSystem(), 9, chip_index=ix, device="cpu")
     assert out.shape == (1,) and out.dtype == np.int32
+    out = pip_join(pts, None, H3IndexSystem(), 9, chip_index=ix, device="cpu",
+                   recheck=True)
+    assert out.shape == (1,) and not getattr(out, "degraded", False)

@@ -207,8 +207,8 @@ def test_host_join_equals_reference(own_indexes, batches):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"recheck": True}, {"mesh": 2}, {"profile": object()}],
-    ids=["recheck", "mesh", "profile"],
+    "kw", [{"mesh": 2}, {"profile": object()}],
+    ids=["mesh", "profile"],
 )
 def test_later_slices_raise_typed(port_index, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

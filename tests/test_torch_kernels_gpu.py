@@ -336,3 +336,81 @@ def test_zonal_fold_cuda_equals_cpu_lane_bits(cuda, case, dtype):
         assert bool(exact.all())
     if case in ("float_one_run_65536", "near_2_52", "specials"):
         assert not bool(exact.all())
+
+
+# ---- the exact join on the card
+
+
+def test_recheck_join_on_card_equals_host_oracle(cuda):
+    """`pip_join(probe="adaptive", recheck=True)` on the card launches the
+    banded heavy kernel, is not degraded, and equals the f64 host oracle
+    exactly."""
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+    from mosaic_tpu_torch.core.tessellate import tessellate
+    from mosaic_tpu_torch.runtime import telemetry
+    from mosaic_tpu_torch.sql import join as TJ
+
+    h3 = H3IndexSystem()
+    zones = synthetic_zones(4, 4, bbox=BBOX, verts=256)
+    ix = TJ.build_chip_index(tessellate(zones, h3, 9, keep_core_geoms=False), device=cuda)
+    assert ix.num_heavy_cells > 0
+    rng = np.random.default_rng(17)
+    pts = rng.uniform(BBOX[:2], BBOX[2:], (50_000, 2))
+    before = TP.pip_heavy_tiled.launches
+    with telemetry.capture() as ev:
+        got = TJ.pip_join(pts, None, h3, 9, chip_index=ix, probe="adaptive", recheck=True)
+    assert TP.pip_heavy_tiled.launches > before
+    assert not getattr(got, "degraded", False)
+    kinds = {e["event"] for e in ev}
+    assert "recheck_narrow" in kinds
+    assert not kinds & {"transient_retry", "degraded", "retry_exhausted"}
+    np.testing.assert_array_equal(got, TJ.host_join(pts, ix.host, h3, 9))
+
+
+@pytest.mark.parametrize("recheck", [False, True])
+def test_join_on_card_raises_when_retries_exhausted(cuda, recheck):
+    """Past the retry budget a join on the card raises `RetryExhausted`
+    and records no degradation: its work never moves to the CPU."""
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+    from mosaic_tpu_torch.core.tessellate import tessellate
+    from mosaic_tpu_torch.runtime import RetryExhausted, faults, telemetry
+    from mosaic_tpu_torch.sql import join as TJ
+
+    h3 = H3IndexSystem()
+    zones = synthetic_zones(3, 3, bbox=BBOX)
+    ix = TJ.build_chip_index(tessellate(zones, h3, 7, keep_core_geoms=False), device=cuda)
+    pts = np.random.default_rng(5).uniform(BBOX[:2], BBOX[2:], (2_000, 2))
+    with telemetry.capture() as ev:
+        with faults.transient_errors(50, sites=("pip_join.device",)):
+            with pytest.raises(RetryExhausted) as ei:
+                TJ.pip_join(pts, None, h3, 7, chip_index=ix, recheck=recheck)
+    assert ei.value.attempts >= 3
+    kinds = [e["event"] for e in ev]
+    assert "retry_exhausted" in kinds and "degraded" not in kinds
+
+
+@pytest.mark.parametrize("res", [5, 9, 11])
+def test_cuda_margins_cover_the_cards_disagreements(cuda, res):
+    """The card's f32 cells (CUDA's trigonometry) differ from the f64 host
+    cells only inside the cell band, with 2x headroom under
+    CELL_MARGIN_K, and the runner-up cell covers every flagged one."""
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+    from mosaic_tpu_torch.sql.join import CELL_MARGIN_K
+    from mosaic_tpu_torch.tools.calibrate_margins import global_points
+
+    h3 = H3IndexSystem()
+    pts = global_points(400_000, 3)
+    eps = float(np.finfo(np.float32).eps)
+    c64 = h3.point_to_cell(pts, res)
+    f32 = torch.from_numpy(pts).to(cuda).float()
+    c32, m = h3.point_to_cell_margin(f32, res)
+    alt = h3.point_to_cell_alt(f32, res).cpu().numpy()
+    c32, m = c32.cpu().numpy(), m.cpu().numpy()
+    dis = c32 != c64
+    if res >= 9:
+        assert dis.any(), "no f32 disagreement on the card: no signal"
+    if dis.any():
+        assert m[dis, 0].max() / eps <= CELL_MARGIN_K / 2
+    km = CELL_MARGIN_K * eps
+    covered = ~dis | ((m[:, 0] < km) & ((alt == c64) | (m[:, 1] < km) | (alt == -1)))
+    assert covered.all()
