@@ -75,8 +75,32 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    equal the f64 host oracles bit for bit (agreement 1.0), and the tiled
    lane equals the fold lane bit for bit on the values-mod-113 twin of the
    whole raster (every zone total under 2**24);
-9. a ``kernels`` line with each kernel's launches, times and bound, and
-   each raster kernel's device time per launch in the crop profile.
+8b. the durable stream (``sql/stream.py StreamJoin``, the reference's
+   stream bench): a ring of ``STREAM_RING`` batches of 4M points (slot 0
+   the main path's batch) staged on the card, caps sized from every
+   slot's exact counts, ``STREAM_BATCHES`` batches (100M points) with the
+   adaptive probe, which launches ``pip_heavy_tiled`` once a batch.
+   Gates, each bit for bit: no overflow; ``run`` equals ``run_batched``;
+   slot 0's row equals phase 6's adaptive and scatter joins; both durable
+   executors (synchronous, and pipelined with a window of 4) equal
+   ``run`` with snapshots at 8, 16, 24 and 25; a fatal fault at
+   ``stream.scan_step`` after 2 segments, then ``resume``, equals ``run``
+   from cursor 16 for both executors; rows poisoned at ``stream.admit``
+   are quarantined exactly and the admitted ring's ``run`` equals its
+   ``run_batched``; exhausted retries raise ``RetryExhausted`` with no
+   degradation. Prints the sustained and single-batch rates, both
+   durable rates, snapshot and fingerprint seconds, the host
+   synchronisations the loop makes a batch, ``hbm_peak`` and the device
+   idle share over 3 profiled batches;
+8c. the durable raster scan (``sql/raster_stream.py RasterStream``): the
+   tiled lane over the whole raster must equal phase 8's tiled zones bit
+   for bit and launch ``zonal_tiled`` and ``pip_heavy_tiled``; on the
+   crop (fold lane) the plain, durable, killed-and-resumed and retried
+   scans must equal the fold zones bit for bit; prints tiles/s and
+   pixels/s;
+9. a ``kernels`` line with each kernel's launches (their sum over the
+   paths above, and each path's own count), times and bound, and each
+   raster kernel's device time per launch in the crop profile.
 
 A kernel's ``ms`` is its device time per launch from the profiler over
 repeated calls at the phase's shapes; ``wrapper_ms`` is CUDA events
@@ -96,10 +120,12 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -118,6 +144,11 @@ RES = 9
 SEED = 11
 ZONES = (16, 16)
 DEVICE = "cuda"
+STREAM_RING = 8            # ring slots of N_POINTS: the stream bench's --ring 8
+STREAM_BATCHES = 25        # 25 x 4M = 100M points, the stream bench's long run
+STREAM_HEADROOM = 1.05     # cap headroom over the largest slot's exact counts
+STREAM_POISON = 1000       # rows poisoned in each of 3 admitted batches
+RUNS_DIR = ".chip_smoke_runs"  # run directories of the durable phases (removed)
 
 #: H100 SXM rates: HBM3 bytes/s (NVIDIA data sheet); single f32 and f64
 #: operations per second outside the tensor cores. The data sheet's 67 and
@@ -1066,6 +1097,7 @@ def main() -> int:
     launches = {}
     results = {}
     crop_kernels = {}
+    warm_by_path = {}
     for name, call in calls.items():
         for fn in counted.values():
             fn.launches = 0
@@ -1086,6 +1118,7 @@ def main() -> int:
         busy, rows_r, prof_ms = profile_device(lambda: call(crop))
         crop_kernels[name] = kernel_times(rows_r)
         out_r = results[name]
+        warm_by_path[name] = warm_s
         emit({
             "phase": f"raster_{name}", "pixels": real_pixels, "tiles": n_tiles,
             "tile": list(plan_tiles(raster).shape), "launches": launches[name],
@@ -1197,6 +1230,259 @@ def main() -> int:
     if twin_agree != 1.0:
         return fail(f"tiled zones agree with fold zones on {twin_agree} of the twin")
 
+    # 8b. the durable stream at full width (the reference's stream bench:
+    # a ring of 8 batches of 4M points, 25 batches, snapshots every 8)
+    from mosaic_tpu_torch.runtime import checkpoint as CK
+    from mosaic_tpu_torch.sql import RasterStream
+    from mosaic_tpu_torch.sql import stream as S
+
+    runs_dir = os.path.join(HERE, RUNS_DIR)
+    shutil.rmtree(runs_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    slots = [raw] + [random_points(N_POINTS, NYC_BBOX, seed=SEED + i)
+                     for i in range(1, STREAM_RING)]
+    t0 = time.perf_counter()
+    ring = S.ring_from_host(slots, device=dev)
+    ring_s = time.perf_counter() - t0
+    # the caps from the exact counts of every slot, with headroom
+    slot_counts = [J._probe_counts(H3.point_to_cell(ring[i].to(torch.float32), RES), ix)
+                   .tolist() for i in range(STREAM_RING)]
+    top = [max(c[j] for c in slot_counts) for j in range(3)]
+    stream_caps = {
+        name: min(J._next_pow2(int(top[j] * STREAM_HEADROOM) + 1), N_POINTS)
+        for j, name in enumerate(("found_cap", "heavy_cap", "convex_cap"))
+    }
+    sj = S.StreamJoin(ix, H3, RES, probe="adaptive", **stream_caps)
+    sj.compile(ring, 1)
+
+    def syncs(nb):
+        """Host synchronisations the device loop of ``nb`` batches makes
+        (torch's sync debug mode, one warning each)."""
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                sj._loop(ring, ix, nb, False)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        msgs = [str(x.message) for x in w if "synchroniz" in str(x.message).lower()
+                and "prototype" not in str(x.message)]
+        return len(msgs), msgs[:1]
+
+    (s1, first_sync), (s3, _) = syncs(1), syncs(3)
+    K.pip_heavy_tiled.launches = 0
+    K.pip_zone.launches = 0
+    stream_run = sj.run(ring, STREAM_BATCHES)
+    stream_launches = K.pip_heavy_tiled.launches
+    stream_zone_launches = K.pip_zone.launches
+    stream_walls = [stream_run.wall_s] + [sj.run(ring, STREAM_BATCHES).wall_s
+                                          for _ in range(2)]
+    batched = sj.run_batched(ring, STREAM_BATCHES)
+    one_cycle = sj.run(ring, STREAM_RING, collect=True)
+    step_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sj.step_stats(ring[0]).cpu()
+        step_s.append(time.perf_counter() - t0)
+
+    def stats3(r):
+        return (r.checksum, r.matches, r.overflow)
+
+    want3 = stats3(stream_run)
+    t0 = time.perf_counter()
+    CK.fingerprint(ring)
+    fingerprint_s = time.perf_counter() - t0
+    durable = {}
+    for name, kw in (("sync", {}), ("pipelined", {"pipeline": True, "window": 4})):
+        d = os.path.join(runs_dir, name)
+        with telemetry.capture() as ev:
+            r = sj.run_durable(ring, STREAM_BATCHES, run_dir=d, snapshot_every=8, **kw)
+        snaps = [e["seconds"] for e in ev if e["event"] == "snapshot_saved"]
+        # a fatal device loss after 2 segments, then resume
+        dk = os.path.join(runs_dir, f"{name}_kill")
+        killed = False
+        with faults.inject(fail_first=99, skip_first=2, sites=("stream.scan_step",),
+                           exc_factory=lambda site: RuntimeError("simulated device loss")):
+            try:
+                sj.run_durable(ring, STREAM_BATCHES, run_dir=dk, snapshot_every=8, **kw)
+            except RuntimeError:
+                killed = True
+        t0 = time.perf_counter()
+        resumed = sj.resume(dk, ring, **kw)
+        resume_s = time.perf_counter() - t0
+        durable[name] = {
+            "equal_to_run": stats3(r) == want3, "degraded": r.metrics["degraded"],
+            "snapshots": r.metrics["snapshots"], "snapshot_steps": CK.list_snapshots(d),
+            "wall_s": r.wall_s, "points_per_s": r.points_per_sec,
+            "snapshot_s": snaps, "pipeline": r.metrics.get("pipeline"),
+            "killed": killed, "resumed_from": resumed.metrics["resumed_from"],
+            "resume_equal_to_run": stats3(resumed) == want3, "resume_s": resume_s,
+        }
+    # snapshots every batch: where the pipelined executor's writer thread
+    # has the most to overlap (each executor twice, interleaved)
+    every1 = {"sync": [], "pipelined": [], "equal_to_run": True}
+    for rep_i in range(2):
+        for name, kw in (("sync", {}), ("pipelined", {"pipeline": True, "window": 4})):
+            d = os.path.join(runs_dir, f"every1_{name}_{rep_i}")
+            r = sj.run_durable(ring, STREAM_BATCHES, run_dir=d, snapshot_every=1, **kw)
+            every1[name].append(r.wall_s)
+            every1["equal_to_run"] &= stats3(r) == want3 and r.metrics["snapshots"] == STREAM_BATCHES
+            shutil.rmtree(d, ignore_errors=True)
+    # admission: rows poisoned at the stream.admit site are quarantined,
+    # exactly those; the admitted ring's loop equals its per-batch path
+    with faults.corrupt_batches(rows=STREAM_POISON, n=3, sites=("stream.admit",)):
+        t0 = time.perf_counter()
+        ring_q, rep = sj.admit(slots, bounds=(NYC_BBOX[0], NYC_BBOX[1],
+                                              NYC_BBOX[2], NYC_BBOX[3]))
+        admit_s = time.perf_counter() - t0
+    expect_rows = [(b, r_) for b in range(3) for r_ in range(STREAM_POISON)]
+    q_run, q_batched = sj.run(ring_q, STREAM_RING), sj.run_batched(ring_q, STREAM_RING)
+    admit = {
+        "quarantined": rep.n_quarantined, "exact_rows": sorted(rep.rows) == expect_rows,
+        "run_equal_to_batched": stats3(q_run) == stats3(q_batched), "admit_s": admit_s,
+    }
+    del ring_q
+    # past the retry budget a segment on the card raises, and nothing
+    # degrades to the CPU
+    with telemetry.capture() as ev_x:
+        with faults.transient_errors(50, sites=("stream.scan_step",)):
+            try:
+                sj.run_durable(ring, 2, run_dir=os.path.join(runs_dir, "exhaust"),
+                               snapshot_every=1)
+                stream_exhausted = False
+            except RetryExhausted:
+                stream_exhausted = True
+    stream_exhaust_degraded = "degraded" in [e["event"] for e in ev_x]
+    peak, peak_src = S.hbm_peak(dev, fallback_arrays=[ring])
+    # device busy time and idle share over 3 batches under the profiler
+    warm3 = min(sj.run(ring, 3).wall_s for _ in range(2))
+    busy_s, rows_s, prof_s_ms = profile_device(lambda: sj.run(ring, 3))
+    stream_kernels = kernel_times(rows_s)
+    stream_ok = {
+        "overflow_zero": stream_run.overflow == 0,
+        "run_equal_to_batched": want3 == stats3(batched),
+        "slot0_equal_to_pip_join": bool(np.array_equal(one_cycle.outs[0], out)),
+        "slot0_equal_to_scatter": bool(np.array_equal(one_cycle.outs[0], base)),
+        "cycle_equal_to_batched": bool(np.array_equal(one_cycle.outs, batched.outs[:STREAM_RING])),
+        "durable_equal": all(v["equal_to_run"] and not v["degraded"]
+                             and v["snapshot_steps"] == [8, 16, 24, 25]
+                             for v in durable.values()),
+        "resume_equal": all(v["killed"] and v["resumed_from"] == 16
+                            and v["resume_equal_to_run"] for v in durable.values()),
+        "quarantine_exact": admit["quarantined"] == 3 * STREAM_POISON and admit["exact_rows"]
+        and admit["run_equal_to_batched"],
+        "exhaustion_raised": stream_exhausted and not stream_exhaust_degraded,
+        "durable_every_batch_equal": every1["equal_to_run"],
+        # a lower bound: torch's sync debug mode is a prototype
+        "loop_free_of_host_syncs": s3 - s1 == 0,
+    }
+    emit({
+        "phase": "stream", "ring": [STREAM_RING, N_POINTS], "batches": STREAM_BATCHES,
+        "points": STREAM_BATCHES * N_POINTS, "caps": stream_caps,
+        "slot_counts": slot_counts, "ring_build_s": ring_s,
+        "ring_mb": ring.numel() * ring.element_size() / 1e6,
+        "pip_heavy_tiled_launches": stream_launches,
+        "pip_zone_launches": stream_zone_launches,
+        "checksum": stream_run.checksum, "matches": stream_run.matches,
+        "overflow": stream_run.overflow,
+        "run_wall_s": stream_walls,
+        "points_per_s": STREAM_BATCHES * N_POINTS / min(stream_walls),
+        "batched_wall_s": batched.wall_s,
+        "step_stats_s": step_s, "single_batch_points_per_s": N_POINTS / min(step_s),
+        "host_syncs": {"loop_1_batch": s1, "loop_3_batches": s3,
+                       "per_batch": (s3 - s1) / 2, "first": first_sync},
+        "fingerprint_s": fingerprint_s, "durable": durable,
+        "durable_snapshot_every_batch_wall_s": every1, "admit": admit,
+        "hbm_peak_bytes": peak, "hbm_peak_source": peak_src,
+        "profiled_batches": 3, "warm_wall_ms_3": warm3 * 1e3,
+        "profiled_wall_ms": prof_s_ms, **idle_share(busy_s, rows_s, warm3 * 1e3),
+        "kernels_3_batches": stream_kernels,
+        "top_device_ops": [{"op": k[:80], "ms": ms, "calls": c} for ms, k, c in rows_s[:6]],
+        "gates": stream_ok,
+    })
+    del ring, one_cycle, batched
+    shutil.rmtree(runs_dir, ignore_errors=True)
+    if stream_launches <= 0:
+        return fail("the stream never launched pip_heavy_tiled")
+    bad_gates = [k for k, v in stream_ok.items() if not v]
+    if bad_gates:
+        return fail(f"stream gates failed: {bad_gates}")
+
+    # 8c. the durable raster scan: both lanes on the whole raster against
+    # phase 8's zones of the same lane, then durability on the crop; the
+    # counts are zeroed just before each run they are read from
+    def counted_run(call):
+        for fn in counted.values():
+            fn.launches = 0
+        out_ = call()
+        return out_, {k: fn.launches for k, fn in counted.items()}
+
+    rs_tiled = RasterStream(ix, H3, RES, lane="tiled")
+    scan, rs_launches = counted_run(lambda: rs_tiled.scan(raster))
+    scan_agree = agreement(scan.stats, results["zones_tiled"])
+    # a warm scan, and one with no watchdog deadline (every guarded call
+    # inline on this thread instead of a worker thread each)
+    scan_warm_s = rs_tiled.scan(raster).wall_s
+    scan_inline_s = rs_tiled.scan(raster, watchdog_default_s=None).wall_s
+    rs_fold = RasterStream(ix, H3, RES)
+    fold_scan, rs_fold_launches = counted_run(lambda: rs_fold.scan(raster))
+    fold_scan_agree = agreement(fold_scan.stats, results["zones_fold"])
+    crop_clean, crop_launches = counted_run(lambda: rs_fold.scan(crop))
+    crop_fold_launches = crop_launches["zonal_fold"]
+    crop_agree = agreement(crop_clean.stats, engines["zones_fold"].zones(crop))
+    d = os.path.join(runs_dir, "raster")
+    crop_durable = rs_fold.scan(crop, run_dir=d, snapshot_every=4)
+    dk = os.path.join(runs_dir, "raster_kill")
+    with faults.inject(fail_first=99, skip_first=8, sites=("raster.zonal",),
+                       exc_factory=lambda site: RuntimeError("simulated device loss")):
+        try:
+            rs_fold.scan(crop, run_dir=dk, snapshot_every=4)
+            raster_killed = False
+        except RuntimeError:
+            raster_killed = True
+    crop_resumed = rs_fold.resume(dk, crop)
+    with telemetry.capture() as ev_r:
+        with faults.transient_errors(2, sites=("raster.zonal",)):
+            crop_retried = rs_fold.scan(crop)
+    shutil.rmtree(runs_dir, ignore_errors=True)
+    rs_ok = {
+        "scan_equal_to_zones_tiled": scan_agree == 1.0,
+        "fold_scan_equal_to_zones_fold": fold_scan_agree == 1.0,
+        "crop_equal_to_zones_fold": crop_agree == 1.0,
+        "durable_equal": agreement(crop_durable.stats, crop_clean.stats) == 1.0
+        and crop_durable.metrics["snapshots"] == 4,
+        "resume_equal": raster_killed and crop_resumed.metrics["resumed_from"] == 8
+        and agreement(crop_resumed.stats, crop_clean.stats) == 1.0,
+        "retry_equal": agreement(crop_retried.stats, crop_clean.stats) == 1.0
+        and [e["event"] for e in ev_r].count("transient_retry") == 2
+        and not crop_retried.metrics["degraded"],
+    }
+    emit({
+        "phase": "raster_stream", "pixels": real_pixels, "tiles": scan.ntiles,
+        "lane": "tiled", "wall_s": scan.wall_s, "warm_wall_s": scan_warm_s,
+        "inline_watchdog_wall_s": scan_inline_s,
+        "tiles_per_s": scan.ntiles / min(scan.wall_s, scan_warm_s),
+        "pixels_per_s": real_pixels / min(scan.wall_s, scan_warm_s),
+        "zones_tiled_warm_s": warm_by_path["zones_tiled"], "launches": rs_launches,
+        "pipeline": scan.metrics["pipeline"],
+        "fold_wall_s": fold_scan.wall_s, "fold_launches": rs_fold_launches,
+        "fold_tiles_per_s": fold_scan.ntiles / fold_scan.wall_s,
+        "fold_pixels_per_s": real_pixels / fold_scan.wall_s,
+        "zones_fold_warm_s": warm_by_path["zones_fold"],
+        "crop": [CROP, CROP], "crop_tiles": crop_clean.ntiles,
+        "crop_launches": crop_launches,
+        "crop_wall_s": crop_clean.wall_s, "crop_durable_wall_s": crop_durable.wall_s,
+        "crop_resume_wall_s": crop_resumed.wall_s, "gates": rs_ok,
+    })
+    if rs_launches["zonal_tiled"] <= 0 or rs_launches["pip_heavy_tiled"] <= 0:
+        return fail(f"the durable raster scan launched {rs_launches}")
+    if rs_fold_launches["zonal_fold"] <= 0 or rs_fold_launches["pip_heavy_tiled"] <= 0:
+        return fail(f"the fold-lane raster scan launched {rs_fold_launches}")
+    bad_gates = [k for k, v in rs_ok.items() if not v]
+    if bad_gates:
+        return fail(f"raster_stream gates failed: {bad_gates}")
+
     # 9. the kernels line; "crop_ms_per_launch" is a kernel's device time
     # per launch in the profiled crop call of the raster path named
     def crop_ms(path, name):
@@ -1210,9 +1496,15 @@ def main() -> int:
     kernels = {"kernels": [
         {"name": "pip_heavy_tiled", "route": "cuda", "source": src,
          "replaces": "mosaic_tpu/kernels/pip.py:492",
-         "launches": heavy_launches + recheck_launches,
+         "launches": heavy_launches + recheck_launches + stream_launches
+         + rs_launches["pip_heavy_tiled"] + rs_fold_launches["pip_heavy_tiled"],
          "launches_join": heavy_launches, "launches_exact_join": recheck_launches,
+         "launches_stream": stream_launches,
+         "launches_raster_stream": rs_launches["pip_heavy_tiled"],
+         "launches_raster_stream_fold": rs_fold_launches["pip_heavy_tiled"],
          "launches_raster_zones_tiled": zl["pip_heavy_tiled"],
+         "stream_ms_per_launch": stream_kernels.get("pip_heavy_tiled", {}).get(
+             "ms_per_launch", "not measured"),
          "crop_ms_per_launch_zones_tiled": crop_ms("zones_tiled", "pip_heavy_tiled"),
          "match": heavy_ok, "max_abs_err": heavy_err,
          "ms": hj["ms"], "wrapper_ms": hj["wrapper_ms"], "plain_ms": hj["plain_ms"],
@@ -1226,7 +1518,10 @@ def main() -> int:
          "ms": zone_dev_ms, "wrapper_ms": zone_ms, "plain_ms": zone_plain_ms,
          "bound_ms": zone_bound, "bound_by": zone_by, "library_ms": None},
         {"name": "zonal_tiled", "route": "cuda", "source": zsrc,
-         "replaces": "mosaic_tpu/kernels/zonal.py:196", "launches": zl["zonal_tiled"],
+         "replaces": "mosaic_tpu/kernels/zonal.py:196",
+         "launches": zl["zonal_tiled"] + rs_launches["zonal_tiled"],
+         "launches_raster_zones_tiled": zl["zonal_tiled"],
+         "launches_raster_stream": rs_launches["zonal_tiled"],
          "crop_ms_per_launch_zones_tiled": crop_ms("zones_tiled", "zonal_tiled"),
          "match": small["match"] and tiled[2048]["match"],
          "max_abs_err": max(small["max_abs_err"], tiled[2048]["max_abs_err"]),
@@ -1239,8 +1534,12 @@ def main() -> int:
         # a jnp segment reduce in the reference, not a Pallas kernel
         {"name": "zonal_seq_fold", "route": "cuda", "source": zsrc,
          "replaces": "mosaic_tpu/kernels/zonal.py:52",
-         "launches": launches["zones_fold"]["zonal_fold"],
+         "launches": launches["zones_fold"]["zonal_fold"]
+         + rs_fold_launches["zonal_fold"],
+         "launches_zones_fold": launches["zones_fold"]["zonal_fold"],
          "launches_grid": launches["grid"]["zonal_fold"],
+         "launches_raster_stream": rs_fold_launches["zonal_fold"],
+         "launches_raster_stream_crop": crop_fold_launches,
          "crop_ms_per_launch_zones_fold": crop_ms("zones_fold", "zonal_seq_fold"),
          "crop_ms_per_launch_grid": crop_ms("grid", "zonal_seq_fold"),
          "match": fold_ok, "max_abs_err": max(fi["max_abs_err"], ff["max_abs_err"]),

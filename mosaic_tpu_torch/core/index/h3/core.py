@@ -21,8 +21,9 @@ Cell centers and boundaries run on the host only.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
-import torch
 
 from . import constants as C
 from . import hexmath as hm
@@ -169,17 +170,20 @@ def _geo_to_cell_device(
     """Device geo_to_cell over torch tensors (``xp`` a
     :class:`~.hexmath.TorchNamespace`): int32 digit math of width ``res``,
     one gather from the composed (face, ijk) -> (base cell, rotation,
-    pentagon) table, one gather for the hexagon base-cell rotation, and
-    the pentagon correction behind a plain branch, so batches with no
-    pentagon point (any real-world region) skip it.
+    pentagon, cw-offset face) table (:func:`_combo_table`), one for each
+    row's count of digit rotations, the pentagon correction's included
+    (:data:`_TURNS`), and one that applies them.
+    Nothing in it reads a value back to the host, and its constant tables
+    stay on the device after the first call, so a warm call queues its
+    work without a host sync.
 
     Port of ``mosaic_tpu/core/index/h3/core.py _geo_to_cell_device``: the
     float arithmetic (projection and hex rounding, in ``hexmath``) is the
-    same op for op; the TPU select-chains become gathers, which give the
-    same integers. Bit-identical to the numpy path in float64.
-    ``with_margin`` and ``alt`` are :func:`geo_to_cell`'s.
+    same op for op; the TPU select-chains and the pentagon rotation loop
+    become gathers, which give the same integers. Bit-identical to the
+    numpy path in float64. ``with_margin`` and ``alt`` are
+    :func:`geo_to_cell`'s.
     """
-    t = derive()
     face, x, y = hm.geo_to_hex2d(lat, lng, res, xp=xp)
     margin = _rel_margin(x, y, res, xp) if with_margin else None
     i, j, k = _alt_ijk(x, y, xp) if alt else hm.hex2d_to_ijk(x, y, xp)
@@ -210,55 +214,91 @@ def _geo_to_cell_device(
     i = xp.clip(i, 0, 2)
     j = xp.clip(j, 0, 2)
     k = xp.clip(k, 0, 2)
-    # (bc, rot, pent) packed into one int table: combo =
-    # (bc+1)<<4 | rot<<1 | pent, max 1979
-    bc_np = np.asarray(t.fijk_base_cell)
-    rot_np = np.asarray(t.fijk_ccw_rot60)
-    pent_np = np.asarray(t.is_pentagon)[np.maximum(bc_np, 0)] & (bc_np >= 0)
-    combo_np = (
-        ((bc_np.astype(np.int32) + 1) << 4)
-        | (rot_np.astype(np.int32) << 1)
-        | pent_np.astype(np.int32)
-    ).reshape(20, 27)
-    combo = xp.asarray(combo_np)[face.long(), (i * 9 + j * 3 + k).long()]
-    pent = (combo & 1).to(xp.bool)
-    rot = (combo >> 1) & 7
-    bc = (combo >> 4) - 1
+    combo = xp.asarray(_combo_table())[face.long(), (i * 9 + j * 3 + k).long()]
+    bc = (combo >> 5) - 1
     if alt:
         bad = bad | (bc < 0)
         bc = xp.maximum(bc, 0)
 
-    # hexagons: all `rot` ccw rotations composed into one (6, 8) table
-    rot_eff = xp.where(pent, 0, rot)
-    t8 = xp.asarray(hm.ROT60_CCW_POW.astype(np.int32))[rot_eff.long()]
-    digits_hex = torch.gather(t8, -1, digits.long()).to(xp.int32)
-
-    if res and bool(pent.any()):
+    # every row turns its digits by a count of ccw rotations, applied as
+    # one gather from the composed powers: _TURNS reads the count off the
+    # row's (rot, cw, pent) code and its lead digit
+    turns = (combo >> 2) & 7
+    if res:
         lead = _lead_digit(digits, xp)
-        cw_tab = xp.asarray(np.asarray(t.pent_cw_faces))[bc.long()]
-        cw_off = (cw_tab[..., 0] == face) | (cw_tab[..., 1] == face)
-        need = pent & (lead == C.K_AXES_DIGIT)
-        adj = xp.where(
-            cw_off[..., None],
-            _rot_tab(digits, C.ROT60_CW, xp),
-            _rot_tab(digits, C.ROT60_CCW, xp),
-        )
-        d = xp.where(need[..., None], adj, digits)
-        for n in range(1, 6):
-            rotated = _rotate_pent60_ccw_i32(d, xp)
-            d = xp.where(((rot >= n) & pent)[..., None], rotated, d)
-        digits = xp.where(pent[..., None], d, digits_hex)
-    else:
-        digits = digits_hex
+        turns = xp.asarray(_TURNS)[((combo & 31) * 8 + lead).long()]
+    pow_flat = xp.asarray(hm.ROT60_CCW_POW.astype(np.int32).reshape(-1))
+    digits = pow_flat[(turns[..., None] * 8 + digits).long()]
     cells = hm.pack_packed(bc, digits, res, xp)
     if alt:
         cells = xp.where(bad, xp.asarray(-1, dtype=cells.dtype), cells)
     return (cells, margin) if with_margin else cells
 
 
-def _rot_tab(digits, table, xp):
-    """``table[digits]`` (digit values are 0..7)."""
-    return xp.asarray(np.asarray(table, dtype=np.int32))[digits.long()]
+@functools.lru_cache(maxsize=1)
+def _combo_table() -> np.ndarray:
+    """(20, 27) int32: the base cell, its rotation, whether it is a
+    pentagon, and whether the face is one of the pentagon's cw-offset
+    faces, for each (face, ijk), packed as
+    ``(bc + 1) << 5 | rot << 2 | cw << 1 | pent`` (max 3959)."""
+    t = derive()
+    bc = np.asarray(t.fijk_base_cell).astype(np.int32)  # (20, 3, 3, 3)
+    rot = np.asarray(t.fijk_ccw_rot60).astype(np.int32)
+    safe = np.maximum(bc, 0)
+    pent = np.asarray(t.is_pentagon)[safe] & (bc >= 0)
+    face = np.arange(20).reshape(20, 1, 1, 1)
+    cw_faces = np.asarray(t.pent_cw_faces)[safe]  # (20, 3, 3, 3, 2)
+    cw = pent & ((cw_faces[..., 0] == face) | (cw_faces[..., 1] == face))
+    combo = ((bc + 1) << 5) | (rot << 2) | (cw.astype(np.int32) << 1) | pent
+    return combo.reshape(20, 27).astype(np.int32)
+
+
+def _turns_table() -> np.ndarray:
+    """(256,) int32: the ccw turns of a row, at ``code * 8 + lead`` for
+    ``code = rot << 2 | cw << 1 | pent`` and the row's lead digit.
+
+    A hexagon turns ``rot`` times. A pentagon whose lead digit is the
+    k-axes digit first turns once cw (five ccw turns) on a cw-offset face,
+    else once ccw; then it takes ``rot`` steps of the pentagon rotation
+    (`hexmath.rotate_pent60_ccw`, :data:`_PENT_TURNS`)."""
+    out = np.zeros(256, np.int32)
+    for rot in range(6):
+        for cw in range(2):
+            for pent in range(2):
+                code = rot << 2 | cw << 1 | pent
+                for lead in range(8):
+                    if not pent:
+                        n = rot
+                    else:
+                        adj = (5 if cw else 1) if lead == C.K_AXES_DIGIT else 0
+                        turned = int(hm.ROT60_CCW_POW[adj, lead])
+                        n = (adj + int(_PENT_TURNS[turned, rot])) % 6
+                    out[code * 8 + lead] = n
+    return out
+
+
+def _pent_turns() -> np.ndarray:
+    """(8, 6) int32: the ccw turns that ``rot`` steps of the pentagon
+    rotation (`hexmath.rotate_pent60_ccw`) make, by the digits' lead digit.
+
+    Each step turns once, and once more when the turn lands the lead digit
+    on the k-axes digit. A turn permutes the digit values 1..6 and keeps 0
+    and 7, so it moves the lead digit's value but never its place: the
+    count follows from the lead digit alone."""
+    out = np.zeros((8, 6), np.int32)
+    for lead0 in range(8):
+        for rot in range(6):
+            lead, n = lead0, 0
+            for _ in range(rot):
+                lead, n = int(C.ROT60_CCW[lead]), n + 1
+                if lead == C.K_AXES_DIGIT:
+                    lead, n = int(C.ROT60_CCW[lead]), n + 1
+            out[lead0, rot] = n
+    return out
+
+
+_PENT_TURNS = _pent_turns()
+_TURNS = _turns_table()
 
 
 def _lead_digit(digits, xp):
@@ -268,13 +308,6 @@ def _lead_digit(digits, xp):
         d = digits[..., r]
         lead = xp.where(lead != 0, lead, d)
     return lead
-
-
-def _rotate_pent60_ccw_i32(digits, xp):
-    rotated = _rot_tab(digits, C.ROT60_CCW, xp)
-    lead = _lead_digit(rotated, xp)
-    again = _rot_tab(rotated, C.ROT60_CCW, xp)
-    return xp.where((lead == C.K_AXES_DIGIT)[..., None], again, rotated)
 
 
 def cell_center_frame(cells, xp=np):

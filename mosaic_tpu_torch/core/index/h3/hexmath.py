@@ -46,10 +46,23 @@ def astype(x, dtype):
     return np.asarray(x).astype(dtype)
 
 
+#: device copies of the constant tables, by (device, dtype, content);
+#: the tables of the cell path are a few dozen, each under 1k elements
+_DEVICE_CONSTS: dict = {}
+_CONST_MAX_ELEMS = 4096
+_CONST_MAX_ENTRIES = 512
+
+
 class TorchNamespace:
     """The numpy-style functions the device path of hexmath and ``core``
-    calls (geo -> cell), over torch tensors on one device (constant tables
-    are created there). The host-only functions stay numpy."""
+    calls (geo -> cell), over torch tensors on one device. The host-only
+    functions stay numpy.
+
+    :meth:`asarray` of a host array is a constant table: it is copied to
+    the device once and served from :data:`_DEVICE_CONSTS` after that, so
+    a warm cell assignment makes no blocking host-to-device copy. The
+    cached tensors are shared: nothing on the device path writes into
+    them."""
 
     bool = torch.bool
     int32 = torch.int32
@@ -62,7 +75,16 @@ class TorchNamespace:
         dt = None if dtype is None else torch_dtype(dtype)
         if isinstance(x, torch.Tensor):
             return x if dt is None else x.to(dt)
-        return torch.as_tensor(np.asarray(x), dtype=dt, device=self.device)
+        a = np.asarray(x)
+        if a.size > _CONST_MAX_ELEMS:
+            return torch.as_tensor(a, dtype=dt, device=self.device)
+        key = (self.device, dt, a.dtype.str, a.shape, a.tobytes())
+        t = _DEVICE_CONSTS.get(key)
+        if t is None:
+            t = torch.as_tensor(a, dtype=dt, device=self.device)
+            if len(_DEVICE_CONSTS) < _CONST_MAX_ENTRIES:
+                _DEVICE_CONSTS[key] = t
+        return t
 
     def zeros(self, shape, dtype=None):
         return torch.zeros(shape, dtype=torch_dtype(dtype or "float64"),

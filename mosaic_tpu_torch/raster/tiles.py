@@ -21,12 +21,15 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..dispatch.bucket import BucketLadder
+from ..obs import trace as _trace
+from ..runtime import telemetry as _telemetry
 
 #: per-axis tile ladder bounds: 32 keeps toy fixtures honest (pad+mask
 #: paths exercised), 2048 bounds one tile's device footprint
@@ -127,21 +130,31 @@ def stack_tiles(
     mask False, so they are inert in every downstream fold."""
     th, tw = plan.shape
     b = raster.band(band)
-    vals_full = b.values
-    mask_full = b.mask
-    t = plan.ntiles
-    vals = np.zeros((t, th, tw), dtype=dtype)
-    mask = np.zeros((t, th, tw), dtype=bool)
-    h, w = plan.raster_shape
-    for i, (y0, x0) in enumerate(plan.origins):
-        y1 = min(int(y0) + th, h)
-        x1 = min(int(x0) + tw, w)
-        sub = vals_full[int(y0):y1, int(x0):x1]
-        vals[i, : sub.shape[0], : sub.shape[1]] = sub
-        mask[i, : sub.shape[0], : sub.shape[1]] = mask_full[int(y0):y1, int(x0):x1]
-    # nodata pixels contribute value 0 under a False mask (a NaN times a
-    # zero mask is still NaN, so zeroing here is load-bearing)
-    vals[~mask] = 0
+    t0 = time.perf_counter()
+    with _trace.span(
+        "raster.tile", ntiles=plan.ntiles, th=th, tw=tw, band=band
+    ):
+        vals_full = b.values
+        mask_full = b.mask
+        t = plan.ntiles
+        vals = np.zeros((t, th, tw), dtype=dtype)
+        mask = np.zeros((t, th, tw), dtype=bool)
+        h, w = plan.raster_shape
+        for i, (y0, x0) in enumerate(plan.origins):
+            y1 = min(int(y0) + th, h)
+            x1 = min(int(x0) + tw, w)
+            sub = vals_full[int(y0):y1, int(x0):x1]
+            vals[i, : sub.shape[0], : sub.shape[1]] = sub
+            mask[i, : sub.shape[0], : sub.shape[1]] = mask_full[int(y0):y1, int(x0):x1]
+        # nodata pixels contribute value 0 under a False mask (a NaN times
+        # a zero mask is still NaN, so zeroing here is load-bearing)
+        vals[~mask] = 0
+    _telemetry.record(
+        "raster_stage", stage="tile",
+        seconds=round(time.perf_counter() - t0, 6),
+        ntiles=t, th=th, tw=tw,
+        pixels=plan.pixels, padded_pixels=plan.padded_pixels,
+    )
     return vals, mask
 
 

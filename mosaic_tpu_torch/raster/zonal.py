@@ -31,20 +31,28 @@ compiled per tile shape; a tile with no pixel to fold skips its device
 fold (its partial is empty either way). ``mesh=``, ``profile=``,
 :meth:`ZonalEngine.map`, :meth:`ZonalEngine.warmup_expr` and
 ``zonal_grid(index_system=None)`` raise ``NotImplementedError`` naming the
-ROADMAP item that brings them; fault sites, spans and telemetry are not
-ported.
+ROADMAP item that brings them.
+
+Runtime hooks, as the reference's: every tile of :meth:`ZonalEngine.grid`
+and :meth:`ZonalEngine.zones` first passes the ``raster.zonal`` fault
+site (`runtime/faults.py`); each call is one ``raster.zonal`` span
+(``raster.assign`` child spans per grid tile) and records
+``raster_stage`` telemetry (``assign`` and ``zonal`` seconds, pixels/s).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..kernels.zonal import zonal_fold, zonal_tiled
+from ..obs import trace as _trace
+from ..runtime import faults as _faults, telemetry as _telemetry
 from ..runtime.errors import CapacityOverflow
 from ..sql.join import (
     EDGE_BAND_K,
@@ -282,30 +290,53 @@ class ZonalEngine:
         vals, mask = stack_tiles(raster, plan, band, dtype=np.float64)
         gt6 = np.asarray(plan.gt, np.float64)
         merged: dict[int, list] = {}
-        for t in range(plan.ntiles):
-            cells = self._assign(gt6, plan.origins[t], th, tw).cpu().numpy()
-            mflat = mask[t].reshape(-1)
-            uniq, inv = np.unique(cells[mflat], return_inverse=True)
-            if uniq.size == 0:
-                continue
-            seg = np.full(th * tw, -1, np.int32)
-            seg[mflat] = inv.astype(np.int32)
-            # segments are the tile-local dense ranks of the touched cells
-            parts = zonal_fold(
-                torch.from_numpy(vals[t].reshape(-1)).to(self.device),
-                torch.from_numpy(seg).to(self.device),
-                uniq.size, acc_dtype=self.acc_dtype,
-            )
-            cnt, s, mn, mx = (a.cpu().numpy() for a in parts)
-            for k, c, sv, mnv, mxv in zip(uniq, cnt, s, mn, mx):
-                row = merged.get(int(k))
-                if row is None:
-                    merged[int(k)] = [int(c), sv, mnv, mxv]
-                else:
-                    row[0] += int(c)
-                    row[1] += sv  # left fold in tile order
-                    row[2] = min(row[2], mnv)
-                    row[3] = max(row[3], mxv)
+        t0 = time.perf_counter()
+        assign_s = 0.0
+        with _trace.span(
+            "raster.zonal", mode="grid", ntiles=plan.ntiles, band=band
+        ):
+            for t in range(plan.ntiles):
+                _faults.maybe_fail("raster.zonal")
+                ta = time.perf_counter()
+                with _trace.span("raster.assign", tile=t):
+                    cells = self._assign(
+                        gt6, plan.origins[t], th, tw
+                    ).cpu().numpy()
+                assign_s += time.perf_counter() - ta
+                mflat = mask[t].reshape(-1)
+                uniq, inv = np.unique(cells[mflat], return_inverse=True)
+                if uniq.size == 0:
+                    continue
+                seg = np.full(th * tw, -1, np.int32)
+                seg[mflat] = inv.astype(np.int32)
+                # segments are the tile-local dense ranks of the touched cells
+                parts = zonal_fold(
+                    torch.from_numpy(vals[t].reshape(-1)).to(self.device),
+                    torch.from_numpy(seg).to(self.device),
+                    uniq.size, acc_dtype=self.acc_dtype,
+                )
+                cnt, s, mn, mx = (a.cpu().numpy() for a in parts)
+                for k, c, sv, mnv, mxv in zip(uniq, cnt, s, mn, mx):
+                    row = merged.get(int(k))
+                    if row is None:
+                        merged[int(k)] = [int(c), sv, mnv, mxv]
+                    else:
+                        row[0] += int(c)
+                        row[1] += sv  # left fold in tile order
+                        row[2] = min(row[2], mnv)
+                        row[3] = max(row[3], mxv)
+        seconds = time.perf_counter() - t0
+        _telemetry.record(
+            "raster_stage", stage="assign",
+            seconds=round(assign_s, 6), ntiles=plan.ntiles,
+        )
+        _telemetry.record(
+            "raster_stage", stage="zonal",
+            seconds=round(max(seconds - assign_s, 0.0), 6),
+            mode="grid", ntiles=plan.ntiles, cells=len(merged),
+            pixels=plan.pixels,
+            pixels_per_sec=round(plan.pixels / max(seconds, 1e-9), 1),
+        )
         return _result_from_dict(merged, band)
 
     # ------------------------------------------------------------ zones
@@ -331,18 +362,32 @@ class ZonalEngine:
         sum_acc = np.zeros(g, np.float64 if fold else np.float32)
         min_acc = np.full(g, np.inf)
         max_acc = np.full(g, -np.inf)
-        for t in range(plan.ntiles):
-            cnt, s, mn, mx = self._tile_zone_stats(
-                plan, t, vals[t].reshape(-1), mask[t].reshape(-1)
-            )
-            cnt = cnt.astype(np.int64)
-            live = cnt > 0
-            cnt_acc += cnt
-            sum_acc = sum_acc + s  # tile-order left fold
-            mn = mn.astype(np.float64)
-            mx = mx.astype(np.float64)
-            min_acc[live] = np.minimum(min_acc[live], mn[live])
-            max_acc[live] = np.maximum(max_acc[live], mx[live])
+        t0 = time.perf_counter()
+        with _trace.span(
+            "raster.zonal", mode="zones", ntiles=plan.ntiles,
+            zones=g, band=band, lane=self.lane,
+        ):
+            for t in range(plan.ntiles):
+                _faults.maybe_fail("raster.zonal")
+                cnt, s, mn, mx = self._tile_zone_stats(
+                    plan, t, vals[t].reshape(-1), mask[t].reshape(-1)
+                )
+                cnt = cnt.astype(np.int64)
+                live = cnt > 0
+                cnt_acc += cnt
+                sum_acc = sum_acc + s  # tile-order left fold
+                mn = mn.astype(np.float64)
+                mx = mx.astype(np.float64)
+                min_acc[live] = np.minimum(min_acc[live], mn[live])
+                max_acc[live] = np.maximum(max_acc[live], mx[live])
+        seconds = time.perf_counter() - t0
+        _telemetry.record(
+            "raster_stage", stage="zonal",
+            seconds=round(seconds, 6), mode="zones",
+            ntiles=plan.ntiles, zones=g, lane=self.lane,
+            pixels=plan.pixels,
+            pixels_per_sec=round(plan.pixels / max(seconds, 1e-9), 1),
+        )
         live = cnt_acc > 0
         return ZonalResult(
             keys=np.nonzero(live)[0].astype(np.int64),

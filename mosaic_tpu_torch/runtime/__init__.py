@@ -1,7 +1,7 @@
 """Runtime resilience layer of the port: typed errors, capacity
 escalation, transient retry, graceful degradation, fault injection, the
-watchdog and telemetry (port of ``mosaic_tpu/runtime``; checkpoints and
-quarantine come with streaming).
+watchdog and telemetry, checkpoints and quarantine (port of
+``mosaic_tpu/runtime``).
 
 - :mod:`errors`     — the typed taxonomy (`CapacityOverflow`,
   `TransientDeviceError`, `RetryExhausted`, `DegradedResult`) and
@@ -12,12 +12,17 @@ quarantine come with streaming).
 - :mod:`telemetry`  — the structured event spine;
 - :mod:`faults`     — context-manager fault injection;
 - :mod:`watchdog`   — monotonic-deadline guard around blocking device
-  operations (``MOSAIC_WATCHDOG_*`` knobs).
+  operations (``MOSAIC_WATCHDOG_*`` knobs);
+- :mod:`checkpoint` — checksummed snapshot store (atomic write, corrupt-
+  snapshot skip on load) for resumable streaming runs;
+- :mod:`quarantine` — pre-admission input validation: poisoned rows land
+  in a reported quarantine buffer instead of the device fold.
 """
 
 from .errors import (
     CapacityOverflow,
     DegradedResult,
+    EpochFingerprintMismatch,
     KernelCompileError,
     KernelLaunchError,
     MosaicRuntimeError,
@@ -28,11 +33,12 @@ from .errors import (
 )
 from .escalate import EscalationPolicy, run_escalating
 from .retry import RetryPolicy, backoff_delays, call_with_retry, with_retry
-from . import faults, telemetry, watchdog
+from . import checkpoint, faults, quarantine, telemetry, watchdog
 
 __all__ = [
     "CapacityOverflow",
     "DegradedResult",
+    "EpochFingerprintMismatch",
     "EscalationPolicy",
     "KernelCompileError",
     "KernelLaunchError",
@@ -43,8 +49,10 @@ __all__ = [
     "TransientDeviceError",
     "backoff_delays",
     "call_with_retry",
+    "checkpoint",
     "faults",
     "is_transient",
+    "quarantine",
     "run_escalating",
     "telemetry",
     "watchdog",

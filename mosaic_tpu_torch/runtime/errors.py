@@ -1,6 +1,7 @@
 """Typed error taxonomy of the port's runtime resilience layer.
 
-Port of ``mosaic_tpu/runtime/errors.py`` (the classes the join raises).
+Port of ``mosaic_tpu/runtime/errors.py`` (the classes the join and the
+durable stream raise).
 Every failure a device join path can hit maps to one of three classes —
 capacity (the bounded-shape contract overflowed), transient (the same
 call may succeed if tried again), and degraded (the device path was
@@ -84,6 +85,24 @@ class RetryExhausted(MosaicRuntimeError):
         super().__init__(message)
         self.attempts = attempts
         self.last = last
+
+
+class EpochFingerprintMismatch(MosaicRuntimeError):
+    """An index identity failed to line up: a durable-stream resume
+    presented an index other than the one its snapshot was taken under
+    (`sql/stream.py StreamJoin.resume`). A refusal — continuing would mix
+    results joined against two indexes into one answer. (The reference
+    also raises it for its epoch delta log, which the port has not yet.)
+    """
+
+    def __init__(
+        self, message: str, *, expected: str = "", actual: str = "",
+        epoch: int = -1,
+    ):
+        super().__init__(message)
+        self.expected = expected
+        self.actual = actual
+        self.epoch = epoch
 
 
 class KernelCompileError(RuntimeError):

@@ -20,6 +20,7 @@ import contextlib
 import itertools
 import logging
 import math
+import os
 import threading
 import time
 
@@ -31,6 +32,11 @@ _LOCAL = threading.local()
 _SEQ = itertools.count()
 
 _LOGGER = logging.getLogger("mosaic_tpu_torch.runtime")
+
+#: per-process incarnation id, minted once at import:
+#: ``<start-unix-seconds:8 hex>-<pid>-<random:6 hex>``; snapshot sidecars
+#: are stamped with it, so the process that wrote each one is known
+INCARNATION = f"{int(time.time()):08x}-{os.getpid()}-{os.urandom(3).hex()}"
 
 #: registered by ``obs/trace.py`` — an object with ``ids() -> dict |
 #: None``, ``current() -> context | None`` and ``adopt(context) -> None``

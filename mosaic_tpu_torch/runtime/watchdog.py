@@ -80,7 +80,7 @@ def deadline_for(site: str, default_s: float | None = None) -> float | None:
     return float(v)
 
 
-def _cuda_context():
+def cuda_context():
     """(device index, stream) current on this thread, or None when CUDA
     has not been initialised (nothing to carry; never initialises it)."""
     if not torch.cuda.is_available() or not torch.cuda.is_initialized():
@@ -106,7 +106,7 @@ def guard(site: str, fn, *args, default_s: float | None = None, **kwargs):
     box: dict = {}
     sinks = telemetry.current_sinks()  # capture scopes span the worker
     trace = telemetry.current_trace()  # the active span does too
-    cuda = _cuda_context()  # and the caller's device and stream
+    cuda = cuda_context()  # and the caller's device and stream
 
     def work():
         try:

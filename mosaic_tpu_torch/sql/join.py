@@ -62,6 +62,7 @@ from ..obs import trace as _obs_trace
 from ..runtime import faults as _faults, telemetry as _telemetry
 from ..runtime.errors import DegradedResult, RetryExhausted
 from ..runtime.escalate import run_escalating
+from ..tune import resolve as _tune_resolve
 
 _SENTINEL = int(np.iinfo(np.int32).max)
 _I32_MAX = _SENTINEL
@@ -1175,10 +1176,15 @@ def pip_join(
     probed chip edge go to the f64 host oracle. Requires the index's
     ``host`` companion.
 
-    ``cell_dtype`` is the dtype cells are computed in (default float32,
-    the port's device coordinate type; the reference defaults to the input
-    array's dtype). ``writeback``/``lookup``/``probe`` are the knobs of
-    :func:`pip_join_points`. ``mesh`` and ``profile`` raise
+    ``cell_dtype`` is the dtype cells are computed in. The default is
+    float32, the port's device coordinate type, except for an exact join
+    on an index system without cell margins (the custom grid): no recheck
+    can then correct an f32 cell, so its cells are computed in float64,
+    as the reference computes them from its f64 input. With margins (H3,
+    BNG) the recheck makes f32 cells exact. ``writeback``/``lookup``/
+    ``probe`` are the knobs of :func:`pip_join_points`; ``probe`` and
+    ``lookup`` left None read ``MOSAIC_TUNE_PROBE``/``MOSAIC_TUNE_LOOKUP``
+    (`tune/resolve.py`). ``mesh`` and ``profile`` raise
     ``NotImplementedError``.
     """
     if mesh is not None:
@@ -1189,9 +1195,16 @@ def pip_join(
         raise ValueError("pip_join needs a resolution")
     dev = resolve_device(device)
     resolution = index_system.resolution_arg(resolution)
-    probe = resolve_probe_mode(probe or "scatter")
+    # explicit argument > MOSAIC_TUNE_PROBE / MOSAIC_TUNE_LOOKUP > default,
+    # resolved here as `StreamJoin` and `RasterStream` resolve them
+    knobs = _tune_resolve.resolve_knobs(
+        "pip_join", None,
+        explicit={"probe": probe, "lookup": lookup},
+        defaults={"probe": "scatter", "lookup": "gather"},
+    )
+    probe = resolve_probe_mode(knobs["probe"])
     writeback = writeback or "scatter"
-    lookup = lookup or "gather"
+    lookup = knobs["lookup"]
     if probe != "scatter" and writeback == "direct":
         raise ValueError(
             "probe='adaptive' requires writeback scatter|gather"
@@ -1219,7 +1232,12 @@ def pip_join(
         else chip_index.border.shift.cpu().numpy()
     )
     np_dtype = np.dtype(str(chip_index.border.verts.dtype).removeprefix("torch."))
-    cdt = FLOAT if cell_dtype is None else _as_torch_dtype(cell_dtype)
+    if cell_dtype is not None:
+        cdt = _as_torch_dtype(cell_dtype)
+    elif recheck and not has_cell_margins(index_system):
+        cdt = torch.float64
+    else:
+        cdt = FLOAT
     n = raw.shape[0]
     if recheck:
         # the edge band, rounded once to the table dtype on the host: the
@@ -1449,6 +1467,16 @@ def _narrow_rejoin(
     vertex = (margins[src[:n_flag], 1] < km).cpu().numpy()
     alt_np = alt[:n_flag].cpu().numpy()
     return n_flag, cap, src_np, ([fcap2, hcap2], r_alt, vertex, alt_np)
+
+
+def has_cell_margins(index_system: IndexSystem) -> bool:
+    """Does ``index_system`` give cell-rounding margins? A system that
+    keeps the base :meth:`IndexSystem.point_to_cell_margin` returns None
+    margins, so the recheck cannot flag a cell that f32 rounded wrong."""
+    return (
+        type(index_system).point_to_cell_margin
+        is not IndexSystem.point_to_cell_margin
+    )
 
 
 def _as_torch_dtype(dt) -> torch.dtype:

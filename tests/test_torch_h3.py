@@ -74,3 +74,52 @@ def test_host_helpers_equal_reference():
         REF.polyfill_candidates_batch(bounds, 9),
     ):
         np.testing.assert_array_equal(a, b)
+
+
+def _pentagon_points(n_each: int = 150, seed: int = 7) -> np.ndarray:
+    """Points within ~3 degrees of each of the 12 pentagon centers, where
+    the device path's pentagon correction decides the digits."""
+    from mosaic_tpu_torch.core.index.h3 import hexmath as hm
+    from mosaic_tpu_torch.core.index.h3.tables import derive
+
+    bcs = np.nonzero(np.asarray(derive().is_pentagon))[0]
+    assert bcs.size == 12
+    base = hm.pack(bcs, np.full((bcs.size, 15), 7), 0)
+    centers = PORT.cell_center(base)  # (12, 2) lng, lat
+    rng = np.random.default_rng(seed)
+    jitter = rng.uniform(-3.0, 3.0, (bcs.size, n_each, 2))
+    pts = centers[:, None, :] + jitter
+    pts[..., 1] = np.clip(pts[..., 1], -89.9, 89.9)
+    pts[..., 0] = (pts[..., 0] + 180.0) % 360.0 - 180.0
+    return pts.reshape(-1, 2)
+
+
+@pytest.mark.parametrize("res", [1, 2, 5, 9, 14])
+def test_pentagon_cells_equal_reference(res):
+    """The device path's pentagon correction (one composed-rotation gather
+    a row) equals the reference's host cells, primary and runner-up."""
+    pts = _pentagon_points(seed=res)
+    want = REF.point_to_cell(pts, res)
+    got = PORT.point_to_cell(torch.as_tensor(pts), res)
+    np.testing.assert_array_equal(got.numpy(), want)
+    want_alt = PORT.point_to_cell_alt(pts, res)
+    got_alt = PORT.point_to_cell_alt(torch.as_tensor(pts), res)
+    np.testing.assert_array_equal(got_alt.numpy(), want_alt)
+
+
+def test_warm_device_cells_copy_no_table(monkeypatch):
+    """After one call, a cell assignment finds its constant tables on the
+    device: no host array is copied there (on a card each such copy is a
+    host sync), pentagon rows included."""
+    pts = torch.as_tensor(np.concatenate([_pentagon_points(20), _points("nyc", 200)]))
+    for dtype in (torch.float64, torch.float32):
+        PORT.point_to_cell_margin(pts.to(dtype), 9)
+        PORT.point_to_cell_alt(pts.to(dtype), 9)
+
+    def refuse(*a, **k):
+        raise AssertionError("a constant table was copied to the device again")
+
+    monkeypatch.setattr(torch, "as_tensor", refuse)
+    for dtype in (torch.float64, torch.float32):
+        PORT.point_to_cell_margin(pts.to(dtype), 9)
+        PORT.point_to_cell_alt(pts.to(dtype), 9)

@@ -36,6 +36,14 @@ MODULES = [
     "mosaic_tpu_torch.core.index.bng",
     "mosaic_tpu_torch.tools.calibrate_margins",
     "mosaic_tpu_torch.sql.join",
+    "mosaic_tpu_torch.sql.stream",
+    "mosaic_tpu_torch.sql.raster_stream",
+    "mosaic_tpu_torch.dispatch.pipeline",
+    "mosaic_tpu_torch.runtime.checkpoint",
+    "mosaic_tpu_torch.runtime.quarantine",
+    "mosaic_tpu_torch.obs.metrics",
+    "mosaic_tpu_torch.tune.resolve",
+    "mosaic_tpu_torch.core.geometry.oracle",
 ]
 
 
@@ -46,6 +54,21 @@ def test_import_leaves_jax_and_reference_out():
         + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mosaic_tpu' or m.startswith('mosaic_tpu.')]\n"
         "print(bad)\nsys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=str(ROOT), timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_stream_modules_leave_jax_and_reference_out():
+    """The streaming slice's entry modules, imported alone."""
+    code = (
+        "import mosaic_tpu_torch.sql.stream, mosaic_tpu_torch.sql.raster_stream, "
+        "mosaic_tpu_torch.dispatch.pipeline, sys; "
+        "assert 'jax' not in sys.modules and 'mosaic_tpu' not in sys.modules"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
@@ -117,3 +140,11 @@ def test_entry_points_raise_without_cuda(no_cuda):
     out = pip_join(pts, None, H3IndexSystem(), 9, chip_index=ix, device="cpu",
                    recheck=True)
     assert out.shape == (1,) and not getattr(out, "degraded", False)
+    from mosaic_tpu_torch.sql.stream import StreamJoin, hbm_peak, ring_from_host
+
+    with pytest.raises(DeviceUnavailable):
+        ring_from_host([pts])
+    with pytest.raises(DeviceUnavailable):
+        hbm_peak()
+    ring = ring_from_host([pts], device="cpu")
+    assert StreamJoin(ix, H3IndexSystem(), 9).run(ring, 1).n_points == 1

@@ -414,3 +414,205 @@ def test_cuda_margins_cover_the_cards_disagreements(cuda, res):
     km = CELL_MARGIN_K * eps
     covered = ~dis | ((m[:, 0] < km) & ((alt == c64) | (m[:, 1] < km) | (alt == -1)))
     assert covered.all()
+
+
+# ---- the custom grid's exact join, the stream and the durable raster scan
+
+
+CUSTOM_CONF = (-180, 180, -90, 90, 2, 10.0, 10.0)
+CUSTOM_BBOX = (-20.0, -20.0, 20.0, 20.0)
+
+
+def _custom_indexes(cuda):
+    """(custom grid, {"cpu": index, "cuda": index}) over 3x3 star zones of
+    128 vertices at resolution 3, ``edge_cap=8``: heavy and convex cells,
+    so the adaptive probe launches `pip_heavy_tiled`."""
+    from mosaic_tpu_torch.core.index import CustomIndexSystem, GridConf
+    from mosaic_tpu_torch.core.tessellate import tessellate
+    from mosaic_tpu_torch.sql import join as TJ
+
+    grid = CustomIndexSystem(GridConf(*CUSTOM_CONF))
+    table = tessellate(synthetic_zones(3, 3, bbox=CUSTOM_BBOX, verts=128), grid, 3,
+                       keep_core_geoms=False)
+    ixs = {d: TJ.build_chip_index(table, edge_cap=8, device=d) for d in ("cpu", cuda)}
+    assert ixs[cuda].num_heavy_cells > 0
+    return grid, {"cpu": ixs["cpu"], "cuda": ixs[cuda]}
+
+
+def _stream_batches(n=3, size=20_000, seed=21):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(CUSTOM_BBOX[:2], CUSTOM_BBOX[2:], (size, 2)) for _ in range(n)]
+
+
+def test_custom_grid_recheck_default_cells_on_card_equals_host(cuda):
+    """The custom grid has no cell margins: with default arguments the
+    exact join computes its cells in f64 on the card too, and equals the
+    f64 host oracle on near-edge points."""
+    from mosaic_tpu_torch.sql import join as TJ
+
+    grid, ixs = _custom_indexes(cuda)
+    host = ixs["cuda"].host
+    rng = np.random.default_rng(3)
+    edges = host.cell_edges[host.cell_ebits != 0][:4_000]
+    t = rng.uniform(0, 1, (len(edges), 1))
+    near = edges[:, :2] + t * (edges[:, 2:] - edges[:, :2]) + host.shift
+    near = near + rng.normal(0, 1e-6, near.shape)
+    want = TJ.host_join(near, host, grid, 3)
+    got = TJ.pip_join(near, None, grid, 3, chip_index=ixs["cuda"], recheck=True,
+                      probe="adaptive")
+    np.testing.assert_array_equal(got, want)
+
+
+def test_stream_on_card_equals_cpu(cuda):
+    """A small adaptive `StreamJoin` on the card launches `pip_heavy_tiled`
+    every batch and equals the same stream on the CPU, rows and stats."""
+    from mosaic_tpu_torch.sql.stream import StreamJoin, ring_from_host
+
+    grid, ixs = _custom_indexes(cuda)
+    b = _stream_batches()
+    res = {}
+    for d in ("cpu", "cuda"):
+        sj = StreamJoin(ixs[d], grid, 3, probe="adaptive")
+        ring = ring_from_host(b, device=d)
+        before = TP.pip_heavy_tiled.launches
+        res[d] = (sj.run(ring, 5, collect=True), sj.run_batched(ring, 5))
+        launched = TP.pip_heavy_tiled.launches - before
+        assert launched == (10 if d == "cuda" else 0)
+    (gr, gb), (cr, cb) = res["cuda"], res["cpu"]
+    np.testing.assert_array_equal(gr.outs, cr.outs)
+    np.testing.assert_array_equal(gb.outs, gr.outs)
+    stats = [(r.checksum, r.matches, r.overflow) for r in (gr, gb, cr, cb)]
+    assert len(set(stats)) == 1 and gr.matches > 0 and gr.overflow == 0
+
+
+def test_h3_stream_loop_on_card_makes_no_host_sync(cuda):
+    """Warm, the H3 stream loop queues its batches without a host sync,
+    pentagon rows included (torch's sync debug mode raises on any it
+    sees), and its stats equal the per-batch path's."""
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+    from mosaic_tpu_torch.core.tessellate import tessellate
+    from mosaic_tpu_torch.sql import join as TJ
+    from mosaic_tpu_torch.sql.stream import StreamJoin, ring_from_host
+    from mosaic_tpu_torch.tools.calibrate_margins import global_points
+
+    h3 = H3IndexSystem()
+    zones = synthetic_zones(3, 3, bbox=BBOX, verts=128)
+    ix = TJ.build_chip_index(tessellate(zones, h3, 9, keep_core_geoms=False),
+                             edge_cap=8, device=cuda)
+    rng = np.random.default_rng(23)
+    batches = [rng.uniform(BBOX[:2], BBOX[2:], (20_000, 2)) for _ in range(2)]
+    batches.append(global_points(20_000, 5))
+    ring = ring_from_host(batches, device=cuda)
+    sj = StreamJoin(ix, h3, 9, probe="adaptive")
+    want = sj.run_batched(ring, 5)
+    sj.run(ring, 5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        acc, _ = sj._loop(ring, ix, 5, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = sj.run(ring, 5)
+    assert (got.checksum, got.matches, got.overflow) == (
+        want.checksum, want.matches, want.overflow)
+    assert got.matches > 0 and got.overflow == 0
+
+
+@pytest.mark.parametrize("pipeline", [False, True], ids=["sync", "pipelined"])
+def test_durable_stream_killed_and_resumed_on_card_equals_run(cuda, tmp_path, pipeline):
+    from mosaic_tpu_torch.runtime import RetryPolicy, checkpoint, faults
+    from mosaic_tpu_torch.sql.stream import StreamJoin, ring_from_host
+
+    grid, ixs = _custom_indexes(cuda)
+    sj = StreamJoin(ixs["cuda"], grid, 3, probe="adaptive")
+    ring = ring_from_host(_stream_batches(), device=cuda)
+    clean = sj.run(ring, 7)
+    fast = RetryPolicy(max_attempts=3, base_delay_s=0.0, jitter=0.0)
+    d = str(tmp_path)
+    with faults.inject(fail_first=99, skip_first=2, sites=("stream.scan_step",),
+                       exc_factory=lambda s: RuntimeError("simulated device loss")):
+        with pytest.raises(RuntimeError, match="simulated device loss"):
+            sj.run_durable(ring, 7, run_dir=d, snapshot_every=2, retry_policy=fast,
+                           pipeline=pipeline)
+    assert checkpoint.list_snapshots(d) == [2, 4]
+    r = sj.resume(d, ring, retry_policy=fast, pipeline=pipeline)
+    assert r.metrics["resumed_from"] == 4 and not r.metrics["degraded"]
+    assert (r.checksum, r.matches, r.overflow) == (clean.checksum, clean.matches,
+                                                   clean.overflow)
+
+
+@pytest.mark.parametrize("pipeline", [False, True], ids=["sync", "pipelined"])
+def test_stream_on_card_raises_when_retries_exhausted(cuda, tmp_path, pipeline):
+    """Past the retry budget a stream segment on the card raises
+    `RetryExhausted` and records no degradation: no work moves to the
+    CPU."""
+    from mosaic_tpu_torch.runtime import RetryExhausted, RetryPolicy, faults, telemetry
+    from mosaic_tpu_torch.sql.stream import StreamJoin, ring_from_host
+
+    grid, ixs = _custom_indexes(cuda)
+    sj = StreamJoin(ixs["cuda"], grid, 3, probe="adaptive")
+    ring = ring_from_host(_stream_batches(n=2, size=2_000), device=cuda)
+    fast = RetryPolicy(max_attempts=3, base_delay_s=0.0, jitter=0.0)
+    with telemetry.capture() as ev:
+        with faults.transient_errors(50, sites=("stream.scan_step",)):
+            with pytest.raises(RetryExhausted):
+                sj.run_durable(ring, 4, run_dir=str(tmp_path), snapshot_every=2,
+                               retry_policy=fast, pipeline=pipeline)
+    kinds = [e["event"] for e in ev]
+    assert "retry_exhausted" in kinds and "degraded" not in kinds
+
+
+def _custom_raster(integer: bool):
+    from mosaic_tpu_torch.raster import Raster
+
+    rng = np.random.default_rng(41)
+    h, w = 300, 330
+    data = (rng.integers(0, 100, (1, h, w)).astype(np.float64) if integer
+            else rng.uniform(0, 100, (1, h, w)))
+    data[0][rng.random((h, w)) < 0.1] = -9.0
+    # 0.125-degree pixels over the zones' box, centers off the cell edges
+    return Raster(data=data, gt=(-20.3, 0.125, 0.0, 19.7, 0.0, -0.125), srid=0, nodata=-9.0)
+
+
+@pytest.mark.parametrize("lane", ["fold", "tiled"])
+def test_raster_scan_on_card_equals_cpu(cuda, tmp_path, lane):
+    """`RasterStream.scan` on the card equals the CPU's bit for bit (the
+    tiled lane on integer-valued data, where its f32 sums are exact), and
+    a scan killed after 3 tiles and resumed on the card equals it too."""
+    from mosaic_tpu_torch.runtime import faults
+    from mosaic_tpu_torch.sql import RasterStream
+
+    grid, ixs = _custom_indexes(cuda)
+    r = _custom_raster(integer=lane == "tiled")
+    out = {d: RasterStream(ixs[d], grid, 3, lane=lane).scan(r, tile=(64, 64))
+           for d in ("cpu", "cuda")}
+    g, c = out["cuda"].stats, out["cpu"].stats
+    assert g.keys.size > 0
+    for a, b in ((g.keys, c.keys), (g.count, c.count)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in ((g.sum, c.sum), (g.min, c.min), (g.max, c.max)):
+        np.testing.assert_array_equal(a.view(np.int64), b.view(np.int64))
+    st = RasterStream(ixs["cuda"], grid, 3, lane=lane)
+    d = str(tmp_path)
+    with faults.inject(fail_first=99, skip_first=3, sites=("raster.zonal",),
+                       exc_factory=lambda s: RuntimeError("kill")):
+        with pytest.raises(RuntimeError):
+            st.scan(r, tile=(64, 64), run_dir=d, snapshot_every=1)
+    res = st.resume(d, r).stats
+    assert res.keys.tolist() == g.keys.tolist()
+    np.testing.assert_array_equal(res.sum.view(np.int64), g.sum.view(np.int64))
+
+
+def test_raster_scan_on_card_raises_when_retries_exhausted(cuda):
+    from mosaic_tpu_torch.runtime import RetryExhausted, RetryPolicy, faults, telemetry
+    from mosaic_tpu_torch.sql import RasterStream
+
+    grid, ixs = _custom_indexes(cuda)
+    st = RasterStream(ixs["cuda"], grid, 3)
+    with telemetry.capture() as ev:
+        with faults.transient_errors(50, sites=("raster.zonal",)):
+            with pytest.raises(RetryExhausted):
+                st.scan(_custom_raster(True), tile=(64, 64),
+                        retry_policy=RetryPolicy(max_attempts=3, base_delay_s=0.0,
+                                                 jitter=0.0))
+    assert "degraded" not in [e["event"] for e in ev]

@@ -429,3 +429,49 @@ def test_pip_join_recheck_bng_no_alt_fallback():
         pts, None, RefBNG, 3, chip_index=ref, recheck=True, cell_dtype=jnp.float32)))
     (e,) = [x for x in ev if x["event"] == "recheck_narrow"]
     assert e["mode"] == "host_all" and e["ties"] == e["band"] > 0
+
+
+@pytest.fixture(scope="module")
+def custom_star():
+    """(reference system, port system, reference index, port index) over
+    `CUSTOM_ZONES` at resolution 3 with ``edge_cap=8`` (heavy and convex
+    cells present), and the mixed and near-edge batches of
+    `test_custom_grid_adaptive_recheck_equals_host_and_reference`."""
+    col = wkt.from_wkt(CUSTOM_ZONES)
+    rsys, psys = RefCustom(RefGridConf(*CUSTOM_CONF)), CustomIndexSystem(GridConf(*CUSTOM_CONF))
+    ref = RJ.build_chip_index(ref_tessellate(col, rsys, 3, keep_core_geoms=False), edge_cap=8)
+    port = TJ.build_chip_index(
+        tessellate(port_geometry(col), psys, 3, keep_core_geoms=False),
+        edge_cap=8, device="cpu",
+    )
+    rng = np.random.default_rng(3)
+    mixed = rng.uniform((-25, -25), (35, 20), (4_000, 2))
+    edges = port.host.cell_edges[port.host.cell_ebits != 0][:400]
+    t = rng.uniform(0, 1, (len(edges), 1))
+    near = edges[:, :2] + t * (edges[:, 2:] - edges[:, :2]) + port.host.shift
+    near = near + rng.normal(0, 1e-6, near.shape)
+    return rsys, psys, ref, port, {"mixed": mixed, "near_edge": near}
+
+
+@pytest.mark.parametrize("batch", ["mixed", "near_edge"])
+@pytest.mark.parametrize("probe", ["adaptive", "scatter"])
+def test_custom_grid_recheck_default_cell_dtype_is_exact(custom_star, batch, probe):
+    """With default arguments the exact join on the custom grid (no cell
+    margins) computes its cells in f64, so it equals `host_join` and the
+    reference exactly. Rows 233, 277 and 297 of the near-edge batch lie
+    within an f32 ulp of a cell boundary: f32 cells put them one column
+    off, and without margins no recheck would correct them."""
+    rsys, psys, ref, port, batches = custom_star
+    assert not TJ.has_cell_margins(psys) and TJ.has_cell_margins(H3)
+    pts = batches[batch]
+    want = TJ.host_join(pts, port.host, psys, 3)
+    got = TJ.pip_join(pts, None, psys, 3, chip_index=port, recheck=True,
+                      probe=probe, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, np.asarray(RJ.pip_join(
+        pts, None, rsys, 3, chip_index=ref, recheck=True, probe=probe)))
+    if batch == "near_edge":
+        np.testing.assert_array_equal(got[[233, 277, 297]], [1, 1, 1])
+        f32 = TJ.pip_join(pts, None, psys, 3, chip_index=port, recheck=True,
+                          probe=probe, cell_dtype=torch.float32, device="cpu")
+        assert (f32[[233, 277, 297]] == -1).all()  # the fault the default avoids
