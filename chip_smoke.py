@@ -98,6 +98,42 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    crop (fold lane) the plain, durable, killed-and-resumed and retried
    scans must equal the fold zones bit for bit; prints tiles/s and
    pixels/s;
+8d-8f run in a process of their own (``--serve-child``; its lines'
+   ``t_s`` count from its own start), which loads phase 3's index from
+   disk and the kernel libraries built in phase 2: it must start no nvcc
+   build. The ``serve_process`` line gives a
+   1,024-row dispatch's host ms in this process, which the profiler has
+   traced (every later eager op runs slower), beside the child's;
+8d. serving (``serve/engine.py ServeEngine``, the reference serve
+   bench's settings): ``probe="adaptive"``, ladder 64-16,384, a 2 ms
+   window, a queue of 64, 2 s deadlines; ``warmup()`` (seconds per rung,
+   nvcc builds before and after), then a closed loop of 8 clients over
+   2,000 requests of 1-1,024 rows (seed 7, ~1M points). Gates, bit for
+   bit: every answer equals ``pip_join(probe="scatter")`` of the same
+   points, and so does a second engine with the default probe; the
+   signatures equal the rungs, no cold compile, no nvcc build after
+   warmup, no shed or degradation, ``pip_heavy_tiled`` launched, and no
+   host sync in a warm dispatch's cells and probe on any rung. Prints
+   requests/s, points/s, p50 and p99 latency, occupancy, batches, and a
+   1,024-row dispatch's host ms alone and beside a thread holding the
+   GIL (a 2,250 Hz ticker of 80 µs, and a thread that never leaves
+   Python); after 8f, the ``serve_profile`` line gives the device idle
+   share over a profiled window of 200 requests;
+8e. serve resilience on that engine: a transient fault at
+   ``serve.dispatch`` is retried to the same bits; exhausted retries
+   fail the request with ``RetryExhausted`` and nothing degrades; a
+   request with 100 NaN rows is parked (-1) and its batchmates' bits are
+   untouched; ``hot_swap`` to the index of ``synthetic_zones(16, 16,
+   verts=256, seed=12)`` in the middle of a stream of requests: every
+   answer equals one of the two indexes' ``pip_join``, every request
+   submitted after the swap returned equals the new index's, and the
+   swap makes no cold compile and no nvcc build;
+8f. the router (``serve/router.py ServeRouter``): 3 tenants over the
+   index, ``SERVE_TENANT_r16.json``'s open-loop traffic (the aggressor at
+   15x a victim's 150 requests/s, a quota of 64 each); the victims shed
+   nothing and every answer is exact; with ``max_resident=2`` a third
+   tenant evicts one, and a submit revives it with no nvcc build and no
+   cold compile. Prints each tenant's shed rate, p50 and p99;
 9. a ``kernels`` line with each kernel's launches (their sum over the
    paths above, and each path's own count), times and bound, and each
    raster kernel's device time per launch in the crop profile.
@@ -149,6 +185,24 @@ STREAM_BATCHES = 25        # 25 x 4M = 100M points, the stream bench's long run
 STREAM_HEADROOM = 1.05     # cap headroom over the largest slot's exact counts
 STREAM_POISON = 1000       # rows poisoned in each of 3 admitted batches
 RUNS_DIR = ".chip_smoke_runs"  # run directories of the durable phases (removed)
+# serving (8d-8f): the reference serve bench's settings
+# (tools/serve_bench.py defaults) and SERVE_TENANT_r16.json's traffic
+SERVE_LADDER = (64, 16384)  # --min-bucket, --max-bucket
+SERVE_MAX_BATCH = 16384     # --max-batch
+SERVE_WINDOW_S = 0.002      # --window-ms 2
+SERVE_QUEUE = 64            # --queue-cap, the per-tenant quota
+SERVE_DEADLINE_S = 2.0      # --deadline-ms 2000
+SERVE_CLIENTS = 8           # --concurrency, closed loop
+SERVE_REQUESTS = 2000       # of 1-1,024 rows each (--rows-min/max), ~1M points
+SERVE_ROWS = (1, 1024)
+SERVE_SEED = 7
+SERVE_PROFILED = 200        # requests in the profiled window
+SERVE_POISON = 100          # NaN rows of the parked request
+SWAP_SEED = 12              # zones of the index swapped in under load
+TENANTS = 3                 # tenant_0 the aggressor
+TENANT_RATE = 150.0         # requests/s of each victim, open loop
+TENANT_MULT = 15.0          # the aggressor's multiple of rate and requests
+TENANT_REQUESTS = 100       # per victim
 
 #: H100 SXM rates: HBM3 bytes/s (NVIDIA data sheet); single f32 and f64
 #: operations per second outside the tensor cores. The data sheet's 67 and
@@ -321,6 +375,487 @@ def idle_share(busy_ms, rows, warm_ms) -> dict:
         return {"device_busy_ms": "not measured", "device_idle_share": "not measured"}
     return {"device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / warm_ms)}
+
+
+def count_syncs(fn) -> tuple:
+    """(count, first message) of the host synchronisations ``fn()`` makes
+    (torch's sync debug mode, one warning each; a lower bound: the mode
+    is a prototype)."""
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    msgs = [str(x.message) for x in w if "synchroniz" in str(x.message).lower()
+            and "prototype" not in str(x.message)]
+    return len(msgs), msgs[:1]
+
+
+def dispatch_ms(core, pts, reps=20) -> float:
+    """Host ms of one warm ``core.execute_padded(pts)``."""
+    core.execute_padded(pts)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        core.execute_padded(pts)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def dispatch_contention(core, pts) -> dict:
+    """Host ms of one ``core.execute_padded(pts)``: alone, beside a
+    thread that wakes 2,250 times a second and holds the GIL 80 µs each
+    time (the router's aggressor submitting), and beside a thread that
+    never leaves Python. A dispatch releases and retakes the GIL at each
+    of its eager ops, so it waits at each for the other thread."""
+    stop = threading.Event()
+
+    def ticker():
+        nxt = time.perf_counter()
+        while not stop.is_set():
+            nxt += 1 / 2250
+            lag = nxt - time.perf_counter()
+            if lag > 0:
+                time.sleep(lag)
+            t = time.perf_counter()
+            while time.perf_counter() - t < 80e-6:
+                pass
+
+    def busy():
+        while not stop.is_set():
+            pass
+
+    out = {}
+    for name, target, reps in (("alone", None, 20), ("ticker_2250hz_80us", ticker, 20),
+                               ("busy_python_thread", busy, 3)):
+        stop.clear()
+        th = threading.Thread(target=target, daemon=True) if target else None
+        if th:
+            th.start()
+        out[name] = dispatch_ms(core, pts, reps)
+        stop.set()
+        if th:
+            th.join()
+    return out
+
+
+def serve_phases(ix, H3, dev):
+    """Phases 8d-8f, serving over phase 3's index. Returns (failure
+    message or None, {"serve": launches, "router": launches}) of
+    ``pip_heavy_tiled``, each counted from 0 just before its run."""
+    import numpy as np
+    import torch
+
+    from mosaic_tpu_torch.core.tessellate import tessellate
+    from mosaic_tpu_torch.datasets import NYC_BBOX, synthetic_zones
+    from mosaic_tpu_torch.dispatch import BucketLadder, backend_compiles
+    from mosaic_tpu_torch.kernels import pip as K
+    from mosaic_tpu_torch.runtime import (
+        DegradedResult, Overloaded, RetryExhausted, faults, telemetry,
+    )
+    from mosaic_tpu_torch.serve import ServeEngine, ServeRouter
+    from mosaic_tpu_torch.sql import join as J
+
+    bbox = NYC_BBOX
+    ekw = dict(
+        ladder=BucketLadder(*SERVE_LADDER), max_batch_rows=SERVE_MAX_BATCH,
+        max_wait_s=SERVE_WINDOW_S, queue_capacity=SERVE_QUEUE,
+        default_deadline_s=SERVE_DEADLINE_S, bounds=bbox,
+    )
+
+    def make_requests(seed, count):
+        rng = np.random.default_rng(seed)
+        sizes = rng.integers(SERVE_ROWS[0], SERVE_ROWS[1] + 1, count)
+        return [rng.uniform(bbox[:2], bbox[2:], (int(n), 2)) for n in sizes]
+
+    def joined(reqs, index):
+        """`pip_join(probe="scatter")` of the concatenation, split per
+        request (the join is pointwise)."""
+        out = J.pip_join(np.concatenate(reqs), None, H3, RES, chip_index=index,
+                         probe="scatter", recheck=False)
+        return np.split(out, np.cumsum([len(r) for r in reqs])[:-1])
+
+    def exact(answers, want) -> bool:
+        return all(a is not None and not isinstance(a, DegradedResult)
+                   and np.array_equal(a, w) for a, w in zip(answers, want))
+
+    def first_mismatch(answers, want):
+        """(request, rows that differ, got, want) of the first request
+        that differs from ``want``, or None."""
+        for i, (a, w) in enumerate(zip(answers, want)):
+            if a is None or not np.array_equal(a, w):
+                d = None if a is None else np.nonzero(np.asarray(a) != w)[0][:3]
+                return (i, None if d is None else d.tolist(),
+                        None if a is None else np.asarray(a)[d].tolist(), w[d].tolist()
+                        if d is not None else None, type(a).__name__)
+        return None
+
+    def closed_loop(eng, reqs):
+        """(answers, errors, wall s): SERVE_CLIENTS clients, each submitting
+        its next request when its last one is answered."""
+        answers, errors = [None] * len(reqs), []
+        cursor, lock = iter(range(len(reqs))), threading.Lock()
+        sinks = telemetry.current_sinks()
+
+        def client():
+            telemetry.adopt_sinks(sinks)
+            while True:
+                with lock:
+                    i = next(cursor, None)
+                if i is None:
+                    return
+                try:
+                    answers[i] = eng.submit(reqs[i]).result()
+                except Exception as e:  # lint: broad-except-ok (every failure is listed and gated)
+                    errors.append((i, repr(e)[:200]))
+
+        threads = [threading.Thread(target=client, daemon=True)
+                   for _ in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return answers, errors, time.perf_counter() - t0
+
+    reqs = make_requests(SERVE_SEED, SERVE_REQUESTS)
+    n_pts = int(sum(len(r) for r in reqs))
+    want = joined(reqs, ix)
+    # 8d. serve: warm the ladder, then the closed loop
+    eng = ServeEngine(ix, H3, RES, probe="adaptive", **ekw)
+    b_before = backend_compiles()
+    t0 = time.perf_counter()
+    warm = eng.warmup()
+    warm_wall = time.perf_counter() - t0
+    b_warm = backend_compiles()
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    syncs = {}
+    for b in eng.ladder.buckets:
+        staged = eng.core.stage(rng.uniform(bbox[:2], bbox[2:], (b, 2)))
+        syncs[b] = count_syncs(lambda: eng.core.probe_staged(*staged))[0]
+    K.pip_heavy_tiled.launches = 0
+    with telemetry.capture() as events:
+        answers, errors, wall = closed_loop(eng, reqs)
+    serve_launches = K.pip_heavy_tiled.launches
+    m = eng.metrics()
+    lat = telemetry.summarize(events, "serve_request")
+    with ServeEngine(ix, H3, RES, **ekw) as eng_s:  # the default probe
+        eng_s.warmup()
+        answers_s, errors_s, wall_s = closed_loop(eng_s, reqs)
+        m_s = eng_s.metrics()
+    contention = dispatch_contention(
+        eng.core, rng.uniform(bbox[:2], bbox[2:], (1024, 2)))
+    b_after = backend_compiles()
+    serve_ok = {
+        "equal_to_pip_join": not errors and exact(answers, want),
+        "scatter_engine_equal": not errors_s and exact(answers_s, want),
+        "signatures_equal_rungs": warm["signatures"] == len(eng.ladder.buckets)
+        == m["compile_signatures"],
+        "no_cold_compiles": m["cold_compiles"] == 0 and m_s["cold_compiles"] == 0,
+        "no_nvcc_build_after_warmup": b_after == b_warm,
+        "no_shed_or_degraded": m["shed"] == 0 and m["degraded"] == 0
+        and m_s["shed"] == 0 and m_s["degraded"] == 0,
+        "launched_pip_heavy_tiled": serve_launches > 0,
+        "probe_free_of_host_syncs": not any(syncs.values()),
+    }
+    emit({
+        "phase": "serve", "requests": SERVE_REQUESTS, "points": n_pts,
+        "clients": SERVE_CLIENTS, "ladder": list(SERVE_LADDER),
+        "window_s": SERVE_WINDOW_S, "deadline_s": SERVE_DEADLINE_S,
+        "probe": "adaptive", "wall_s": wall,
+        "requests_per_s": SERVE_REQUESTS / wall, "points_per_s": n_pts / wall,
+        "latency_s": lat, "occupancy_mean": m["occupancy_mean"],
+        "batches": m["batches"], "pip_heavy_tiled_launches": serve_launches,
+        "warmup_s": warm_wall, "warmup_rung_s": warm["rung_seconds"],
+        "backend_compiles": {"before_warmup": b_before, "after_warmup": b_warm,
+                             "after_serving": b_after},
+        "host_syncs_per_rung": syncs,
+        "dispatch_ms_1024_rows": contention,
+        "scatter_engine": {"wall_s": wall_s, "requests_per_s": SERVE_REQUESTS / wall_s,
+                           "batches": m_s["batches"]},
+        "errors": errors[:3] + errors_s[:3],
+        "first_mismatch": first_mismatch(answers, want),
+        "first_mismatch_scatter": first_mismatch(answers_s, want), "gates": serve_ok,
+    })
+    bad = [k for k, v in serve_ok.items() if not v]
+    if bad:
+        eng.close()
+        return f"serve gates failed: {bad}", None
+
+    # 8e. resilience and a hot swap under load, on the same engine
+    with telemetry.capture() as ev1:
+        with faults.transient_errors(1, sites=("serve.dispatch",)):
+            got = eng.join(reqs[1])
+    retried = [e["event"] for e in ev1].count("transient_retry")
+    with telemetry.capture() as ev2:
+        with faults.transient_errors(50, sites=("serve.dispatch",)):
+            fut = eng.submit(reqs[2])
+            try:
+                fut.result()
+                exhausted = False
+            except RetryExhausted:
+                exhausted = True
+    kinds2 = [e["event"] for e in ev2]
+    poison = np.random.default_rng(SERVE_SEED + 2).uniform(bbox[:2], bbox[2:], (1000, 2))
+    bad_rows = np.zeros(len(poison), bool)
+    bad_rows[::len(poison) // SERVE_POISON] = True
+    poison[bad_rows] = np.nan
+    q0 = eng.metrics()["quarantined"]
+    fa, fp, fb = (eng.submit(x) for x in (reqs[3], poison, reqs[4]))
+    out_a, out_p, out_b = fa.result(), fp.result(), fb.result()
+    want_p = J.pip_join(poison[~bad_rows], None, H3, RES, chip_index=ix,
+                        probe="scatter", recheck=False)
+    parked = eng.metrics()["quarantined"] - q0
+    t0 = time.perf_counter()
+    zones2 = synthetic_zones(*ZONES, verts=256, seed=SWAP_SEED)
+    ix2 = J.build_chip_index(tessellate(zones2, H3, RES, keep_core_geoms=False), device=dev)
+    ix2_s = time.perf_counter() - t0
+    want2 = joined(reqs, ix2)
+    subs, stop, swapped = [], threading.Event(), threading.Event()
+
+    def streamer():
+        i = 0
+        while not stop.is_set():
+            after = swapped.is_set()
+            try:
+                subs.append((i % len(reqs), eng.submit(reqs[i % len(reqs)]), after))
+            except Overloaded:
+                subs.append((i % len(reqs), None, after))
+            i += 1
+            time.sleep(0.001)
+
+    th = threading.Thread(target=streamer, daemon=True)
+    th.start()
+    time.sleep(0.3)
+    t0 = time.perf_counter()
+    swap = eng.hot_swap(ix2)
+    swap_s = time.perf_counter() - t0
+    swapped.set()
+    time.sleep(0.3)
+    stop.set()
+    th.join()
+    torn, stale, shed_swap, n_after = 0, 0, 0, 0
+    for i, f, after in subs:
+        if f is None:
+            shed_swap += 1
+            continue
+        try:
+            a = f.result()
+        except Overloaded:
+            shed_swap += 1
+            continue
+        old_ok, new_ok = np.array_equal(a, want[i]), np.array_equal(a, want2[i])
+        torn += not (old_ok or new_ok)
+        if after:
+            n_after += 1
+            stale += not new_ok
+    m2 = eng.metrics()
+    eng.close()
+    res_ok = {
+        "retry_equal": np.array_equal(got, want[1]) and retried == 1
+        and not isinstance(got, DegradedResult),
+        "exhaustion_raised": exhausted and "degraded" not in kinds2
+        and "retry_exhausted" in kinds2,
+        "parked_exact": parked == SERVE_POISON and bool((out_p[bad_rows] == -1).all())
+        and np.array_equal(out_p[~bad_rows], want_p)
+        and np.array_equal(out_a, want[3]) and np.array_equal(out_b, want[4]),
+        "swap_observable": any(not np.array_equal(a, b) for a, b in zip(want, want2)),
+        "swap_untorn": torn == 0 and len(subs) > shed_swap,
+        "after_swap_new_index": stale == 0 and n_after > 0,
+        "no_cold_compiles_after_swap": m2["cold_compiles"] == 0
+        and swap["backend_compiles"] == 0,
+        "never_degraded": m2["degraded"] == 0,
+    }
+    emit({
+        "phase": "serve_resilience", "retry_events": retried, "exhausted": exhausted,
+        "parked_rows": parked, "swap_index_build_s": ix2_s, "hot_swap_s": swap_s,
+        "swap_warmup": swap, "swap_requests": len(subs), "swap_after": n_after,
+        "swap_shed": shed_swap, "torn": torn, "stale_after_swap": stale,
+        "gates": res_ok,
+    })
+    bad = [k for k, v in res_ok.items() if not v]
+    if bad:
+        return f"serve_resilience gates failed: {bad}", None
+
+    # 8f. the router: an aggressor at 15x a victim's rate, open loop
+    rkw = dict(ekw, probe="adaptive")
+    router = ServeRouter(H3, max_resident=TENANTS, engine_defaults=rkw)
+    t0 = time.perf_counter()
+    for t in range(TENANTS):
+        router.add_tenant(f"tenant_{t}", ix, RES)
+    tenants_warm_s = time.perf_counter() - t0
+    treqs = {t: make_requests(SERVE_SEED + t, int(TENANT_REQUESTS * (TENANT_MULT if t == 0 else 1)))
+             for t in range(TENANTS)}
+    twant = {t: joined(treqs[t], ix) for t in range(TENANTS)}
+    stats = {t: {"shed_submit": 0, "shed_deadline": 0, "other": 0, "lat": [],
+                 "answers": [None] * len(treqs[t])} for t in range(TENANTS)}
+    lock, futures = threading.Lock(), []
+
+    sinks = telemetry.current_sinks()
+
+    def tenant_load(t):
+        # requests carry their submitter's sinks to the batcher threads
+        telemetry.adopt_sinks(sinks)
+        r = np.random.default_rng(1000 + t)
+        rate = TENANT_RATE * (TENANT_MULT if t == 0 else 1.0)
+        next_t = time.perf_counter()
+        for i, pts in enumerate(treqs[t]):
+            next_t += float(r.exponential(1.0 / rate))
+            lag = next_t - time.perf_counter()
+            if lag > 0:
+                time.sleep(lag)
+            t1 = time.perf_counter()
+            try:
+                f = router.submit(f"tenant_{t}", pts)
+            except Overloaded:
+                with lock:
+                    stats[t]["shed_submit"] += 1
+                continue
+
+            def done(f, t=t, i=i, t1=t1):
+                dt = time.perf_counter() - t1
+                exc = f.exception()
+                with lock:
+                    if exc is None:
+                        stats[t]["lat"].append(dt)
+                        stats[t]["answers"][i] = f.result()
+                    elif isinstance(exc, Overloaded) and exc.reason == "deadline":
+                        stats[t]["shed_deadline"] += 1
+                    else:
+                        stats[t]["other"] += 1
+
+            f.add_done_callback(done)
+            with lock:
+                futures.append(f)
+
+    threads = [threading.Thread(target=tenant_load, args=(t,), daemon=True)
+               for t in range(TENANTS)]
+    import concurrent.futures as cf
+
+    K.pip_heavy_tiled.launches = 0
+    with telemetry.capture() as rev:
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        cf.wait(futures)
+        router_wall = time.perf_counter() - t0
+    router_stages = {
+        stage: telemetry.summarize([e for e in rev if e["event"] == "serve_stage"
+                                    and e.get("stage") == stage])
+        for stage in ("queue_wait", "batch", "dispatch")
+    }
+    router_launches = K.pip_heavy_tiled.launches
+    rm = router.metrics()
+    router.close()
+    per = {}
+    for t in range(TENANTS):
+        s, total = stats[t], len(treqs[t])
+        lat_t = np.asarray(s["lat"])
+        per[f"tenant_{t}"] = {
+            "requests": total, "completed": int(lat_t.size),
+            "shed_submit": s["shed_submit"], "shed_deadline": s["shed_deadline"],
+            "other_errors": s["other"],
+            "shed_rate": (s["shed_submit"] + s["shed_deadline"]) / total,
+            "p50_s": float(np.percentile(lat_t, 50)) if lat_t.size else None,
+            "p99_s": float(np.percentile(lat_t, 99)) if lat_t.size else None,
+            "exact": exact([a for a in s["answers"] if a is not None],
+                           [w for a, w in zip(s["answers"], twant[t]) if a is not None]),
+            "cold_compiles": rm["tenants"][f"tenant_{t}"]["cold_compiles"],
+        }
+    # residency: max_resident 2, the third tenant evicts one, a submit
+    # to the evicted one revives it
+    router2 = ServeRouter(H3, max_resident=2, engine_defaults=rkw)
+    for name in ("a", "b", "c"):
+        router2.add_tenant(name, ix, RES)
+    m3 = router2.metrics()
+    evicted = [n for n, v in m3["tenants"].items() if not v["resident"]]
+    b0 = backend_compiles()
+    with telemetry.capture() as ev3:
+        revived = [router2.join(evicted[0], x) for x in reqs[:20]] if evicted else []
+    revive_builds = backend_compiles() - b0
+    revive_warm = [e for e in ev3 if e["event"] == "serve_warmup"]
+    m4 = router2.metrics()
+    router2.close()
+    victims = [per[f"tenant_{t}"] for t in range(1, TENANTS)]
+    router_ok = {
+        "victims_never_shed": all(v["shed_rate"] == 0 and v["other_errors"] == 0
+                                  and v["completed"] == v["requests"] for v in victims),
+        "answers_exact": all(v["exact"] for v in per.values()),
+        "no_cold_compiles": all(v["cold_compiles"] == 0 for v in per.values()),
+        "third_tenant_evicts_one": m3["evictions"] == 1 and m3["resident"] == 2
+        and len(evicted) == 1,
+        "revival_exact": bool(revived) and exact(revived, want[:20]),
+        "revival_builds_nothing": revive_builds == 0 and len(revive_warm) == 1
+        and revive_warm[0]["backend_compiles"] == 0,
+        "no_cold_compiles_after_revival": bool(evicted)
+        and m4["tenants"][evicted[0]]["cold_compiles"] == 0
+        and m4["tenants"][evicted[0]]["revivals"] == 2,
+    }
+    emit({
+        "phase": "router", "tenants": TENANTS, "aggressor": "tenant_0",
+        "aggressor_mult": TENANT_MULT, "rate_per_victim": TENANT_RATE,
+        "quota": SERVE_QUEUE, "add_tenants_s": tenants_warm_s, "wall_s": router_wall,
+        "per_tenant": per, "stage_s": router_stages,
+        "pip_heavy_tiled_launches": router_launches,
+        "evicted": evicted, "revival_warmup": revive_warm[0] if revive_warm else None,
+        "revival_nvcc_builds": revive_builds, "gates": router_ok,
+    })
+    bad = [k for k, v in router_ok.items() if not v]
+    if bad:
+        return f"router gates failed: {bad}", None
+    if router_launches <= 0:
+        return "the router's engines never launched pip_heavy_tiled", None
+    # the profiled window last: a process the profiler has traced runs
+    # every later eager op slower (the serve_process line)
+    sub = reqs[:SERVE_PROFILED]
+    with ServeEngine(ix, H3, RES, probe="adaptive", **ekw) as eng_p:
+        eng_p.warmup()
+        sub_wall = min(closed_loop(eng_p, sub)[2] for _ in range(2))
+        b0 = eng_p.metrics()["batches"]
+        busy, rows, prof_ms = profile_device(lambda: closed_loop(eng_p, sub))
+        prof_batches = eng_p.metrics()["batches"] - b0
+    emit({
+        "phase": "serve_profile", "requests": SERVE_PROFILED, "probe": "adaptive",
+        "warm_wall_ms": sub_wall * 1e3, "profiled_wall_ms": prof_ms,
+        "batches": prof_batches,
+        "device_ops_per_batch": sum(c for _, _, c in rows) / max(prof_batches, 1),
+        **idle_share(busy, rows, sub_wall * 1e3),
+        "kernels_profiled": kernel_times(rows),
+        "top_device_ops": [{"op": k[:80], "ms": ms_, "calls": c} for ms_, k, c in rows[:6]],
+    })
+    return None, {"serve": serve_launches, "router": router_launches}
+
+
+def serve_child(index_path: str, result_path: str) -> int:
+    """Phases 8d-8f in a process of their own (``chip_smoke.py
+    --serve-child INDEX RESULT``): phase 3's index from ``INDEX`` (npz),
+    the outcome to ``RESULT`` (JSON: error, launches, the nvcc builds this
+    process started)."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+    from mosaic_tpu_torch.dispatch import backend_compiles
+    from mosaic_tpu_torch.sql import join as J
+
+    dev = torch.device(DEVICE)
+    with np.load(index_path) as z:
+        ix = J.ChipIndex.from_arrays(dict(z), device=dev)
+    err, launches = serve_phases(ix, H3IndexSystem(), dev)
+    with open(result_path, "w") as fh:
+        json.dump({"error": err, "launches": launches,
+                   "nvcc_builds": backend_compiles()}, fh)
+    return 1 if err else 0
 
 
 def main() -> int:
@@ -1255,22 +1790,8 @@ def main() -> int:
     sj = S.StreamJoin(ix, H3, RES, probe="adaptive", **stream_caps)
     sj.compile(ring, 1)
 
-    def syncs(nb):
-        """Host synchronisations the device loop of ``nb`` batches makes
-        (torch's sync debug mode, one warning each)."""
-        with warnings.catch_warnings(record=True) as w:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                sj._loop(ring, ix, nb, False)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        msgs = [str(x.message) for x in w if "synchroniz" in str(x.message).lower()
-                and "prototype" not in str(x.message)]
-        return len(msgs), msgs[:1]
-
-    (s1, first_sync), (s3, _) = syncs(1), syncs(3)
+    (s1, first_sync), (s3, _) = (count_syncs(lambda nb=nb: sj._loop(ring, ix, nb, False))
+                                 for nb in (1, 3))
     K.pip_heavy_tiled.launches = 0
     K.pip_zone.launches = 0
     stream_run = sj.run(ring, STREAM_BATCHES)
@@ -1483,6 +2004,39 @@ def main() -> int:
     if bad_gates:
         return fail(f"raster_stream gates failed: {bad_gates}")
 
+    # 8d-8f. serving over phase 3's index (the engine, its resilience and a
+    # swap under load, the router) in a process of its own, as a server
+    # runs: the profiler the phases above attached to this process slows
+    # every later eager op, and a dispatch is ~930 of them. The child
+    # loads the index from disk and the kernel libraries nvcc built here.
+    from mosaic_tpu_torch.dispatch import BucketLadder, DispatchCore
+
+    os.makedirs(runs_dir, exist_ok=True)
+    index_path = os.path.join(runs_dir, "serve_index.npz")
+    result_path = os.path.join(runs_dir, "serve_result.json")
+    np.savez(index_path, **ix.to_arrays())
+    core1024 = DispatchCore(ix, H3, RES, probe="adaptive", ladder=BucketLadder(64, 1024))
+    core1024.warmup()
+    parent_ms = dispatch_ms(core1024, random_points(1024, NYC_BBOX, seed=SERVE_SEED))
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-child",
+                            index_path, result_path], timeout=900)
+    child_s = time.perf_counter() - t0
+    try:
+        with open(result_path) as fh:
+            served = json.load(fh)
+    except (OSError, ValueError) as exc:
+        served = {"error": f"no result from the serving process: {exc!r}"}
+    shutil.rmtree(runs_dir, ignore_errors=True)
+    emit({"phase": "serve_process", "child_rc": child.returncode, "child_s": child_s,
+          "parent_dispatch_ms_1024_rows": parent_ms,
+          "child_nvcc_builds": served.get("nvcc_builds")})
+    if child.returncode or served.get("error"):
+        return fail(served.get("error") or f"the serving process exited {child.returncode}")
+    if served.get("nvcc_builds") != 0:
+        return fail(f"the serving process built kernels: {served.get('nvcc_builds')} nvcc jobs")
+    serve_launches = served["launches"]
+
     # 9. the kernels line; "crop_ms_per_launch" is a kernel's device time
     # per launch in the profiled crop call of the raster path named
     def crop_ms(path, name):
@@ -1497,8 +2051,11 @@ def main() -> int:
         {"name": "pip_heavy_tiled", "route": "cuda", "source": src,
          "replaces": "mosaic_tpu/kernels/pip.py:492",
          "launches": heavy_launches + recheck_launches + stream_launches
-         + rs_launches["pip_heavy_tiled"] + rs_fold_launches["pip_heavy_tiled"],
+         + rs_launches["pip_heavy_tiled"] + rs_fold_launches["pip_heavy_tiled"]
+         + serve_launches["serve"] + serve_launches["router"],
          "launches_join": heavy_launches, "launches_exact_join": recheck_launches,
+         "launches_serve": serve_launches["serve"],
+         "launches_router": serve_launches["router"],
          "launches_stream": stream_launches,
          "launches_raster_stream": rs_launches["pip_heavy_tiled"],
          "launches_raster_stream_fold": rs_fold_launches["pip_heavy_tiled"],
@@ -1561,4 +2118,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-child"]:
+        sys.exit(serve_child(*sys.argv[2:4]))
     sys.exit(main())

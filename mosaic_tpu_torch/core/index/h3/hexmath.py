@@ -14,6 +14,8 @@ Reference analog: the H3 C core the reference calls through JNI
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -49,6 +51,9 @@ def astype(x, dtype):
 #: device copies of the constant tables, by (device, dtype, content);
 #: the tables of the cell path are a few dozen, each under 1k elements
 _DEVICE_CONSTS: dict = {}
+#: serializes the fill of a missing entry: engines warming on several
+#: threads at once copy each table once, never publish a partial entry
+_CONSTS_LOCK = threading.Lock()
 _CONST_MAX_ELEMS = 4096
 _CONST_MAX_ENTRIES = 512
 
@@ -81,9 +86,12 @@ class TorchNamespace:
         key = (self.device, dt, a.dtype.str, a.shape, a.tobytes())
         t = _DEVICE_CONSTS.get(key)
         if t is None:
-            t = torch.as_tensor(a, dtype=dt, device=self.device)
-            if len(_DEVICE_CONSTS) < _CONST_MAX_ENTRIES:
-                _DEVICE_CONSTS[key] = t
+            with _CONSTS_LOCK:
+                t = _DEVICE_CONSTS.get(key)
+                if t is None:
+                    t = torch.as_tensor(a, dtype=dt, device=self.device)
+                    if len(_DEVICE_CONSTS) < _CONST_MAX_ENTRIES:
+                        _DEVICE_CONSTS[key] = t
         return t
 
     def zeros(self, shape, dtype=None):

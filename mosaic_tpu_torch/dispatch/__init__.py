@@ -1,11 +1,36 @@
-"""Dispatch layer of the port: the bucket ladder (the raster tile
-planner's shape snap), ``guarded_call`` (the watchdog/retry/degradation
-composition every device call of the join goes through) and the
-pipelined execution core of the durable stream and raster scan. The
-rest of the dispatch core and serving are later slices."""
+"""`mosaic_tpu_torch.dispatch` — the execution core of the port.
 
-from .bucket import BucketLadder
-from .core import guarded_call
+Port of ``mosaic_tpu/dispatch``: the bucket ladder and the dispatch
+signature (`bucket.py`), the registry of bounded caches, ``guarded_call``
+(the watchdog/retry/degradation composition every device call goes
+through), :class:`DispatchCore` with warmup and freeze, the resident-core
+cache :func:`core_for` (`core.py`), the pipelined execution core of the
+durable stream and raster scan (`pipeline.py`), and what stands in for
+the reference's program store (`programs.py`). The mesh lanes are ROADMAP
+queue 1 item 12; the program store is not ported (`programs.py`).
+"""
+
+from .bucket import (
+    DEFAULT_MAX_BUCKET,
+    DEFAULT_MIN_BUCKET,
+    BucketLadder,
+    backend_compiles,
+    dispatch_signature,
+    mesh_key,
+)
+from .core import (
+    DispatchCore,
+    bounded_cache,
+    cache_stats,
+    cache_view,
+    cells_prog,
+    clear_caches,
+    core_for,
+    guarded_call,
+    join_cache_view,
+    register_cache,
+    stream_programs,
+)
 from .pipeline import (
     DEFAULT_WINDOW,
     PipelineStats,
@@ -13,13 +38,30 @@ from .pipeline import (
     execute_pipeline,
     resolve_window,
 )
+from .programs import resolve_program_store
 
 __all__ = [
-    "DEFAULT_WINDOW",
     "BucketLadder",
+    "DEFAULT_MAX_BUCKET",
+    "DEFAULT_MIN_BUCKET",
+    "DEFAULT_WINDOW",
+    "DispatchCore",
     "PipelineStats",
     "SnapshotWriter",
+    "backend_compiles",
+    "bounded_cache",
+    "cache_stats",
+    "cache_view",
+    "cells_prog",
+    "clear_caches",
+    "core_for",
+    "dispatch_signature",
     "execute_pipeline",
     "guarded_call",
+    "join_cache_view",
+    "mesh_key",
+    "register_cache",
+    "resolve_program_store",
     "resolve_window",
+    "stream_programs",
 ]

@@ -1,18 +1,36 @@
-"""Shape bucketing: the geometric pad-to-bucket ladder.
+"""Shape bucketing: the bounded-signature contract of the dispatch core.
 
-Port of ``BucketLadder`` from ``mosaic_tpu/dispatch/bucket.py``. The
-raster tile planner snaps each requested tile axis onto it, so the set
-of tile shapes is the ladder's square and not the integers. The rest of
-the dispatch core (signatures, compile accounting, serving) comes with
-the serving slice.
+Port of ``mosaic_tpu/dispatch/bucket.py``. Every serving dispatch runs at
+a shape drawn from a small fixed ladder: a request (or coalesced
+micro-batch) of ``n`` rows is padded up to ``bucket_for(n)``, and
+:meth:`DispatchCore.warmup` runs every rung before traffic arrives. The
+raster tile planner snaps each requested tile axis onto the same ladder.
+
+Pad rows duplicate the batch's first row: they flow through the probe
+like any other point and are sliced off before scatter-back, so they can
+never reach a caller. Caps sized at the full bucket make tier overflow
+structurally impossible — a padded dispatch is exact by construction and
+never escalates.
+
+Compile accounting is two-layered, as in the reference:
+:func:`dispatch_signature` is the deterministic key the core counts
+(signatures after warmup == buckets touched), and
+:func:`backend_compiles` reads a process-wide compiler counter. The port
+compiles nothing per shape; its only compiler is ``nvcc``, which builds
+the kernel libraries once per machine (`kernels/_build.py`, cached on
+disk by a hash of source and flags), so :func:`backend_compiles` counts
+the nvcc jobs this process started.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 #: default ladder bounds: 64 covers single interactive requests, 64k is
-#: one comfortable device micro-batch
+#: one comfortable device micro-batch (the batcher's max coalesced size
+#: must not exceed the top bucket)
 DEFAULT_MIN_BUCKET = 64
 DEFAULT_MAX_BUCKET = 65536
 
@@ -56,3 +74,52 @@ class BucketLadder:
         while b < n:
             b *= self.growth
         return min(b, self.max_bucket)
+
+    def pad(self, points: np.ndarray) -> tuple[np.ndarray, int]:
+        """(padded (B, 2) f64 copy, original n). Pad rows repeat row 0
+        (inert: results past ``n`` are sliced off before scatter-back)."""
+        pts = np.asarray(points, dtype=np.float64)
+        n = int(pts.shape[0])
+        b = self.bucket_for(max(n, 1))
+        if n == b:
+            return pts, n
+        out = np.empty((b, 2), dtype=np.float64)
+        out[:n] = pts
+        out[n:] = pts[0] if n else 0.0
+        return out, n
+
+
+def mesh_key(mesh) -> None:
+    """Cache-key identity of a placement. Only single-device dispatch
+    (``None``) is ported; a mesh is ROADMAP queue 1 item 12."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh placement is not ported yet (ROADMAP queue 1, item 12: "
+            "the multi-device lanes)"
+        )
+    return None
+
+
+def dispatch_signature(
+    bucket: int, index, *, writeback: str, lookup: str,
+    found_cap: int | None, heavy_cap: int | None,
+    probe: str = "scatter", convex_cap: int | None = None,
+    mesh=None,
+) -> tuple:
+    """The deterministic key of one dispatch: every static argument of
+    the probe plus the padded shape, the index identity and the
+    placement. The core counts distinct signatures and treats one first
+    seen after :meth:`DispatchCore.freeze` as a cold compile."""
+    return (
+        int(bucket), id(index), writeback, lookup, found_cap, heavy_cap,
+        probe, convex_cap, mesh_key(mesh),
+    )
+
+
+def backend_compiles() -> int:
+    """Process-wide count of nvcc builds (monotonic; diff two reads to
+    scope a region). A process whose kernel libraries are already built
+    on disk reads no new build after its first launch."""
+    from ..kernels import _build
+
+    return _build.nvcc_builds()

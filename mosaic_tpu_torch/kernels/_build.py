@@ -75,6 +75,9 @@ RESTYPES = {"mosaic_pip_heavy_scratch": _LL}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: nvcc jobs this process started (`nvcc_builds`); a library already on
+#: disk under BUILD_DIR (same source, same flags) starts none
+_NVCC_JOBS = 0
 #: compiler output (ptxas register/shared-memory report) per library
 BUILD_LOGS: dict[str, str] = {}
 
@@ -99,9 +102,22 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
 
 
+def nvcc_builds() -> int:
+    """How many nvcc jobs this process has started: the port's only
+    compiler, so the dispatch core's ``backend_compiles`` reads this. A
+    process whose libraries are already on disk reads 0."""
+    return _NVCC_JOBS
+
+
+def loaded_libraries() -> list[str]:
+    """Names of the kernel libraries bound in this process."""
+    return sorted(_LIBS)
+
+
 def compile_libraries(names) -> None:
     """Build every library in ``names`` that is not built yet: one nvcc
     per source, all started together, then waited for."""
+    global _NVCC_JOBS
     jobs = []
     for name in names:
         out = library_path(name)
@@ -113,6 +129,7 @@ def compile_libraries(names) -> None:
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
+        _NVCC_JOBS += 1
         jobs.append((name, out, tmp, cmd, proc))
     failed = []
     for name, out, tmp, cmd, proc in jobs:

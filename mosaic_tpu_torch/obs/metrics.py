@@ -1,12 +1,17 @@
-"""Typed metrics registry, the gauge part.
+"""Typed metrics registry: counters and gauges with labels.
 
 Port of the part of ``mosaic_tpu/obs/metrics.py`` that the port's
-callers use: :class:`Gauge` (last-write-wins level per label set), the
-:class:`Registry` that holds named metrics, the process default
-:data:`REGISTRY` with :func:`gauge`, and :func:`snapshot`, one JSON-able
-dict of every metric. The stream's ``stream.hbm_peak_bytes{source}`` is
-its first user. Counters, histograms, the label-cardinality cap and the
-event bridge come with ROADMAP queue 1 item 13.
+callers use: :class:`Counter` (monotone count per label set; the
+dispatch core's ``dispatch.core_cache_evictions`` and the router's
+``serve.router_evictions{tenant}``), :class:`Gauge` (last-write-wins
+level per label set; ``stream.hbm_peak_bytes{source}``,
+``serve.queue_depth``, ``serve.router_resident``, ``obs.health{scope}``),
+the :class:`Registry` that holds named metrics (a name registered as one
+kind and requested as the other raises ``TypeError``), the process
+default :data:`REGISTRY` with :func:`counter` and :func:`gauge`, and
+:func:`snapshot`, one JSON-able dict of every metric. Histograms, the
+label-cardinality cap and the event bridge come with ROADMAP queue 1
+item 13.
 """
 
 from __future__ import annotations
@@ -18,10 +23,8 @@ def _label_key(labels: dict) -> tuple:
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
 
 
-class Gauge:
-    """Last-write-wins level per label set."""
-
-    kind = "gauge"
+class _Metric:
+    kind = ""
 
     def __init__(self, name: str, help: str = ""):
         self.name = name
@@ -29,12 +32,13 @@ class Gauge:
         self._lock = threading.Lock()
         self._series: dict = {}
 
-    def set(self, value: float, **labels) -> None:
+    def inc(self, n: float = 1, **labels) -> None:
         with self._lock:
-            self._series[_label_key(labels)] = float(value)
+            key = _label_key(labels)
+            self._series[key] = self._series.get(key, 0) + n
 
     def value(self, **labels) -> float:
-        return self._series.get(_label_key(labels), 0.0)
+        return self._series.get(_label_key(labels), 0)
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -45,19 +49,49 @@ class Gauge:
         return {"kind": self.kind, "help": self.help, "series": series}
 
 
+class Counter(_Metric):
+    """Monotonically increasing count per label set."""
+
+    kind = "counter"
+
+
+class Gauge(_Metric):
+    """Last-write-wins level per label set."""
+
+    kind = "gauge"
+
+    def set(self, value: float, **labels) -> None:
+        with self._lock:
+            self._series[_label_key(labels)] = float(value)
+
+    def value(self, **labels) -> float:
+        return float(super().value(**labels))
+
+
 class Registry:
-    """Get-or-create home for named metrics."""
+    """Get-or-create home for named metrics; kind conflicts raise."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._metrics: dict[str, Gauge] = {}
+        self._metrics: dict[str, _Metric] = {}
 
-    def gauge(self, name: str, help: str = "") -> Gauge:
+    def _get(self, cls, name: str, help: str):
         with self._lock:
             m = self._metrics.get(name)
             if m is None:
-                m = self._metrics[name] = Gauge(name, help)
+                m = self._metrics[name] = cls(name, help)
+            elif not isinstance(m, cls):
+                raise TypeError(
+                    f"metric {name!r} already registered as {m.kind}, "
+                    f"requested {cls.kind}"
+                )
             return m
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._get(Counter, name, help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get(Gauge, name, help)
 
     def snapshot(self) -> dict:
         """One JSON-able dict of every metric and series."""
@@ -68,6 +102,10 @@ class Registry:
 
 #: the process default registry the module-level helpers target
 REGISTRY = Registry()
+
+
+def counter(name: str, help: str = "") -> Counter:
+    return REGISTRY.counter(name, help)
 
 
 def gauge(name: str, help: str = "") -> Gauge:

@@ -4,7 +4,8 @@ watchdog and telemetry, checkpoints and quarantine (port of
 ``mosaic_tpu/runtime``).
 
 - :mod:`errors`     — the typed taxonomy (`CapacityOverflow`,
-  `TransientDeviceError`, `RetryExhausted`, `DegradedResult`) and
+  `TransientDeviceError`, `RetryExhausted`, `DegradedResult`,
+  `Overloaded`) and
   :func:`is_transient`, which never retries the port's device errors;
 - :mod:`escalate`   — the bounded geometric cap-growth loop;
 - :mod:`retry`      — bounded transient retry with backoff and an
@@ -26,6 +27,7 @@ from .errors import (
     KernelCompileError,
     KernelLaunchError,
     MosaicRuntimeError,
+    Overloaded,
     RetryExhausted,
     StalledDeviceError,
     TransientDeviceError,
@@ -43,6 +45,7 @@ __all__ = [
     "KernelCompileError",
     "KernelLaunchError",
     "MosaicRuntimeError",
+    "Overloaded",
     "RetryExhausted",
     "RetryPolicy",
     "StalledDeviceError",

@@ -1,7 +1,7 @@
 """Typed error taxonomy of the port's runtime resilience layer.
 
-Port of ``mosaic_tpu/runtime/errors.py`` (the classes the join and the
-durable stream raise).
+Port of ``mosaic_tpu/runtime/errors.py`` (the classes the join, the
+durable stream and the serving engine raise).
 Every failure a device join path can hit maps to one of three classes —
 capacity (the bounded-shape contract overflowed), transient (the same
 call may succeed if tried again), and degraded (the device path was
@@ -85,6 +85,37 @@ class RetryExhausted(MosaicRuntimeError):
         super().__init__(message)
         self.attempts = attempts
         self.last = last
+
+
+class Overloaded(MosaicRuntimeError):
+    """The serving engine refused (or abandoned) a request under load.
+
+    Raised by `serve/admission.py` and `serve/batcher.py` instead of
+    queueing without bound: the bounded request queue was full at
+    admission (``reason="queue_full"``), the request's deadline expired
+    before its results could be delivered (``reason="deadline"``), or the
+    engine shut down with the request still queued
+    (``reason="shutdown"``). Typed so callers can tell load shedding —
+    retry later, against another replica — from a wrong answer, which
+    this never is.
+    """
+
+    def __init__(
+        self,
+        message: str,
+        *,
+        reason: str = "",
+        queue_depth: int = 0,
+        capacity: int = 0,
+        deadline_s: float = 0.0,
+        elapsed_s: float = 0.0,
+    ):
+        super().__init__(message)
+        self.reason = reason
+        self.queue_depth = queue_depth
+        self.capacity = capacity
+        self.deadline_s = deadline_s
+        self.elapsed_s = elapsed_s
 
 
 class EpochFingerprintMismatch(MosaicRuntimeError):

@@ -1,0 +1,393 @@
+"""The request lifecycle: submit -> future -> padded, shape-bucketed
+device dispatch with the runtime's resilience wired in.
+
+Port of ``mosaic_tpu/serve/engine.py``. One :class:`ServeEngine` owns a
+resident :class:`~mosaic_tpu_torch.sql.join.ChipIndex` and turns
+concurrent point-in-polygon requests into micro-batched dispatches on the
+dispatch core (`mosaic_tpu_torch/dispatch`). The pipeline per batch:
+
+    admit (quarantine + backpressure, `serve/admission.py`)
+      -> coalesce (max-batch / max-wait window, `serve/batcher.py`)
+      -> pad to bucket + execute through `dispatch.DispatchCore` under
+         the ``serve.dispatch`` watchdog/fault site and transient retry
+      -> scatter back per request, shedding only deadline-expired ones
+
+- `runtime/faults.py` sites ``serve.admit`` / ``serve.batch`` /
+  ``serve.dispatch`` make every failure mode injectable from tests.
+- every stage emits ``serve_stage`` `telemetry.timed` events; per-request
+  latency lands in ``serve_request`` events (`telemetry.summarize` turns
+  them into p50/p99).
+
+Signature discipline is the core's: caps fixed at the full bucket, one
+signature per (bucket, index), :meth:`warmup` running every rung. After
+warmup the signature set is frozen — a dispatch introducing a new
+signature emits a ``serve_compile`` event and counts in
+``metrics()["cold_compiles"]``.
+
+What differs from the reference, and why:
+
+- the engine runs on its index's device (the card unless the index was
+  built with ``device="cpu"``); answers equal the port's
+  ``pip_join(recheck=False)`` bit for bit, cells in float32 unless
+  ``cell_dtype`` says otherwise;
+- past the retry budget only an engine on the CPU degrades to the f64
+  host oracle (`DegradedResult`); on the card the batch's futures raise
+  `RetryExhausted` and no work moves to the CPU;
+- ``knn=``/``knn_lane=`` raise ``NotImplementedError`` (ROADMAP queue 1
+  item 10); ``submit_knn`` raises the reference's ``RuntimeError`` for an
+  engine without KNN, which every engine of the port is; ``profile=``
+  raises (item 13), ``mesh=`` (item 12) and ``program_store=``
+  (`dispatch/programs.py`) too.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from ..dispatch import BucketLadder, DispatchCore, cells_prog
+from ..dispatch.bucket import mesh_key
+from ..dispatch.programs import resolve_program_store
+from ..obs import trace as _trace
+from ..runtime import quarantine as _quarantine, telemetry as _telemetry
+from ..tune.resolve import resolve_knobs
+from .admission import AdmissionController
+from .batcher import MicroBatcher
+
+_KNN_TODO = (
+    "is not ported yet (ROADMAP queue 1, item 10: KNN serving)"
+)
+
+
+def _refuse_knn(knn, knn_lane) -> None:
+    if knn is not None:
+        raise NotImplementedError(f"ServeEngine(knn=...) {_KNN_TODO}")
+    if knn_lane is not None:
+        raise NotImplementedError(f"ServeEngine(knn_lane=...) {_KNN_TODO}")
+
+
+class ServeEngine:
+    """Online serving engine over a resident chip index.
+
+    >>> engine = ServeEngine(index, h3, 9, bounds=bbox)
+    >>> engine.warmup()
+    >>> fut = engine.submit(points)          # (n, 2) -> Future
+    >>> rows = fut.result(timeout=1.0)       # (n,) int32, -1 = no match
+    """
+
+    def __init__(
+        self,
+        index,
+        index_system,
+        resolution: int,
+        *,
+        ladder: BucketLadder | None = None,
+        max_batch_rows: int | None = None,
+        max_wait_s: float = 0.002,
+        queue_capacity: int = 256,
+        default_deadline_s: float | None = 1.0,
+        bounds: tuple | None = None,
+        park_point: np.ndarray | None = None,
+        writeback: str | None = None,
+        lookup: str | None = None,
+        cell_dtype=None,
+        watchdog_grace_s: float = 0.5,
+        probe: str | None = None,
+        mesh=None,
+        profile=None,
+        program_store=None,
+        knn=None,
+        knn_lane: str | None = None,
+    ):
+        _refuse_knn(knn, knn_lane)
+        mesh_key(mesh)
+        resolve_program_store(program_store)
+        self.index = index
+        self.index_system = index_system
+        self.resolution = index_system.resolution_arg(resolution)
+        # explicit arg > env knob > built-in default, resolved once at
+        # the host entry point (a profile raises: item 13)
+        knobs = resolve_knobs(
+            "serve_engine", profile,
+            explicit={"probe": probe, "lookup": lookup},
+            defaults={"probe": "scatter", "lookup": None},
+        )
+        self.ladder = ladder or BucketLadder()
+        self.writeback = writeback or "scatter"
+        self.cell_dtype = cell_dtype
+        self.watchdog_grace_s = float(watchdog_grace_s)
+        # a hot_swap rebinds (ladder, core, index) as one unit; the lock
+        # only guards the rebind and the dispatch-side snapshot of the
+        # pair, never the dispatch itself
+        self._swap_lock = threading.Lock()
+        self.core = DispatchCore(
+            index, index_system, resolution, ladder=self.ladder,
+            writeback=self.writeback, lookup=knobs["lookup"],
+            probe=knobs["probe"], cell_dtype=cell_dtype,
+            on_cold_compile=self._on_cold_compile,
+        )
+        self.probe = self.core.probe
+        self.lookup = self.core.lookup
+        self.mesh = None
+        self.knn = None
+        self.admission = AdmissionController(
+            capacity=queue_capacity,
+            default_deadline_s=default_deadline_s,
+            bounds=bounds,
+            park_point=park_point,
+            find_park=self._derive_park,
+        )
+        self.batcher = MicroBatcher(
+            self.admission,
+            self._dispatch,
+            max_batch_rows=(
+                min(self.ladder.max_bucket, 16384)
+                if max_batch_rows is None
+                else int(max_batch_rows)
+            ),
+            max_wait_s=max_wait_s,
+        )
+        if self.batcher.max_batch_rows > self.ladder.max_bucket:
+            raise ValueError(
+                f"max_batch_rows {self.batcher.max_batch_rows} exceeds the "
+                f"top bucket {self.ladder.max_bucket}"
+            )
+        self._closed = False
+        self.batcher.start()
+
+    # ----------------------------------------------------------- public
+
+    def submit(self, points, *, deadline_s: float | None = None):
+        """Enqueue one request; returns its ``concurrent.futures.Future``
+        resolving to the (n,) int32 matches (:class:`Overloaded` when
+        shed). Raises :class:`Overloaded` at admission when the queue is
+        full."""
+        if self._closed:
+            raise RuntimeError("engine is closed")
+        pts = np.asarray(points, dtype=np.float64)
+        if pts.ndim != 2 or pts.shape[1] != 2:
+            raise ValueError(f"expected (n, 2) points, got {pts.shape}")
+        if pts.shape[0] > self.ladder.max_bucket:
+            raise ValueError(
+                f"request of {pts.shape[0]} rows exceeds the top bucket "
+                f"{self.ladder.max_bucket} — split it upstream"
+            )
+        return self.admission.admit(pts, deadline_s=deadline_s).future
+
+    def join(self, points, *, deadline_s: float | None = None, timeout=None):
+        """Synchronous convenience wrapper: submit and wait."""
+        return self.submit(points, deadline_s=deadline_s).result(timeout)
+
+    def submit_knn(self, points, k: int, *, deadline_s: float | None = None):
+        """KNN requests ride the same queue in the reference; the port's
+        engines carry no KNN frontend (ROADMAP queue 1 item 10)."""
+        if self._closed:
+            raise RuntimeError("engine is closed")
+        raise RuntimeError(
+            "engine has no KNN frontend — pass knn= at construction "
+            "or hot_swap(knn=...) (KNN serving is ROADMAP queue 1 item 10)"
+        )
+
+    def join_knn(
+        self, points, k: int, *, deadline_s: float | None = None, timeout=None
+    ):
+        """Synchronous convenience wrapper: submit_knn and wait."""
+        return self.submit_knn(points, k, deadline_s=deadline_s).result(
+            timeout
+        )
+
+    def warmup(self) -> dict:
+        """Run every ladder bucket once against the resident index.
+
+        Binds the kernel library the probe launches and runs the exact
+        dispatch path (cell assignment + probe) on an inert full-bucket
+        batch per rung, so the first real request at any admitted shape
+        finds the library bound and the allocator primed. Returns
+        ``{"buckets", "seconds", "signatures", "backend_compiles"}``
+        (nvcc builds started) and ``"rung_seconds"``; after this, any
+        dispatch that still introduces a new signature is counted in
+        ``metrics()["cold_compiles"]`` (and emits ``serve_compile``)."""
+        from ..dispatch import backend_compiles
+
+        t0 = backend_compiles()
+        with _telemetry.capture() as events, _trace.span(
+            "serve.warmup", buckets=len(self.ladder.buckets)
+        ):
+            self.core.load_kernels()
+            for b in self.ladder.buckets:
+                pts = np.zeros((b, 2), dtype=np.float64)
+                with _telemetry.timed(
+                    "serve_stage", stage="warmup", bucket=b
+                ):
+                    self.core.execute_padded(pts)
+        rungs = {
+            e["bucket"]: e["seconds"]
+            for e in events
+            if e.get("stage") == "warmup" and "seconds" in e
+        }
+        self.core.freeze()
+        out = {
+            "buckets": len(self.ladder.buckets),
+            "seconds": round(sum(rungs.values()), 4),
+            "signatures": len(self.core.signatures),
+            "backend_compiles": backend_compiles() - t0,
+            "rung_seconds": rungs,
+        }
+        _telemetry.record("serve_warmup", **out)
+        return out
+
+    def hot_swap(
+        self,
+        index=None,
+        *,
+        profile=None,
+        resolution: int | None = None,
+        probe: str | None = None,
+        writeback: str | None = None,
+        lookup: str | None = None,
+        ladder: BucketLadder | None = None,
+        knn=None,
+        knn_lane: str | None = None,
+    ) -> dict:
+        """Swap in a new index without dropping the engine: a NEW dispatch
+        core is built off to the side, its ladder rungs run and its
+        signature set frozen (`DispatchCore.warmup`), and only then is
+        ``(ladder, core, index)`` rebound as one unit — requests in
+        flight finish on the old core, requests after the swap run on the
+        warmed new one. Any post-swap dispatch that still introduces a
+        signature counts in ``metrics()["cold_compiles"]``. Unset knobs
+        keep the engine's current settings. Returns the new core's warmup
+        stats."""
+        _refuse_knn(knn, knn_lane)
+        index = self.index if index is None else index
+        knobs = resolve_knobs(
+            "serve_engine.hot_swap", profile,
+            explicit={"probe": probe, "lookup": lookup},
+            defaults={"probe": self.core.probe, "lookup": self.core.lookup},
+        )
+        new_resolution = self.index_system.resolution_arg(
+            self.resolution if resolution is None else resolution
+        )
+        ladder = ladder or self.ladder
+        new_writeback = writeback or self.writeback
+        with _trace.span(
+            "serve.hot_swap", buckets=len(ladder.buckets), profiled=False,
+        ), _telemetry.timed("serve_stage", stage="hot_swap"):
+            core = DispatchCore(
+                index, self.index_system, new_resolution, ladder=ladder,
+                writeback=new_writeback, lookup=knobs["lookup"],
+                probe=knobs["probe"], cell_dtype=self.cell_dtype,
+                on_cold_compile=self._on_cold_compile,
+            )
+            stats = core.warmup()  # runs every rung, then freezes
+            with self._swap_lock:
+                self.index = index
+                self.resolution = new_resolution
+                self.ladder = ladder
+                self.core = core
+                self.writeback = new_writeback
+                self.probe = core.probe
+                self.lookup = core.lookup
+                # keep the coalescing window inside the new ladder's span
+                self.batcher.max_batch_rows = min(
+                    self.batcher.max_batch_rows, ladder.max_bucket
+                )
+        _telemetry.record("serve_swap", **stats)
+        return stats
+
+    def metrics(self) -> dict:
+        a, b = self.admission.metrics, self.batcher.metrics
+        out = dict(a)
+        out.update(b)
+        out["shed"] = a["shed_queue_full"] + b["shed_deadline"]
+        out["quarantined"] = a["quarantined_rows"]
+        out["queue_depth"] = self.admission.depth()
+        out["compile_signatures"] = len(self.core.signatures)
+        out["cold_compiles"] = self.core.cold_compiles
+        out["occupancy_mean"] = round(
+            b["occupancy_sum"] / b["batches"], 4
+        ) if b["batches"] else 0.0
+        return out
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Stop the batcher; queued requests are shed
+        (``reason="shutdown"``)."""
+        if not self._closed:
+            self._closed = True
+            self.batcher.stop(timeout)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # --------------------------------------------------------- dispatch
+
+    def _dispatch(self, points: np.ndarray, deadline_hint=None, reqs=None):
+        """Batcher callback: pad, dispatch with resilience, unpad.
+        Returns ``(results, occupancy)``."""
+        # snapshot the swap unit so a concurrent hot_swap can never pad
+        # with one ladder and execute on the other core
+        with self._swap_lock:
+            ladder, core = self.ladder, self.core
+        padded, n = ladder.pad(points)
+        bucket = padded.shape[0]
+        with _trace.span(
+            "serve.dispatch", bucket=bucket, rows=n,
+        ), _telemetry.timed(
+            "serve_stage", stage="dispatch", bucket=bucket, rows=n,
+        ):
+            out = self._dispatch_resilient(core, padded, deadline_hint)
+        return out[:n], n / bucket
+
+    def _on_cold_compile(self, bucket: int, signatures: int) -> None:
+        """Core callback: a post-warmup dispatch introduced a new
+        signature — the bounded-signature contract's tripwire."""
+        _telemetry.record(
+            "serve_compile", bucket=bucket, signatures=signatures,
+        )
+
+    def _dispatch_resilient(self, core, padded, deadline_hint) -> np.ndarray:
+        """The core's guarded execute under the batch's deadline: the
+        ``serve.dispatch`` watchdog site and transient retry (the f64 host
+        oracle past the budget on the CPU only)."""
+        default_s = (
+            None
+            if deadline_hint is None
+            else max(float(deadline_hint), 0.05) + self.watchdog_grace_s
+        )
+        return core.execute_resilient(
+            "serve.dispatch", padded, default_s=default_s
+        )
+
+    # ------------------------------------------------------- quarantine
+
+    def _derive_park(self, raw: np.ndarray) -> np.ndarray:
+        """Index-aware park point for poisoned rows: walk outward from
+        the request's own finite bounding box (or the declared bounds)
+        until a cell NOT in the resident index answers, the cells computed
+        on the engine's device (`runtime/quarantine.find_park_point`)."""
+        finite = raw[np.isfinite(raw).all(axis=1)]
+        if finite.size:
+            bounds = (
+                float(finite[:, 0].min()), float(finite[:, 1].min()),
+                float(finite[:, 0].max()), float(finite[:, 1].max()),
+            )
+        else:
+            bounds = (0.0, 0.0, 1.0, 1.0)
+        if self.admission.bounds is not None:
+            bounds = self.admission.bounds
+        core = self.core
+
+        def assign(pts):
+            dev = torch.from_numpy(np.asarray(pts, dtype=np.float64))
+            dev = dev.to(core.device).to(core._cdt)
+            cells = cells_prog(self.index_system, self.resolution, "cells")
+            return cells(dev).cpu().numpy()
+
+        return _quarantine.find_park_point(
+            assign, self.index.cells.cpu().numpy(), bounds
+        )

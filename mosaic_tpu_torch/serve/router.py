@@ -1,0 +1,377 @@
+"""Multi-tenant serve router: N resident engines, hard isolation.
+
+Port of ``mosaic_tpu/serve/router.py``. One :class:`ServeEngine` owns one
+index and ONE admission queue, so one overloaded caller fills the queue
+for everyone behind it. The router gives each tenant its OWN engine (own
+bounded queue, own micro-batcher thread, own deadline budget, own
+``DispatchCore``), so tenant A's overload cannot occupy a single slot of
+tenant B's admission quota — isolation by construction. Shed accounting
+is per tenant (``router_shed`` events carry the tenant).
+
+Residency is bounded: at most ``max_resident`` engines (explicit arg >
+``MOSAIC_SERVE_TENANTS`` env knob > 4) hold warmed cores at once.
+Registering or reviving a tenant past the bound evicts one resident
+tenant's engine under the ``router.evict`` fault/watchdog site —
+health-aware: unhealthy tenants (`obs/health.py`) lose residency first,
+then never-warmed engines, then the least recently used; the evicted
+tenant stays registered and is revived on its next submit. A revival
+builds nothing: the kernel library is built once per machine and bound
+once per process, so its warmup makes zero nvcc builds, and after it
+zero cold compiles.
+
+Fault sites: ``router.admit`` (submit path), ``router.evict``,
+``router.swap`` — on the runtime's faults/watchdog machinery
+(`dispatch.guarded_call` for the two slow ops, `faults.maybe_fail` at
+admission).
+
+What differs from the reference: there is no program store
+(`dispatch/programs.py`: ``program_store=`` raises), no tuning profile
+(``add_tenant(profile=/profile_root=)`` raises, ROADMAP queue 1 item
+13), no epochal index (``advance_epoch`` raises, item 11) and no KNN
+(``submit_knn`` raises, item 10).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+
+from ..dispatch import guarded_call
+from ..dispatch.programs import resolve_program_store
+from ..obs import health as _health
+from ..obs import metrics as _metrics
+from ..obs import trace as _trace
+from ..runtime import faults as _faults
+from ..runtime import telemetry as _telemetry
+from ..runtime.errors import Overloaded
+from .engine import ServeEngine
+
+#: resident-engine bound when neither the argument nor the env knob
+#: says otherwise; a real fleet sets MOSAIC_SERVE_TENANTS to its memory
+#: budget
+DEFAULT_MAX_RESIDENT = 4
+
+_PROFILE_TODO = "is not ported yet (ROADMAP queue 1, item 13: tuning profiles)"
+
+# the router's eviction order reads the process health monitor
+_health.install()
+
+
+def resolve_max_resident(max_resident) -> int:
+    """Host-side residency-bound resolution: explicit argument >
+    ``MOSAIC_SERVE_TENANTS`` env knob > built-in default."""
+    if max_resident is not None:
+        n = int(max_resident)
+    else:
+        raw = os.environ.get("MOSAIC_SERVE_TENANTS", "").strip()
+        n = int(raw) if raw else DEFAULT_MAX_RESIDENT
+    if n < 1:
+        raise ValueError(f"max_resident must be >= 1, got {n}")
+    return n
+
+
+class _Tenant:
+    """One registered tenant: the config needed to (re)build its
+    engine, the live engine when resident, and the router-side
+    accounting that survives eviction."""
+
+    __slots__ = (
+        "name", "index", "resolution", "engine_kw",
+        "engine", "last_used", "submitted", "shed_admit", "revivals",
+        "last_metrics",
+    )
+
+    def __init__(self, name, index, resolution, engine_kw):
+        self.name = name
+        self.index = index
+        self.resolution = resolution
+        self.engine_kw = engine_kw
+        self.engine: "ServeEngine | None" = None
+        self.last_used = 0.0
+        self.submitted = 0
+        self.shed_admit = 0
+        self.revivals = 0
+        self.last_metrics: dict = {}
+
+
+class ServeRouter:
+    """Tenant-keyed front door over per-tenant :class:`ServeEngine`\\ s.
+
+    >>> router = ServeRouter(h3, max_resident=2)
+    >>> router.add_tenant("acme", acme_index, 9)
+    >>> fut = router.submit("acme", points)
+    """
+
+    def __init__(
+        self,
+        index_system,
+        *,
+        max_resident: int | None = None,
+        program_store=None,
+        default_deadline_s: float | None = 1.0,
+        queue_capacity: int = 256,
+        engine_defaults: dict | None = None,
+        health_monitor=None,
+    ):
+        resolve_program_store(program_store)
+        self.index_system = index_system
+        self.max_resident = resolve_max_resident(max_resident)
+        self.program_store = None
+        self.default_deadline_s = default_deadline_s
+        self.queue_capacity = queue_capacity
+        self.engine_defaults = dict(engine_defaults or {})
+        #: the health state machine consulted by the eviction order —
+        #: the process monitor unless a test injects its own
+        self.health_monitor = (
+            _health.MONITOR if health_monitor is None else health_monitor
+        )
+        self._tenants: dict[str, _Tenant] = {}
+        self._lock = threading.Lock()
+        self._closed = False
+        self._evictions = 0
+
+    # ---------------------------------------------------------- tenants
+
+    def add_tenant(
+        self,
+        tenant: str,
+        index,
+        resolution: int,
+        *,
+        profile=None,
+        profile_root: str | None = None,
+        deadline_s: float | None = None,
+        queue_capacity: int | None = None,
+        warm: bool = True,
+        **engine_kw,
+    ) -> dict:
+        """Register ``tenant`` and (by default) bring its engine
+        resident and warmed. ``deadline_s`` / ``queue_capacity`` are
+        the tenant's deadline budget and admission quota; unset values
+        inherit the router defaults."""
+        if profile is not None:
+            raise NotImplementedError(f"add_tenant(profile=...) {_PROFILE_TODO}")
+        if profile_root is not None:
+            raise NotImplementedError(
+                f"add_tenant(profile_root=...) {_PROFILE_TODO}"
+            )
+        if tenant in self._tenants:
+            raise ValueError(f"tenant {tenant!r} already registered")
+        kw = dict(self.engine_defaults)
+        kw.update(engine_kw)
+        kw.setdefault("queue_capacity", queue_capacity or self.queue_capacity)
+        kw.setdefault(
+            "default_deadline_s",
+            self.default_deadline_s if deadline_s is None else deadline_s,
+        )
+        t = _Tenant(tenant, index, resolution, kw)
+        with self._lock:
+            self._tenants[tenant] = t
+            stats = self._revive(t) if warm else {}
+        _telemetry.record(
+            "router_tenant_added", tenant=tenant, warm=warm, profiled=False,
+        )
+        return stats
+
+    def _revive(self, t: _Tenant) -> dict:
+        """Build + warm ``t``'s engine (caller holds the lock), evicting
+        tenants as needed to respect the residency bound."""
+        while self._resident_count() >= self.max_resident:
+            victim = self._eviction_victim(exclude=t.name)
+            if victim is None:
+                break
+            self._evict(victim)
+        with _trace.span("router.revive", tenant=t.name), _telemetry.timed(
+            "router_stage", stage="revive", tenant=t.name
+        ):
+            t.engine = ServeEngine(
+                t.index, self.index_system, t.resolution, **t.engine_kw,
+            )
+            stats = t.engine.warmup()
+        t.revivals += 1
+        t.last_used = time.monotonic()
+        _metrics.gauge(
+            "serve.router_resident", "resident tenant engines",
+        ).set(self._resident_count())
+        return stats
+
+    def _resident_count(self) -> int:
+        return sum(1 for t in self._tenants.values() if t.engine is not None)
+
+    def _eviction_victim(self, exclude: str) -> "_Tenant | None":
+        """Health-aware occupancy-aware LRU: among resident tenants,
+        sickest first, then never-warmed engines, then oldest
+        ``last_used``."""
+        resident = [
+            t for t in self._tenants.values()
+            if t.engine is not None and t.name != exclude
+        ]
+        if not resident:
+            return None
+        rank = _health.RANK
+        state = self.health_monitor.tenant_state
+        return min(
+            resident,
+            key=lambda t: (
+                -rank[state(t.name)], t.engine.core.warmed, t.last_used,
+            ),
+        )
+
+    def _evict(self, t: _Tenant) -> None:
+        """Close one tenant's engine under the ``router.evict``
+        fault/watchdog site (queued requests shed with
+        ``reason="shutdown"``); the tenant stays registered."""
+        engine = t.engine
+        with _trace.span("router.evict", tenant=t.name), _telemetry.timed(
+            "router_stage", stage="evict", tenant=t.name
+        ):
+            # guarded_call's watchdog evaluates the router.evict fault
+            # plan on this thread before dispatching
+            guarded_call("router.evict", engine.close, retry=False)
+        t.last_metrics = engine.metrics()
+        t.engine = None
+        self._evictions += 1
+        _telemetry.record("router_evicted", tenant=t.name)
+        _metrics.counter(
+            "serve.router_evictions", "tenant engines evicted (LRU)",
+        ).inc(tenant=t.name)
+        _metrics.gauge(
+            "serve.router_resident", "resident tenant engines",
+        ).set(self._resident_count())
+
+    def evict(self, tenant: str) -> None:
+        """Explicitly release one tenant's engine (it revives on next
+        submit)."""
+        with self._lock:
+            t = self._require(tenant)
+            if t.engine is not None:
+                self._evict(t)
+
+    # ----------------------------------------------------------- serve
+
+    def submit(self, tenant: str, points, *, deadline_s: float | None = None):
+        """Admit one request for ``tenant``; returns its Future.
+
+        Raises the engine's typed :class:`Overloaded` when the TENANT'S
+        OWN quota is exhausted. A cold (evicted) tenant is revived first;
+        ``router.admit`` is the injectable fault site."""
+        if self._closed:
+            raise RuntimeError("router is closed")
+        with _telemetry.timed("router_stage", stage="admit", tenant=tenant):
+            _faults.maybe_fail("router.admit")
+            with self._lock:
+                t = self._require(tenant)
+                if t.engine is None:
+                    self._revive(t)
+                t.last_used = time.monotonic()
+                t.submitted += 1
+                engine = t.engine
+        try:
+            return engine.submit(points, deadline_s=deadline_s)
+        except Overloaded as e:
+            t.shed_admit += 1
+            _telemetry.record("router_shed", tenant=tenant, reason=e.reason)
+            raise
+
+    def join(self, tenant, points, *, deadline_s=None, timeout=None):
+        """Synchronous convenience wrapper: submit and wait."""
+        return self.submit(
+            tenant, points, deadline_s=deadline_s
+        ).result(timeout)
+
+    def submit_knn(self, tenant: str, points, k: int, *, deadline_s=None):
+        """KNN requests per tenant are ROADMAP queue 1 item 10."""
+        raise NotImplementedError(
+            "ServeRouter.submit_knn is not ported yet (ROADMAP queue 1, "
+            "item 10: KNN serving)"
+        )
+
+    def swap(self, tenant: str, index=None, **hot_swap_kw) -> dict:
+        """Hot-swap one tenant's index under the ``router.swap``
+        fault/watchdog site — the engine's swap discipline (build aside,
+        warm, rebind atomically) applies unchanged, so in-flight requests
+        answer from the old snapshot bit for bit."""
+        with self._lock:
+            t = self._require(tenant)
+            if t.engine is None:
+                self._revive(t)
+            engine = t.engine
+        with _trace.span("router.swap", tenant=tenant), _telemetry.timed(
+            "router_stage", stage="swap", tenant=tenant
+        ):
+            stats = guarded_call(
+                "router.swap", engine.hot_swap, index,
+                retry=False, **hot_swap_kw,
+            )
+        if index is not None:
+            with self._lock:
+                t.index = index
+        _telemetry.record("router_swapped", tenant=tenant, **stats)
+        return stats
+
+    def advance_epoch(self, tenant: str, epochal, **kw) -> dict:
+        """Epochal indexes are ROADMAP queue 1 item 11."""
+        raise NotImplementedError(
+            "ServeRouter.advance_epoch is not ported yet (ROADMAP queue 1, "
+            "item 11: epochal indexes)"
+        )
+
+    # ------------------------------------------------------- accounting
+
+    def _require(self, tenant: str) -> _Tenant:
+        t = self._tenants.get(tenant)
+        if t is None:
+            raise KeyError(
+                f"unknown tenant {tenant!r} — register it with add_tenant"
+            )
+        return t
+
+    def tenants(self) -> list[str]:
+        return sorted(self._tenants)
+
+    def metrics(self) -> dict:
+        """Per-tenant engine metrics (live, or last-known for evicted
+        tenants) plus the router-level residency story."""
+        with self._lock:
+            per = {}
+            for name, t in self._tenants.items():
+                m = (
+                    t.engine.metrics()
+                    if t.engine is not None
+                    else dict(t.last_metrics)
+                )
+                m.update(
+                    resident=t.engine is not None,
+                    submitted_router=t.submitted,
+                    shed_admit_router=t.shed_admit,
+                    revivals=t.revivals,
+                    health=self.health_monitor.tenant_state(name),
+                )
+                per[name] = m
+            return {
+                "tenants": per,
+                "registered": len(self._tenants),
+                "resident": self._resident_count(),
+                "max_resident": self.max_resident,
+                "evictions": self._evictions,
+            }
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Close every resident engine (queued requests shed with
+        ``reason="shutdown"``)."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            for t in self._tenants.values():
+                if t.engine is not None:
+                    t.last_metrics = t.engine.metrics()
+                    t.engine.close(timeout)
+                    t.engine = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

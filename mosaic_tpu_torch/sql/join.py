@@ -38,7 +38,10 @@ What differs from the reference, and why:
   ``guarded_call("pip_join.device", ...)``, so every wait on the card
   has a watchdog. Degradation to the host oracle follows only a
   transient error that exhausted its retries; the port's own device
-  errors are never transient (`runtime/errors.py`).
+  errors are never transient (`runtime/errors.py`);
+- cell assignment goes through ``dispatch.cells_prog``, the registered
+  cache of cell callables (:func:`join_cache_stats` /
+  :func:`clear_join_caches` read and clear it); there is no jit cache.
 """
 
 from __future__ import annotations
@@ -1252,9 +1255,12 @@ def pip_join(
         """Cells (and margins) of a chunk and its three probe counts."""
         pts = torch.from_numpy(np.ascontiguousarray(chunk)).to(dev).to(cdt)
         if recheck:
-            cells, margins = index_system.point_to_cell_margin(pts, resolution)
+            cells, margins = _dispatch.cells_prog(
+                index_system, resolution, "margin"
+            )(pts)
         else:
-            cells, margins = index_system.point_to_cell(pts, resolution), None
+            cells = _dispatch.cells_prog(index_system, resolution, "cells")(pts)
+            margins = None
         counts = (
             _probe_counts(cells, chip_index).tolist() if need_counts else None
         )
@@ -1451,7 +1457,7 @@ def _narrow_rejoin(
         return None
     cap = min(_next_pow2(n_flag), pts.shape[0])
     src, _, _, _ = _compact(flagged, cap)
-    alt = index_system.point_to_cell_alt(pts[src], resolution)
+    alt = _dispatch.cells_prog(index_system, resolution, "alt")(pts[src])
     src_np = src[:n_flag].cpu().numpy()
     if alt is None:
         return n_flag, cap, src_np, None
@@ -1467,6 +1473,31 @@ def _narrow_rejoin(
     vertex = (margins[src[:n_flag], 1] < km).cpu().numpy()
     alt_np = alt[:n_flag].cpu().numpy()
     return n_flag, cap, src_np, ([fcap2, hcap2], r_alt, vertex, alt_np)
+
+
+def join_cache_stats(emit: bool = True) -> dict:
+    """The join's view of the dispatch cache registry
+    (`dispatch.cache_stats` is the full surface): ``{"cells_prog":
+    {hits, misses, maxsize, currsize}, "kernels": {libraries,
+    backend_compiles}}``. The `cells_prog` entry count is the number of
+    live (index system, resolution, variant) keys, each holding its
+    index system. Emits one ``join_cache_stats`` event (``emit=False``
+    reads silently)."""
+    stats = _dispatch.join_cache_view()
+    if emit:
+        _telemetry.record("join_cache_stats", **stats)
+    return stats
+
+
+def clear_join_caches() -> dict:
+    """Release the join's cell-assignment cache (it regrows on next
+    use); returns the pre-clear :func:`join_cache_stats`.
+    `dispatch.clear_caches` drops every registered cache. Emits
+    ``join_caches_cleared``."""
+    stats = join_cache_stats(emit=False)
+    _dispatch.clear_caches(names=("cells_prog",), emit=False)
+    _telemetry.record("join_caches_cleared", **stats)
+    return stats
 
 
 def has_cell_margins(index_system: IndexSystem) -> bool:

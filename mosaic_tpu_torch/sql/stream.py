@@ -55,11 +55,11 @@ out-of-bounds) into a quarantine buffer (`runtime/quarantine.py`).
 What differs from the reference, and why:
 
 - there is no compile: :class:`StreamPrograms` is a plain bundle of
-  functions, built per `StreamJoin` (the process-wide
-  ``dispatch.stream_programs`` cache and ``cache_stats`` come with
-  ROADMAP queue 1 item 6); the durable loop loads the kernel library
-  under a ``dispatch.compile`` span before its first segment, so a first
-  build is never booked to a segment;
+  functions, which `StreamJoin` takes from ``dispatch.stream_programs``,
+  the registered process-wide cache (two joins of one spec share one
+  bundle; ``dispatch.cache_stats`` counts its hits); the durable loop
+  loads the kernel library under a ``dispatch.compile`` span before its
+  first segment, so a first build is never booked to a segment;
 - ``donate_ring`` is accepted and changes nothing: the port never frees
   the caller's tensor (``metrics["ring_donated"]`` is False);
 - ``mesh=`` and ``profile=`` raise ``NotImplementedError`` (items 12 and
@@ -266,9 +266,10 @@ class StreamResult:
 @dataclasses.dataclass(frozen=True)
 class StreamPrograms:
     """The function bundle behind one StreamJoin spec. Every callable
-    takes the ChipIndex as an argument. Built per `StreamJoin`: there is
-    no compile to share (the reference's process-wide cache is ROADMAP
-    queue 1 item 6)."""
+    takes the ChipIndex as an argument, so one bundle serves every index:
+    `StreamJoin` takes it from ``dispatch.stream_programs``, the
+    process-wide cache keyed by the spec. There is no compile behind it;
+    sharing saves the closures and keeps one cache surface."""
 
     assign: object  #: (pts) -> int64 cells
     join: object  #: (pts, cells, index) -> rows
@@ -425,7 +426,7 @@ class StreamJoin:
         # the force-lane knob resolves here, at the host entry point
         self.probe = resolve_probe_mode(probe)
         self.convex_cap = convex_cap
-        progs = build_stream_programs(
+        progs = _dispatch.stream_programs(
             index_system, resolution, dtype=index.border.verts.dtype,
             cell_dtype=cell_dtype, found_cap=found_cap, heavy_cap=heavy_cap,
             lookup=self.lookup, compaction=self.compaction, probe=self.probe,

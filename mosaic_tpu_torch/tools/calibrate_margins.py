@@ -34,6 +34,8 @@ import sys
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 EPS32 = float(np.finfo(np.float32).eps)
 
 
@@ -46,10 +48,12 @@ def global_points(n: int, seed: int) -> np.ndarray:
 
 
 def measure_cell_drift(
-    index_system, points: np.ndarray, res: int, device="cpu"
+    index_system, points: np.ndarray, res: int, device=None
 ) -> dict:
     """Max margin (units of eps32) among f32-vs-f64 cell disagreements,
-    the f32 cells and margins computed on ``device``."""
+    the f32 cells and margins computed on ``device`` (the card unless the
+    caller names another, `mosaic_tpu_torch.resolve_device`)."""
+    device = resolve_device(device)
     c64 = np.asarray(index_system.point_to_cell(points, res))  # host f64
     f32 = torch.from_numpy(points).to(device).to(torch.float32)
     c32, m = index_system.point_to_cell_margin(f32, res)
@@ -104,12 +108,14 @@ def near_edge_points(host, n: int, seed: int, spread_k: float = 64.0
 
 def measure_edge_drift(
     zones, index_system, res: int, points: np.ndarray, seed: int = 0,
-    device="cpu",
+    device=None,
 ) -> dict:
     """Max edge distance (units of eps32 * coord_scale) among f32-vs-f64
     parity disagreements, with the cell assignment pinned to f64, the f32
-    probe running on ``device``. ``points`` is augmented with an
-    equal-sized near-edge probe set."""
+    probe running on ``device`` (the card unless the caller names
+    another). ``points`` is augmented with an equal-sized near-edge probe
+    set."""
+    device = resolve_device(device)
     from ..core.tessellate import tessellate
     from ..sql.join import (
         build_chip_index,
@@ -164,12 +170,14 @@ def measure_edge_drift(
 
 
 def run_sweep(
-    n: int, seeds=(3, 11), device="cpu", resolutions=(5, 7, 9, 11),
+    n: int, seeds=(3, 11), device=None, resolutions=(5, 7, 9, 11),
     log=None,
 ) -> dict:
     """The reference's sweep on the port: H3 cell drift at each of
     ``resolutions`` and ``seeds``, a BNG lane, and the edge drift over
-    ``synthetic_zones(12, 12)`` at res 9 for each seed, on ``device``."""
+    ``synthetic_zones(12, 12)`` at res 9 for each seed, on ``device``
+    (the card unless the caller names another)."""
+    device = resolve_device(device)
     from ..core.index import BNG, H3IndexSystem
     from ..datasets import synthetic_zones
     from ..sql.join import CELL_MARGIN_K, EDGE_BAND_K

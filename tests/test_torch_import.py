@@ -44,6 +44,16 @@ MODULES = [
     "mosaic_tpu_torch.obs.metrics",
     "mosaic_tpu_torch.tune.resolve",
     "mosaic_tpu_torch.core.geometry.oracle",
+    "mosaic_tpu_torch.dispatch",
+    "mosaic_tpu_torch.dispatch.programs",
+    "mosaic_tpu_torch.obs.slo",
+    "mosaic_tpu_torch.obs.health",
+    "mosaic_tpu_torch.serve",
+    "mosaic_tpu_torch.serve.admission",
+    "mosaic_tpu_torch.serve.batcher",
+    "mosaic_tpu_torch.serve.bucket",
+    "mosaic_tpu_torch.serve.engine",
+    "mosaic_tpu_torch.serve.router",
 ]
 
 
@@ -68,6 +78,20 @@ def test_stream_modules_leave_jax_and_reference_out():
     code = (
         "import mosaic_tpu_torch.sql.stream, mosaic_tpu_torch.sql.raster_stream, "
         "mosaic_tpu_torch.dispatch.pipeline, sys; "
+        "assert 'jax' not in sys.modules and 'mosaic_tpu' not in sys.modules"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=str(ROOT), timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_serve_modules_leave_jax_and_reference_out():
+    """The serving slice's entry modules, imported alone."""
+    code = (
+        "import mosaic_tpu_torch.serve, mosaic_tpu_torch.dispatch, sys; "
         "assert 'jax' not in sys.modules and 'mosaic_tpu' not in sys.modules"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -148,3 +172,13 @@ def test_entry_points_raise_without_cuda(no_cuda):
         hbm_peak()
     ring = ring_from_host([pts], device="cpu")
     assert StreamJoin(ix, H3IndexSystem(), 9).run(ring, 1).n_points == 1
+    from mosaic_tpu_torch.tools.calibrate_margins import measure_cell_drift
+
+    with pytest.raises(DeviceUnavailable):
+        measure_cell_drift(H3IndexSystem(), pts, 9)
+    assert measure_cell_drift(H3IndexSystem(), pts, 9, device="cpu")["resolution"] == 9
+    from mosaic_tpu_torch.serve import ServeEngine
+
+    with ServeEngine(ix, H3IndexSystem(), 9) as eng:  # the index's device
+        assert eng.core.device.type == "cpu"
+        assert eng.join(pts, deadline_s=30.0).shape == (1,)

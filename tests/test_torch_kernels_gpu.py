@@ -616,3 +616,144 @@ def test_raster_scan_on_card_raises_when_retries_exhausted(cuda):
                         retry_policy=RetryPolicy(max_attempts=3, base_delay_s=0.0,
                                                  jitter=0.0))
     assert "degraded" not in [e["event"] for e in ev]
+
+
+# ---- serving on the card
+
+
+def _serve_index(cuda):
+    """(H3, index) of 4x4 star zones of 256 vertices at resolution 9 on
+    the card: heavy cells, so the adaptive probe launches
+    `pip_heavy_tiled`."""
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+    from mosaic_tpu_torch.core.tessellate import tessellate
+    from mosaic_tpu_torch.sql import join as TJ
+
+    h3 = H3IndexSystem()
+    zones = synthetic_zones(4, 4, bbox=BBOX, verts=256)
+    ix = TJ.build_chip_index(tessellate(zones, h3, 9, keep_core_geoms=False), device=cuda)
+    assert ix.num_heavy_cells > 0
+    return h3, ix
+
+
+def _requests(seed, sizes):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(BBOX[:2], BBOX[2:], (int(n), 2)) for n in sizes]
+
+
+def _pip_join_split(reqs, h3, ix):
+    """The port's `pip_join(probe="scatter", recheck=False)` of the
+    concatenated requests, split per request (the join is pointwise)."""
+    from mosaic_tpu_torch.sql import join as TJ
+
+    cat = np.concatenate(reqs)
+    want = TJ.pip_join(cat, None, h3, 9, chip_index=ix, probe="scatter", recheck=False)
+    return np.split(want, np.cumsum([len(r) for r in reqs])[:-1])
+
+
+@pytest.mark.parametrize("probe", ["adaptive", "scatter"])
+def test_served_batches_on_card_equal_pip_join(cuda, probe):
+    """Co-batched requests on the card equal `pip_join` bit for bit under
+    both probes; the adaptive engine launches `pip_heavy_tiled`; a warm
+    engine makes no nvcc build and no cold compile over its lifetime."""
+    from mosaic_tpu_torch.dispatch import backend_compiles
+    from mosaic_tpu_torch.serve import BucketLadder, ServeEngine
+
+    h3, ix = _serve_index(cuda)
+    reqs = _requests(31, np.random.default_rng(30).integers(1, 1024, 60))
+    want = _pip_join_split(reqs, h3, ix)
+    with ServeEngine(ix, h3, 9, probe=probe, ladder=BucketLadder(64, 4096),
+                     bounds=BBOX, max_wait_s=0.02) as eng:
+        info = eng.warmup()
+        assert info["signatures"] == len(eng.ladder.buckets)
+        c0, l0 = backend_compiles(), TP.pip_heavy_tiled.launches
+        futs = [eng.submit(r, deadline_s=30.0) for r in reqs]
+        got = [f.result(timeout=60) for f in futs]
+        m = eng.metrics()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert m["cold_compiles"] == 0 and m["batches"] < len(reqs)
+    assert m["degraded"] == 0 and m["shed"] == 0
+    assert backend_compiles() == c0
+    launched = TP.pip_heavy_tiled.launches - l0
+    assert launched > 0 if probe == "adaptive" else launched == 0
+
+
+def test_serve_dispatch_on_card_is_free_of_host_syncs(cuda):
+    """At full-bucket caps, a warm dispatch's cells and probe (the staged
+    points already on the card) make no host sync on any rung."""
+    from mosaic_tpu_torch.dispatch import BucketLadder, DispatchCore
+
+    h3, ix = _serve_index(cuda)
+    core = DispatchCore(ix, h3, 9, probe="adaptive", ladder=BucketLadder(64, 1024))
+    core.warmup()
+    for b in core.ladder.buckets:
+        (pts,) = _requests(b, [b])
+        staged = core.stage(pts)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = core.probe_staged(*staged)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        np.testing.assert_array_equal(out.cpu().numpy(), core.execute_padded(pts))
+
+
+def test_serve_on_card_raises_when_retries_exhausted(cuda):
+    """Past the retry budget a dispatch on the card fails its requests
+    with `RetryExhausted`; nothing degrades to the CPU."""
+    from mosaic_tpu_torch.runtime import RetryExhausted, faults, telemetry
+    from mosaic_tpu_torch.serve import BucketLadder, ServeEngine
+
+    h3, ix = _serve_index(cuda)
+    with ServeEngine(ix, h3, 9, probe="adaptive", ladder=BucketLadder(64, 256),
+                     bounds=BBOX) as eng:
+        eng.warmup()
+        with telemetry.capture() as ev:
+            with faults.transient_errors(50, sites=("serve.dispatch",)):
+                fut = eng.submit(_requests(5, [100])[0], deadline_s=30.0)
+                with pytest.raises(RetryExhausted):
+                    fut.result(timeout=60)
+        m = eng.metrics()
+    kinds = [e["event"] for e in ev]
+    assert "retry_exhausted" in kinds and "degraded" not in kinds
+    assert m["failed"] == 1 and m["degraded"] == 0
+
+
+def test_two_tenant_engines_warming_at_once_agree_with_pip_join(cuda):
+    """Two engines warm on two threads at once with H3's device constant
+    tables emptied first, so both fill them concurrently; both then equal
+    `pip_join` bit for bit."""
+    import threading
+
+    from mosaic_tpu_torch.core.index.h3 import hexmath
+    from mosaic_tpu_torch.serve import BucketLadder, ServeEngine
+
+    h3, ix = _serve_index(cuda)
+    reqs = _requests(41, [700, 33, 1000])
+    want = _pip_join_split(reqs, h3, ix)
+    hexmath._DEVICE_CONSTS.clear()
+    engines = [ServeEngine(ix, h3, 9, probe="adaptive", ladder=BucketLadder(64, 1024),
+                           bounds=BBOX) for _ in range(2)]
+    barrier, errors = threading.Barrier(2), []
+
+    def warm(eng):
+        try:
+            barrier.wait()
+            eng.warmup()
+        except BaseException as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    threads = [threading.Thread(target=warm, args=(e,)) for e in engines]  # lint: thread-context-adoption-ok (concurrent warmups; errors re-checked on the caller thread)
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    try:
+        assert not errors, errors
+        for eng in engines:
+            for r, w in zip(reqs, want):
+                np.testing.assert_array_equal(eng.join(r, deadline_s=30.0), w)
+    finally:
+        for eng in engines:
+            eng.close()

@@ -187,7 +187,7 @@ def test_port_drift_keeps_two_x_headroom():
     """The port's own calibration sweep (cells at res 9 and 11, the edge
     band over 144 zones) stays under half of both constants on the CPU."""
     for res in (9, 11):
-        r = measure_cell_drift(H3, global_points(40_000, 21), res)
+        r = measure_cell_drift(H3, global_points(40_000, 21), res, device="cpu")
         assert r["n_disagreements"] > 0
         assert 2 * r["max_observed_k"] <= TJ.CELL_MARGIN_K, r
     from mosaic_tpu_torch.datasets import synthetic_zones
@@ -195,7 +195,7 @@ def test_port_drift_keeps_two_x_headroom():
     bbox = (-74.05, 40.60, -73.85, 40.85)
     zones = synthetic_zones(12, 12, bbox=bbox, seed=3)
     pts = np.random.default_rng(103).uniform(bbox[:2], bbox[2:], (20_000, 2))
-    r = measure_edge_drift(zones, H3, 9, pts, seed=3)
+    r = measure_edge_drift(zones, H3, 9, pts, seed=3, device="cpu")
     assert r["n_disagreements"] > 0, "no edge drift measured: no signal"
     assert 2 * r["max_observed_k"] <= TJ.EDGE_BAND_K, r
 
