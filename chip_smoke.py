@@ -98,6 +98,34 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    crop (fold lane) the plain, durable, killed-and-resumed and retried
    scans must equal the fold zones bit for bit; prints tiles/s and
    pixels/s;
+8g. expressions (``mosaic_tpu_torch/expr``): ``synthetic_raster(4800,
+   4800, bands=3)`` over phase 3's zones; the tree ``ndvi(nir=2,
+   red=1).mask_where(band(3) < t)``, ``t`` the 80th percentile of band
+   3's valid values, run as one fused program a tile (probe through
+   ``pip_heavy_tiled``, fold in f64 through ``zonal_seq_fold``) by zones,
+   by grid cell and through ``.join()``, after ``warmup_expr`` and
+   ``expr.freeze()``. Gates, bit for bit: the fused zones fold equals the
+   staged pipeline (``map_pixels`` into a one-band raster, then the fold
+   lane's ``ZonalEngine.zones``) on the whole raster; on the 1024 crop the
+   fused zones and grid folds equal ``host_expr_zonal_oracle``, the join's
+   zone plane equals the rows the fold lane's zones fold by, and one
+   tile's fold equals the CPU lane. Prints pixels/s fused and staged,
+   the program's torch ops and the device ops a tile, the idle share on
+   the crop, and the kernels' launches;
+8h. the durable expression scan: ``RasterStream.scan(expr=...)`` over the
+   whole raster equals ``map_zonal`` bit for bit; on the crop a killed
+   scan resumed equals the uninterrupted one, and a resume with another
+   tree refuses; no cold compile and no nvcc build after the warmups of
+   8g. Prints tiles/s beside ``map_zonal``'s;
+8i. the overlay join (``sql/overlay.py``) at the reference overlay bench's
+   defaults: 110 x 110 squares a side on the custom grid
+   ``GridConf(-180, 180, -90, 90, 2, 10, 10)`` at resolution 4 (24,200
+   geometries), ``overlap_fraction()``, ``prepare_overlay`` once and
+   ``warmup_overlay``. Gates: the device lane equals the f64 host lane
+   bit for bit on pairs, value, valid, area and sure; no overflow; no
+   nvcc build and no cold compile in the warm runs; the fold at the
+   overlay's shapes equals the CPU lane. Prints pairs/s of both lanes
+   and the host-overridden pairs;
 8d-8f run in a process of their own (``--serve-child``; its lines'
    ``t_s`` count from its own start), which loads phase 3's index from
    disk and the kernel libraries built in phase 2: it must start no nvcc
@@ -203,6 +231,10 @@ TENANTS = 3                 # tenant_0 the aggressor
 TENANT_RATE = 150.0         # requests/s of each victim, open loop
 TENANT_MULT = 15.0          # the aggressor's multiple of rate and requests
 TENANT_REQUESTS = 100       # per victim
+EXPR_KEEP = 0.8             # share of band 3's valid pixels the expr mask keeps
+OVERLAY_N = 110             # squares per side per table (tools/overlay_bench.py)
+OVERLAY_RES = 4
+OVERLAY_REPS = 3
 
 #: H100 SXM rates: HBM3 bytes/s (NVIDIA data sheet); single f32 and f64
 #: operations per second outside the tensor cores. The data sheet's 67 and
@@ -285,6 +317,28 @@ def agreement(got, want) -> float:
     a, b = result_rows(got), result_rows(want)
     keys = set(a) | set(b)
     return sum(a.get(k) == b.get(k) for k in keys) / len(keys) if keys else 1.0
+
+
+def square_grid(n: int, x0: float, y0: float, size: float, pitch: float):
+    """n x n CCW squares of ``size`` on a ``pitch`` lattice, row by row (the
+    overlay bench's tables, built as CSR arrays instead of WKT; the same
+    f64 corners)."""
+    import numpy as np
+
+    from mosaic_tpu_torch.core.types import GeometryType, PackedGeometry
+
+    j, i = np.divmod(np.arange(n * n), n)
+    x = x0 + i * pitch
+    y = y0 + j * pitch
+    xy = np.stack([np.stack([x, y], -1), np.stack([x + size, y], -1),
+                   np.stack([x + size, y + size], -1), np.stack([x, y + size], -1)],
+                  axis=1).reshape(-1, 2)
+    k = np.arange(n * n + 1, dtype=np.int64)
+    return PackedGeometry(
+        xy=xy, ring_offsets=4 * k, part_offsets=k, geom_offsets=k,
+        geom_type=np.full(n * n, int(GeometryType.POLYGON), np.uint8),
+        srid=np.full(n * n, 4326, np.int32),
+    )
 
 
 def profile_device(fn):
@@ -441,6 +495,323 @@ def dispatch_contention(core, pts) -> dict:
         if th:
             th.join()
     return out
+
+
+def expr_overlay_phases(ix, H3, dev, n_zones, counted, cuda_ms, runs_dir, fold_eng):
+    """Phases 8g-8i over phase 3's index ``ix``: returns the launch counts
+    and fold checks the kernels line reads, or a non-zero exit code."""
+    import numpy as np
+    import torch
+
+    from mosaic_tpu_torch.core.tessellate import tessellate
+    from mosaic_tpu_torch.datasets import NYC_BBOX, synthetic_raster
+    from mosaic_tpu_torch.kernels import zonal as Z
+    from mosaic_tpu_torch.raster import Raster, ZonalEngine, plan_tiles
+    from mosaic_tpu_torch.runtime import faults
+    from mosaic_tpu_torch.sql import RasterStream
+
+    def counted_run(call):
+        for fn in counted.values():
+            fn.launches = 0
+        out_ = call()
+        return out_, {k: fn.launches for k, fn in counted.items()}
+
+    # 8g. expressions (mosaic_tpu_torch/expr): a three-band raster of the
+    # same size over the same zones; NDVI masked where band 3 is high, one
+    # fused program a tile into the f64 fold (zonal_seq_fold), by zones,
+    # by grid cell and through .join()
+    from mosaic_tpu_torch import expr as E
+    from mosaic_tpu_torch.dispatch import backend_compiles
+    from mosaic_tpu_torch.expr import compile as EC
+    from mosaic_tpu_torch.expr import eval as EV
+
+    raster3 = synthetic_raster(*RASTER, NYC_BBOX, bands=3, nodata=NODATA, seed=SEED)
+    r0 = (raster3.height - CROP) // 2
+    c0 = (raster3.width - CROP) // 2
+    wx, wy = raster3.raster_to_world(c0, r0)
+    gt = raster3.gt
+    crop3 = Raster(data=raster3.data[:, r0:r0 + CROP, c0:c0 + CROP].copy(),
+                   gt=(float(wx), gt[1], gt[2], float(wy), gt[4], gt[5]),
+                   srid=raster3.srid, nodata=raster3.nodata)
+    n_tiles = plan_tiles(raster3).ntiles
+    real_pixels = raster3.height * raster3.width
+    b3 = raster3.data[2]
+    thr = float(np.quantile(b3[b3 != NODATA], EXPR_KEEP))
+    value = E.ndvi(nir=2, red=1).mask_where(E.band(3) < thr)
+    tree, gtree = value.zonal(by="zones"), value.zonal(by="grid")
+    eng_x = ZonalEngine(H3, RES, chip_index=ix, device=dev)
+    nv_w = backend_compiles()
+    t0 = time.perf_counter()
+    eng_x.warmup_expr(tree, raster3)
+    eng_x.warmup_expr(gtree, raster3)
+    warmup_x_s = time.perf_counter() - t0
+    # the staged pipeline: the value per pixel, then the fold lane's zones
+    t0 = time.perf_counter()
+    px, pvalid = E.map_pixels(value, raster3, index_system=H3, resolution=RES,
+                              device=dev)
+    pixels_s = time.perf_counter() - t0
+    staged_r = Raster(data=np.where(pvalid, px, np.nan)[None], gt=raster3.gt,
+                      srid=raster3.srid, nodata=float("nan"))
+    t0 = time.perf_counter()
+    staged = ZonalEngine(H3, RES, chip_index=ix, lane="fold", device=dev).zones(staged_r)
+    staged_s = pixels_s + time.perf_counter() - t0
+    del px, pvalid, staged_r
+    EC.freeze()
+    nv0, cold0 = backend_compiles(), EC.cold_compiles()
+    t0 = time.perf_counter()
+    fused, x_launches = counted_run(lambda: eng_x.map(tree, raster3))
+    fused_first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng_x.map(tree, raster3)
+    fused_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fgrid, xg_launches = counted_run(lambda: eng_x.map(gtree, raster3))
+    grid_x_s = time.perf_counter() - t0
+    staged_agree = agreement(fused, staged)
+    # the 1024 crop: fused against the f64 host oracles; the join's zone
+    # rows against the rows the fold lane's zones fold by
+    fused_crop = eng_x.map(tree, crop3)
+    t0 = time.perf_counter()
+    crop_oracle_agree = agreement(fused_crop, E.host_expr_zonal_oracle(
+        crop3, tree, index_system=H3, resolution=RES, chip_index=ix))
+    grid_oracle_agree = agreement(eng_x.map(gtree, crop3), E.host_expr_zonal_oracle(
+        crop3, gtree, index_system=H3, resolution=RES))
+    x_oracle_s = time.perf_counter() - t0
+    jz, _jv, jvalid = eng_x.map(value.join(), crop3)
+    cplan3 = plan_tiles(crop3)
+    th3, tw3 = cplan3.shape
+    rows_plane = np.full((CROP, CROP), -1, np.int32)
+    for t in range(cplan3.ntiles):
+        ro, co = (int(v) for v in cplan3.origins[t])
+        g_t = fold_eng._tile_zone_rows(cplan3, t).reshape(th3, tw3)
+        rows_plane[ro:ro + th3, co:co + tw3] = np.where(g_t >= 0, g_t, -1)
+    rows_plane[~jvalid] = -1
+    jcount = np.bincount(jz[jz >= 0], minlength=n_zones)
+    join_ok = (np.array_equal(jz, rows_plane)
+               and np.array_equal(jcount[fused_crop.keys], fused_crop.count)
+               and int(jcount.sum()) == int(fused_crop.count.sum()))
+    # one crop tile's fold held against the CPU lane, at the fused
+    # program's shapes: (P,) f64 values and validity, S = the zones
+    vals3, mask3 = EV.stack_bands(crop3, cplan3, E.bands_of(value))
+    t_chk = cplan3.ntiles // 2
+    g_chk = fold_eng._tile_zone_rows(cplan3, t_chk)
+    seg_chk = torch.from_numpy(np.where(g_chk >= 0, g_chk, -1).astype(np.int32)).to(dev)
+    v_chk, m_chk = EC.pixel_program(value, th3, tw3, H3, RES)(
+        np.asarray(cplan3.gt, np.float64), cplan3.origins[t_chk],
+        torch.from_numpy(vals3[t_chk]).to(dev), torch.from_numpy(mask3[t_chk]).to(dev),
+        seg_chk)
+    segm_chk = torch.where(m_chk, seg_chk, -1)
+    x_fold = Z.zonal_fold(v_chk, segm_chk, n_zones, acc_dtype=torch.float64)
+    x_fold_cpu = Z.zonal_seq_fold_plain(v_chk.cpu(), segm_chk.cpu(), n_zones,
+                                        acc_dtype=torch.float64)
+    x_fold_equal = same_bits(x_fold, x_fold_cpu)
+    x_fold_err = float((x_fold[1].cpu() - x_fold_cpu[1]).abs().max())
+    x_fold_ms = cuda_ms(lambda: Z.zonal_fold(v_chk, segm_chk, n_zones,
+                                             acc_dtype=torch.float64))
+    prog_x = EC.zonal_program(E.terminal_of(tree)[0], th3, tw3, n_zones, "float64",
+                              H3, RES)
+    prog_ops = EC.program_ops(prog_x, np.asarray(cplan3.gt, np.float64),
+                              cplan3.origins[t_chk],
+                              torch.from_numpy(vals3[t_chk]).to(dev),
+                              torch.from_numpy(mask3[t_chk]).to(dev), seg_chk)
+    crop_x_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        eng_x.map(tree, crop3)
+        crop_x_s.append(time.perf_counter() - t0)
+    busy_x, rows_x, prof_x_ms = profile_device(lambda: eng_x.map(tree, crop3))
+    expr_kernels = kernel_times(rows_x)
+    x_ok = {
+        "fused_equal_to_staged": staged_agree == 1.0,
+        "fused_crop_equal_to_oracle": crop_oracle_agree == 1.0,
+        "grid_crop_equal_to_oracle": grid_oracle_agree == 1.0,
+        "join_rows_equal_to_fold_zones_rows": join_ok,
+        "tile_fold_equal_to_cpu_lane": x_fold_equal,
+        "launched_pip_heavy_tiled": x_launches["pip_heavy_tiled"] > 0,
+        "launched_zonal_seq_fold": x_launches["zonal_fold"] > 0
+        and xg_launches["zonal_fold"] > 0,
+    }
+    emit({
+        "phase": "expr", "pixels": real_pixels, "tiles": n_tiles, "bands": 3,
+        "tree": repr(E.structure_key(tree)), "band3_threshold": thr,
+        "kept_share_of_band3_valid": EXPR_KEEP,
+        "keys": int(fused.keys.size), "pixels_folded": int(fused.pixels),
+        "warmup_s": warmup_x_s, "nvcc_builds_in_warmup": backend_compiles() - nv_w,
+        "fused_first_s": fused_first_s, "fused_warm_s": fused_s,
+        "fused_pixels_per_s": real_pixels / fused_s,
+        "staged_s": staged_s, "staged_map_pixels_s": pixels_s,
+        "staged_pixels_per_s": real_pixels / staged_s,
+        "grid_s": grid_x_s, "grid_pixels_per_s": real_pixels / grid_x_s,
+        "grid_keys": int(fgrid.keys.size),
+        "launches_zones": x_launches, "launches_grid": xg_launches,
+        "program_torch_ops_per_tile": prog_ops,
+        "device_ops_per_tile": sum(c for _, _, c in rows_x) / cplan3.ntiles,
+        "profiled_on": f"{CROP}x{CROP} crop, {cplan3.ntiles} tiles",
+        "crop_warm_s": crop_x_s, "profiled_wall_ms": prof_x_ms,
+        **idle_share(busy_x, rows_x, min(crop_x_s) * 1e3),
+        "crop_kernels": expr_kernels,
+        "top_device_ops": [{"op": k[:80], "ms": ms, "calls": c} for ms, k, c in rows_x[:6]],
+        "tile_fold_ms": x_fold_ms, "tile_fold_max_abs_err": x_fold_err,
+        "oracle_s": x_oracle_s, "gates": x_ok,
+    })
+    bad_gates = [k for k, v in x_ok.items() if not v]
+    if bad_gates:
+        return fail(f"expr gates failed: {bad_gates}")
+
+    # 8h. the durable expression scan over the whole three-band raster,
+    # then durability on the crop
+    rs_x = RasterStream(ix, H3, RES)
+    xscan, xs_launches = counted_run(lambda: rs_x.scan(raster3, expr=tree))
+    xscan_agree = agreement(xscan.stats, fused)
+    xcrop_clean = rs_x.scan(crop3, expr=tree)
+    os.makedirs(runs_dir, exist_ok=True)
+    dkx = os.path.join(runs_dir, "expr_kill")
+    with faults.inject(fail_first=99, skip_first=8, sites=("raster.zonal",),
+                       exc_factory=lambda site: RuntimeError("simulated device loss")):
+        try:
+            rs_x.scan(crop3, expr=tree, run_dir=dkx, snapshot_every=4)
+            x_killed = False
+        except RuntimeError:
+            x_killed = True
+    xcrop_resumed = rs_x.resume(dkx, crop3, expr=tree)
+    try:
+        rs_x.resume(dkx, crop3, expr=E.ndvi(nir=3, red=1).zonal())
+        other_refused = False
+    except ValueError:
+        other_refused = True
+    shutil.rmtree(runs_dir, ignore_errors=True)
+    nv1, cold1 = backend_compiles(), EC.cold_compiles()
+    xs_ok = {
+        "scan_equal_to_map_zonal": xscan_agree == 1.0,
+        "crop_equal_to_map_zonal": agreement(xcrop_clean.stats, fused_crop) == 1.0,
+        "resume_equal": x_killed and xcrop_resumed.metrics["resumed_from"] == 8
+        and agreement(xcrop_resumed.stats, xcrop_clean.stats) == 1.0,
+        "other_tree_refused": other_refused,
+        "no_cold_compile_after_warmup": cold1 == cold0,
+        "no_nvcc_build_after_warmup": nv1 == nv0,
+        "launched_pip_heavy_tiled": xs_launches["pip_heavy_tiled"] > 0,
+        "launched_zonal_seq_fold": xs_launches["zonal_fold"] > 0,
+    }
+    emit({
+        "phase": "expr_scan", "pixels": real_pixels, "tiles": xscan.ntiles,
+        "wall_s": xscan.wall_s, "tiles_per_s": xscan.ntiles / xscan.wall_s,
+        "pixels_per_s": real_pixels / xscan.wall_s,
+        "map_zonal_tiles_per_s": n_tiles / fused_s,
+        "launches": xs_launches, "pipeline": xscan.metrics["pipeline"],
+        "crop_wall_s": xcrop_clean.wall_s, "crop_resume_wall_s": xcrop_resumed.wall_s,
+        "cold_compiles_after_warmup": cold1 - cold0,
+        "nvcc_builds_after_warmup": nv1 - nv0, "gates": xs_ok,
+    })
+    bad_gates = [k for k, v in xs_ok.items() if not v]
+    if bad_gates:
+        return fail(f"expr_scan gates failed: {bad_gates}")
+    del raster3, vals3, mask3
+
+    # 8i. the overlay join (sql/overlay.py): the reference overlay bench's
+    # two square-grid tables on the custom grid, overlap_fraction() over
+    # every pair of geometries sharing a cell; device lane against the
+    # f64 host lane
+    from mosaic_tpu_torch.core.index import CustomIndexSystem, GridConf
+    from mosaic_tpu_torch.sql import overlay as OV
+
+    ogrid = CustomIndexSystem(GridConf(-180, 180, -90, 90, 2, 10.0, 10.0))
+    cw, _ = ogrid.cell_size(OVERLAY_RES)
+    left = square_grid(OVERLAY_N, -80.0, -82.0, 2.2 * cw, 2.4 * cw)
+    right = square_grid(OVERLAY_N, -80.0 + 0.73 * cw, -82.0 + 0.49 * cw,
+                        2.2 * cw, 2.4 * cw)
+    t0 = time.perf_counter()
+    lt = tessellate(left, ogrid, OVERLAY_RES)
+    rt = tessellate(right, ogrid, OVERLAY_RES)
+    tess_o_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prep = OV.prepare_overlay(lt, rt, left, right, ogrid, OVERLAY_RES, device=dev)
+    prep_s = time.perf_counter() - t0
+    ovalue = E.overlap_fraction()
+    t0 = time.perf_counter()
+    OV.warmup_overlay(left, right, ogrid, OVERLAY_RES, ovalue, prep=prep)
+    warm_o_s = time.perf_counter() - t0
+    EC.freeze()
+    nv0, cold0 = backend_compiles(), EC.cold_compiles()
+
+    def measure():
+        out = OV.overlay_measures(left, right, ogrid, OVERLAY_RES, ovalue, prep=prep)
+        torch.cuda.synchronize()
+        return out
+
+    odev, o_launches = counted_run(measure)
+    o_s = []
+    for _ in range(OVERLAY_REPS):
+        t0 = time.perf_counter()
+        measure()
+        o_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ohost = OV.overlay_measures(left, right, ogrid, OVERLAY_RES, ovalue, prep=prep,
+                                lane="host")
+    ohost_s = time.perf_counter() - t0
+    nv1, cold1 = backend_compiles(), EC.cold_compiles()
+    o_agree = {f: float(np.asarray(getattr(odev, f)).dtype == np.asarray(getattr(ohost, f)).dtype
+                        and np.asarray(getattr(odev, f)).tobytes()
+                        == np.asarray(getattr(ohost, f)).tobytes())
+               for f in ("pairs", "value", "valid", "area", "sure")}
+    # the fold at the overlay's shapes, held against the CPU lane: the
+    # program's own fold inputs, recorded on one call
+    seen = {}
+    real_fold = EC.zonal_fold_masked
+
+    def recording_fold(values, valid, seg, num_segments, *, acc_dtype=None):
+        seen.update(v=values.clone(), m=valid.clone(), s=seg.clone(), k=num_segments)
+        return real_fold(values, valid, seg, num_segments, acc_dtype=acc_dtype)
+
+    EC.zonal_fold_masked = recording_fold
+    try:
+        measure()
+    finally:
+        EC.zonal_fold_masked = real_fold
+    segm_o = torch.where(seen["m"], seen["s"], -1)
+    o_fold = Z.zonal_fold(seen["v"], segm_o, seen["k"], acc_dtype=torch.float64)
+    o_fold_cpu = Z.zonal_seq_fold_plain(seen["v"].cpu(), segm_o.cpu(), seen["k"],
+                                        acc_dtype=torch.float64)
+    o_fold_equal = same_bits(o_fold, o_fold_cpu)
+    o_fold_ms = cuda_ms(lambda: Z.zonal_fold(seen["v"], segm_o, seen["k"],
+                                             acc_dtype=torch.float64))
+    busy_o, rows_o, prof_o_ms = profile_device(measure)
+    pairs_n = int(odev.pairs.shape[0])
+    o_ok = {
+        **{f"agreement_{f}": v == 1.0 for f, v in o_agree.items()},
+        "device_lane": odev.lane == "device" and not odev.degraded,
+        "no_overflow": odev.overflow == 0,
+        "no_nvcc_build_after_warmup": nv1 == nv0,
+        "no_cold_compile_after_warmup": cold1 == cold0,
+        "fold_equal_to_cpu_lane": o_fold_equal,
+        "launched_zonal_seq_fold": o_launches["zonal_fold"] > 0,
+    }
+    emit({
+        "phase": "overlay", "n_per_side": OVERLAY_N, "res": OVERLAY_RES,
+        "geoms": len(left) + len(right), "chips": len(lt) + len(rt),
+        "pairs": pairs_n, "candidates_bucket": int(seen["v"].numel()),
+        "pair_segments_bucket": int(seen["k"]), "vpad": prep.vpad,
+        "tessellate_s": tess_o_s, "prepare_s": prep_s, "warmup_s": warm_o_s,
+        "device_s": o_s, "device_pairs_per_s": pairs_n / min(o_s),
+        "host_s": ohost_s, "host_pairs_per_s": pairs_n / ohost_s,
+        "host_overridden": odev.host_overridden, "overflow": odev.overflow,
+        "agreement": o_agree, "launches": o_launches,
+        "fold_ms": o_fold_ms, "profiled_wall_ms": prof_o_ms,
+        **idle_share(busy_o, rows_o, min(o_s) * 1e3),
+        "device_ops": sum(c for _, _, c in rows_o),
+        "overlay_kernels": kernel_times(rows_o),
+        "top_device_ops": [{"op": k[:80], "ms": ms, "calls": c} for ms, k, c in rows_o[:6]],
+        "gates": o_ok,
+    })
+    bad_gates = [k for k, v in o_ok.items() if not v]
+    if bad_gates:
+        return fail(f"overlay gates failed: {bad_gates}")
+    return {
+        "x_launches": x_launches, "xg_launches": xg_launches,
+        "xs_launches": xs_launches, "o_launches": o_launches,
+        "x_fold_equal": x_fold_equal, "x_fold_ms": x_fold_ms, "x_fold_err": x_fold_err,
+        "o_fold_equal": o_fold_equal, "o_fold_ms": o_fold_ms,
+        "o_segments": int(seen["k"]),
+    }
 
 
 def serve_phases(ix, H3, dev):
@@ -2004,6 +2375,17 @@ def main() -> int:
     if bad_gates:
         return fail(f"raster_stream gates failed: {bad_gates}")
 
+    x_out = expr_overlay_phases(ix, H3, dev, len(zones), counted, cuda_ms, runs_dir,
+                                engines["zones_fold"])
+    if isinstance(x_out, int):
+        return x_out
+    x_launches, xg_launches = x_out["x_launches"], x_out["xg_launches"]
+    xs_launches, o_launches = x_out["xs_launches"], x_out["o_launches"]
+    x_fold_equal, x_fold_ms, x_fold_err = (
+        x_out["x_fold_equal"], x_out["x_fold_ms"], x_out["x_fold_err"])
+    o_fold_equal, o_fold_ms, o_segments = (
+        x_out["o_fold_equal"], x_out["o_fold_ms"], x_out["o_segments"])
+
     # 8d-8f. serving over phase 3's index (the engine, its resilience and a
     # swap under load, the router) in a process of its own, as a server
     # runs: the profiler the phases above attached to this process slows
@@ -2052,7 +2434,10 @@ def main() -> int:
          "replaces": "mosaic_tpu/kernels/pip.py:492",
          "launches": heavy_launches + recheck_launches + stream_launches
          + rs_launches["pip_heavy_tiled"] + rs_fold_launches["pip_heavy_tiled"]
-         + serve_launches["serve"] + serve_launches["router"],
+         + serve_launches["serve"] + serve_launches["router"]
+         + x_launches["pip_heavy_tiled"] + xs_launches["pip_heavy_tiled"],
+         "launches_expr": x_launches["pip_heavy_tiled"],
+         "launches_expr_scan": xs_launches["pip_heavy_tiled"],
          "launches_join": heavy_launches, "launches_exact_join": recheck_launches,
          "launches_serve": serve_launches["serve"],
          "launches_router": serve_launches["router"],
@@ -2092,14 +2477,24 @@ def main() -> int:
         {"name": "zonal_seq_fold", "route": "cuda", "source": zsrc,
          "replaces": "mosaic_tpu/kernels/zonal.py:52",
          "launches": launches["zones_fold"]["zonal_fold"]
-         + rs_fold_launches["zonal_fold"],
+         + rs_fold_launches["zonal_fold"] + x_launches["zonal_fold"]
+         + xg_launches["zonal_fold"] + xs_launches["zonal_fold"]
+         + o_launches["zonal_fold"],
+         "launches_expr": x_launches["zonal_fold"],
+         "launches_expr_grid": xg_launches["zonal_fold"],
+         "launches_expr_scan": xs_launches["zonal_fold"],
+         "launches_overlay": o_launches["zonal_fold"],
+         "expr_tile_equal_to_cpu_lane": x_fold_equal, "expr_tile_ms": x_fold_ms,
+         "overlay_equal_to_cpu_lane": o_fold_equal, "overlay_ms": o_fold_ms,
+         "overlay_segments": o_segments,
          "launches_zones_fold": launches["zones_fold"]["zonal_fold"],
          "launches_grid": launches["grid"]["zonal_fold"],
          "launches_raster_stream": rs_fold_launches["zonal_fold"],
          "launches_raster_stream_crop": crop_fold_launches,
          "crop_ms_per_launch_zones_fold": crop_ms("zones_fold", "zonal_seq_fold"),
          "crop_ms_per_launch_grid": crop_ms("grid", "zonal_seq_fold"),
-         "match": fold_ok, "max_abs_err": max(fi["max_abs_err"], ff["max_abs_err"]),
+         "match": fold_ok and x_fold_equal and o_fold_equal,
+         "max_abs_err": max(fi["max_abs_err"], ff["max_abs_err"], x_fold_err),
          "ms": fi["ms"], "wrapper_ms": fi["wrapper_ms"], "plain_ms": fi["plain_ms"],
          "bound_ms": fi["bound_ms"], "bound_by": fi["bound_by"], "library_ms": None,
          "data": "integer raster values (exact branch), 256x256 tile",

@@ -2,13 +2,17 @@
 
 Port of the part of ``mosaic_tpu/core/geometry/oracle.py`` that the
 port's callers use: the ring walk :func:`_rings`, which
-`runtime/quarantine.py degenerate_zone_mask` reads. The measures and
-predicates of that module come with ROADMAP queue 1 item 14.
+`runtime/quarantine.py degenerate_zone_mask` reads, and the exact
+row-wise intersects predicate :func:`pair_intersects` that
+`sql/overlay.py intersects_join` refines candidates with. The other
+measures and predicates come with ROADMAP queue 1 item 14.
 """
 
 from __future__ import annotations
 
-from ..types import PackedGeometry
+import numpy as np
+
+from ..types import GeometryType, PackedGeometry
 
 
 def _rings(col: PackedGeometry, g: int):
@@ -17,3 +21,63 @@ def _rings(col: PackedGeometry, g: int):
     for p in col.geom_parts(g):
         for k, r in enumerate(col.part_rings(p)):
             yield k, col.ring_xy(r)
+
+
+def _rings_of(col: PackedGeometry, g: int) -> list:
+    return [
+        col.ring_xy(r) for p in col.geom_parts(g) for r in col.part_rings(p)
+    ]
+
+
+def _edges_of(rings: list, closed: bool):
+    segs = []
+    for r in rings:
+        if r.shape[0] < 2:
+            continue
+        pts = np.vstack([r, r[:1]]) if closed else r
+        segs.append((pts[:-1], pts[1:]))
+    if not segs:
+        return np.zeros((0, 2)), np.zeros((0, 2))
+    return (np.concatenate([s[0] for s in segs]),
+            np.concatenate([s[1] for s in segs]))
+
+
+def _rings_cross(ra, rb, ta: GeometryType, tb: GeometryType) -> bool:
+    from ..tessellate import _segments_cross
+
+    a0, a1 = _edges_of(ra, ta.base == GeometryType.POLYGON)
+    b0, b1 = _edges_of(rb, tb.base == GeometryType.POLYGON)
+    if not a0.shape[0] or not b0.shape[0]:
+        return False
+    return bool(np.any(_segments_cross(a0, a1, b0, b1)))
+
+
+def pair_intersects(a: PackedGeometry, b: PackedGeometry) -> np.ndarray:
+    """(G,) bool row-wise intersects of two equal-length columns, exact in
+    f64 — the reference's ``st_intersects(..., backend="oracle")``
+    (`functions/geometry.py _oracle_pair_intersects`): any boundary
+    crossing or touch, else any vertex of one inside the other polygon."""
+    from ..tessellate import _even_odd_inside
+
+    n = len(a)
+    out = np.zeros(n, dtype=bool)
+    for g in range(n):
+        ra, rb = _rings_of(a, g), _rings_of(b, g)
+        pa, pb = a.geom_xy(g), b.geom_xy(g)
+        if not pa.shape[0] or not pb.shape[0]:
+            continue
+        if _rings_cross(ra, rb, a.geometry_type(g), b.geometry_type(g)):
+            out[g] = True
+            continue
+        # no boundary crossing: intersects iff ANY vertex of one lies inside
+        # the other (covers multi-part geometries with nested parts)
+        in_a = (
+            a.geometry_type(g).base == GeometryType.POLYGON
+            and bool(_even_odd_inside(pb, ra).any())
+        )
+        in_b = (
+            b.geometry_type(g).base == GeometryType.POLYGON
+            and bool(_even_odd_inside(pa, rb).any())
+        )
+        out[g] = bool(in_a or in_b)
+    return out

@@ -133,6 +133,10 @@ class PackedGeometry:
     def num_rings(self) -> int:
         return int(self.ring_offsets.shape[0] - 1)
 
+    @property
+    def num_vertices(self) -> int:
+        return int(self.xy.shape[0])
+
     # ------------------------------------------------------------- accessors
     def geom_parts(self, g: int) -> range:
         return range(int(self.geom_offsets[g]), int(self.geom_offsets[g + 1]))
@@ -186,6 +190,37 @@ class PackedGeometry:
         out[idx_ne, 0:2] = mins
         out[idx_ne, 2:4] = maxs
         return out
+
+    # ------------------------------------------------------------- selection
+    def take(self, indices: Sequence[int]) -> "PackedGeometry":
+        """Gather a subset/ordering of geometries into a new PackedGeometry."""
+        builder = GeometryBuilder()
+        for g in indices:
+            builder.append_from(self, int(g))
+        return builder.build()
+
+    def slice(self, start: int, stop: int) -> "PackedGeometry":
+        """Python-slice semantics: out-of-range bounds clamp instead of
+        raising (``col.slice(0, 6)`` of a 2-geometry column is the whole
+        column, exactly like ``seq[0:6]``)."""
+        n = len(self)
+        start = max(0, min(start + n if start < 0 else start, n))
+        stop = max(start, min(stop + n if stop < 0 else stop, n))
+        return self.take(range(start, stop))
+
+    @classmethod
+    def empty(cls) -> "PackedGeometry":
+        return cls(
+            xy=np.zeros((0, 2)),
+            ring_offsets=np.zeros(1, np.int64),
+            part_offsets=np.zeros(1, np.int64),
+            geom_offsets=np.zeros(1, np.int64),
+            geom_type=np.zeros(0, np.uint8),
+            srid=np.zeros(0, np.int32),
+        )
+
+    def concat(self, other: "PackedGeometry") -> "PackedGeometry":
+        return concat_packed([self, other])
 
     # ------------------------------------------------------------ conversion
     def to_padded(
@@ -256,6 +291,40 @@ class PackedGeometry:
             srid=self.srid.copy(),
             rings_closed=close_rings,
         )
+
+
+def concat_packed(columns: Sequence[PackedGeometry]) -> PackedGeometry:
+    """One column holding ``columns`` end to end, offsets rebased; empty
+    columns drop out, and a missing z lane reads as zeros."""
+    cols = [c for c in columns if len(c)]
+    if not cols:
+        return PackedGeometry.empty()
+    xy = np.concatenate([c.xy for c in cols])
+    has_z = any(c.z is not None for c in cols)
+    z = (
+        np.concatenate(
+            [c.z if c.z is not None else np.zeros(c.num_vertices) for c in cols]
+        )
+        if has_z
+        else None
+    )
+    ring_offsets = [cols[0].ring_offsets]
+    part_offsets = [cols[0].part_offsets]
+    geom_offsets = [cols[0].geom_offsets]
+    for c in cols[1:]:
+        ring_offsets.append(c.ring_offsets[1:] + ring_offsets[-1][-1])
+        part_offsets.append(c.part_offsets[1:] + part_offsets[-1][-1])
+        geom_offsets.append(c.geom_offsets[1:] + geom_offsets[-1][-1])
+    return PackedGeometry(
+        xy=xy,
+        ring_offsets=np.concatenate(ring_offsets),
+        part_offsets=np.concatenate(part_offsets),
+        geom_offsets=np.concatenate(geom_offsets),
+        geom_type=np.concatenate([c.geom_type for c in cols]),
+        srid=np.concatenate([c.srid for c in cols]),
+        z=z,
+        geom_has_z=np.concatenate([c.geom_has_z for c in cols]),
+    )
 
 
 @dataclasses.dataclass

@@ -28,8 +28,9 @@ stay under 2**24).
 What differs from the reference: tensors are torch on the engine's
 device (the card unless ``device="cpu"``); there is no jit, so nothing is
 compiled per tile shape; a tile with no pixel to fold skips its device
-fold (its partial is empty either way). ``mesh=``, ``profile=``,
-:meth:`ZonalEngine.map`, :meth:`ZonalEngine.warmup_expr` and
+fold (its partial is empty either way). :meth:`ZonalEngine.map` and
+:meth:`ZonalEngine.warmup_expr` run fused expression trees
+(`mosaic_tpu_torch/expr`). ``mesh=``, ``profile=`` and
 ``zonal_grid(index_system=None)`` raise ``NotImplementedError`` naming the
 ROADMAP item that brings them.
 
@@ -400,14 +401,38 @@ class ZonalEngine:
         )
 
     # ------------------------------------------------------ expressions
-    def map(self, expr, raster, **kw):
-        """Fused expression evaluation — comes with the expression
-        compiler."""
-        raise _not_ported("ZonalEngine.map", 8, "the expression compiler")
+    def map(
+        self, expr, raster, *, tile: "tuple[int, int] | None" = None,
+        by: "str | None" = None, watchdog_default_s: float = 600.0,
+        retry_policy=None,
+    ):
+        """Evaluate a fused expression tree (`mosaic_tpu_torch.expr`)
+        over ``raster``: one program per tile bucket runs band math,
+        masking and the terminal zonal fold. Zonal terminals return a
+        :class:`ZonalResult`; ``.join()`` terminals return per-pixel
+        (zone, value, valid) planes."""
+        from .. import expr as _expr  # local: expr imports this module
 
-    def warmup_expr(self, expr, raster, **kw):
-        """Expression warmup — comes with the expression compiler."""
-        raise _not_ported("ZonalEngine.warmup_expr", 8, "the expression compiler")
+        _value, kind, _by, _stats = _expr.terminal_of(expr)
+        if kind == "join":
+            return _expr.eval.map_join(self, expr, raster, tile=tile)
+        return _expr.map_zonal(
+            self, expr, raster, tile=tile, by=by,
+            watchdog_default_s=watchdog_default_s,
+            retry_policy=retry_policy,
+        )
+
+    def warmup_expr(
+        self, expr, raster, *, tile: "tuple[int, int] | None" = None,
+        by: "str | None" = None,
+    ) -> tuple:
+        """Run the probe and fused program one :meth:`map` call will
+        dispatch once (the probe on every tile, the program on a zero
+        tile); returns the registered expression signature for
+        `expr.freeze` bookkeeping."""
+        from .. import expr as _expr  # local: expr imports this module
+
+        return _expr.warmup_expr(self, expr, raster, tile=tile, by=by)
 
 
 def _result_from_dict(merged: dict, band: int) -> ZonalResult:

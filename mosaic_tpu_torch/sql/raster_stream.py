@@ -27,8 +27,12 @@ What differs from the reference: the stream runs on its index's device;
 ``lane="fold"`` (the default, the reference's only lane) folds in f64,
 ``lane="tiled"`` folds with the ``zonal_tiled`` kernel in f32 and
 accumulates in f32 as `ZonalEngine.zones` does (so a tiled scan equals a
-tiled `zones` call bit for bit); ``expr=``, ``mesh=`` and ``profile=``
-raise ``NotImplementedError`` (ROADMAP queue 1, items 8, 12 and 13).
+tiled `zones` call bit for bit); ``scan(expr=...)`` folds a fused
+expression tree (`mosaic_tpu_torch/expr`) through the f64 fold lane
+whatever the stream's lane, and its snapshots carry the tree's
+``expr_sha256`` as the reference's do, so either package resumes the
+other's expression scans; ``mesh=`` and ``profile=`` raise
+``NotImplementedError`` (ROADMAP queue 1, items 12 and 13).
 """
 
 from __future__ import annotations
@@ -140,9 +144,12 @@ class RasterStream:
         retry_policy=None,
         window: "int | None" = None,
     ) -> RasterScanResult:
-        """Scan one band into per-zone (count, sum, min, max). With
-        ``run_dir`` the scan is durable: interrupt anywhere and
-        :meth:`resume` finishes it.
+        """Scan one band — or a fused expression tree over the band
+        stack (``expr=``, `mosaic_tpu_torch.expr`) — into per-zone
+        (count, sum, min, max). With ``run_dir`` the scan is durable:
+        interrupt anywhere and :meth:`resume` finishes it. Durable
+        expression scans snapshot the tree's structural hash; resume
+        refuses a different tree.
 
         Tiles ride the pipelined execution core: up to ``window`` tile
         folds are in flight at once (default: the ``MOSAIC_STREAM_WINDOW``
@@ -150,10 +157,8 @@ class RasterStream:
         host patch. Accumulation and snapshots happen at the ordered
         drain, so the fold order (and the result, bit for bit) is the
         synchronous loop's."""
-        if expr is not None:
-            raise _not_ported("RasterStream.scan(expr=...)", 8, "the expression compiler")
         return self._run(
-            raster, band=band, tile=tile, run_dir=run_dir,
+            raster, band=band, expr=expr, tile=tile, run_dir=run_dir,
             snapshot_every=int(snapshot_every), start_tile=0, acc0=None,
             resumed_from=None, watchdog_default_s=watchdog_default_s,
             retry_policy=retry_policy, trace_parent=None, window=window,
@@ -171,10 +176,9 @@ class RasterStream:
     ) -> RasterScanResult:
         """Restart an interrupted durable scan from the newest VALID
         snapshot under ``run_dir``. The snapshot's raster fingerprint,
-        tile shape, band and zone count must match: resuming a fold
-        against different pixels would silently merge garbage."""
-        if expr is not None:
-            raise _not_ported("RasterStream.resume(expr=...)", 8, "the expression compiler")
+        tile shape, band, zone count — and for expression scans the
+        expression hash — must match: resuming a fold against different
+        pixels OR a different tree would silently merge garbage."""
         loaded = _checkpoint.load_latest(run_dir)
         if loaded is None:
             raise FileNotFoundError(
@@ -194,23 +198,32 @@ class RasterStream:
                 f"snapshot zone count {meta.get('num_zones')} != this "
                 f"stream's {self.num_zones}"
             )
+        want_expr = meta.get("expr_sha256")
+        have_expr = None
+        if expr is not None:
+            from .. import expr as _expr  # lazy: see _zonal()
+
+            have_expr = _expr.tree_hash(expr)
+        if want_expr != have_expr:
+            raise ValueError(
+                "snapshot expression mismatch — the interrupted scan "
+                f"folded tree {want_expr!r}, resume was given "
+                f"{have_expr!r}; pass the same expression (structural "
+                "equality) or none at all"
+            )
         # a snapshot without the key is the reference's, whose only lane
         # is the fold; the lanes' partial sums differ in type and order
+        # (an expression scan always folds in the f64 fold lane)
         snap_lane = meta.get("lane", "fold")
-        if snap_lane != self.lane:
+        lane = "fold" if expr is not None else self.lane
+        if snap_lane != lane:
             raise ValueError(
-                f"snapshot lane {snap_lane!r} != this stream's {self.lane!r} "
+                f"snapshot lane {snap_lane!r} != this scan's {lane!r} "
                 "— the partial sums of one lane do not continue the other's"
-            )
-        if meta.get("expr_sha256") is not None:
-            raise ValueError(
-                "snapshot expression mismatch — the interrupted scan folded "
-                f"tree {meta['expr_sha256']!r}; expression scans are "
-                "ROADMAP queue 1 item 8"
             )
         tile = tuple(meta["tile"]) if meta.get("tile") else None
         return self._run(
-            raster, band=int(meta.get("band", 1)), tile=tile,
+            raster, band=int(meta.get("band", 1)), expr=expr, tile=tile,
             run_dir=run_dir,
             snapshot_every=int(meta.get("snapshot_every", 8)),
             start_tile=int(step),
@@ -224,7 +237,7 @@ class RasterStream:
 
     # ------------------------------------------------------------ engine
     def _run(
-        self, raster, *, band, tile, run_dir, snapshot_every,
+        self, raster, *, band, expr, tile, run_dir, snapshot_every,
         start_tile, acc0, resumed_from, watchdog_default_s,
         retry_policy, trace_parent, window=None,
     ) -> RasterScanResult:
@@ -244,11 +257,11 @@ class RasterStream:
             parent=trace_parent,
             ntiles=plan.ntiles, th=th, tw=tw, band=band,
             zones=self.num_zones, resumed_from=resumed_from,
-            fused=False,
+            fused=expr is not None,
         )
         try:
             return self._run_traced(
-                raster, plan=plan, band=band, run_dir=run_dir,
+                raster, plan=plan, band=band, expr=expr, run_dir=run_dir,
                 snapshot_every=max(1, int(snapshot_every)),
                 start_tile=start_tile, acc0=acc0,
                 resumed_from=resumed_from,
@@ -262,7 +275,7 @@ class RasterStream:
             root.end()
 
     def _run_traced(
-        self, raster, *, plan, band, run_dir, snapshot_every,
+        self, raster, *, plan, band, expr, run_dir, snapshot_every,
         start_tile, acc0, resumed_from, watchdog_default_s,
         retry_policy, root, window=None,
     ) -> RasterScanResult:
@@ -270,9 +283,35 @@ class RasterStream:
         th, tw = plan.shape
         g = self.num_zones
         eng = self.engine
-        fold = self.lane == "fold"
+        fold = self.lane == "fold" or expr is not None
         acc_np = np.float64 if fold else np.float32
-        vals, mask = tiles.stack_tiles(raster, plan, band, dtype=acc_np)
+        expr_sha = None
+        if expr is None:
+            vals, mask = tiles.stack_tiles(raster, plan, band, dtype=acc_np)
+        else:
+            # fused expression scan: stage the whole referenced band
+            # stack; per tile ONE program computes the tree and folds it
+            from .. import expr as _expr  # lazy: see _zonal()
+            from ..expr import compile as _ec, eval as _ee
+
+            value, kind, by, _stats = _expr.terminal_of(expr)
+            if kind != "zonal" or (by or "zones") != "zones":
+                raise ValueError(
+                    "RasterStream.scan(expr=...) folds zones — use a "
+                    "zones zonal terminal (or a bare value tree)"
+                )
+            _expr.validate(expr, raster.num_bands, has_zones=True, by="zones")
+            expr_sha = _expr.tree_hash(expr)
+            vals, mask = _ee.stack_bands(raster, plan, _expr.bands_of(value))
+            acc_name = _ee.acc_name(eng)
+            expr_prog = _ec.zonal_program(
+                value, th, tw, g, acc_name, eng.index_system, eng.resolution,
+            )
+            expr_sig = _ec.signature_of(
+                value, th, tw, g, acc_name, eng.index_system,
+                eng.resolution, None,
+            )
+            band = 0  # snapshot meta: fused scans read the stack
         if acc0 is None:
             cnt_acc = np.zeros(g, np.int64)
             sum_acc = np.zeros(g, acc_np)
@@ -294,8 +333,8 @@ class RasterStream:
                 "raster_sha256": _checkpoint.fingerprint(
                     np.ascontiguousarray(raster.data)
                 ),
-                "expr_sha256": None,
-                "lane": self.lane,
+                "expr_sha256": expr_sha,
+                "lane": "fold" if fold else self.lane,
                 "trace": root.context.as_dict(),
             }
         host = getattr(self.chip_index, "host", None)
@@ -314,10 +353,22 @@ class RasterStream:
         def launch(i):
             t = start + i
 
-            def dispatch(t=t):
-                return eng._tile_zone_stats_async(
-                    plan, t, vals[t].reshape(-1), mask[t].reshape(-1),
-                )
+            if expr is None:
+                def dispatch(t=t):
+                    return eng._tile_zone_stats_async(
+                        plan, t, vals[t].reshape(-1), mask[t].reshape(-1),
+                    )
+            else:
+                def dispatch(t=t):
+                    # probe + epsilon patch, then the fused
+                    # expression+fold program
+                    geom = eng._tile_zone_rows(plan, t)
+                    seg = np.where(geom >= 0, geom, -1).astype(np.int32)
+                    return _ec.run_zonal_async(
+                        expr_prog, expr_sig,
+                        np.asarray(plan.gt, np.float64), plan.origins[t],
+                        vals[t], mask[t], seg, device=eng.device,
+                    )
 
             with _trace.span("raster.zonal", step=t, n=1, pipelined=True):
                 try:
@@ -333,6 +384,14 @@ class RasterStream:
                         "degraded", label="raster.zonal", step=t,
                         attempts=e.attempts, error=repr(e.last)[:200],
                     )
+                    if expr is not None:
+                        return ("host", _expr.host_expr_tile_partial(
+                            value, vals[t], mask[t],
+                            zonal.host_tile_centers(plan, t),
+                            index_system=self.index_system,
+                            resolution=self.resolution,
+                            host=host, num_segments=g, by="zones",
+                        ))
                     return ("host", zonal.host_zone_partial(
                         zonal.host_tile_centers(plan, t),
                         vals[t].reshape(-1), mask[t].reshape(-1),

@@ -123,3 +123,57 @@ def test_warm_device_cells_copy_no_table(monkeypatch):
     for dtype in (torch.float64, torch.float32):
         PORT.point_to_cell_margin(pts.to(dtype), 9)
         PORT.point_to_cell_alt(pts.to(dtype), 9)
+
+
+# ------------------------------------------- the first call of a process
+#
+# On the CPU, the first transcendental of a process (torch's MKL vector
+# math: cos, sin, sqrt, atan, ...) can give wrong bits in whole thread
+# chunks when it is split over the intra-op pool (3-8% of fresh
+# processes, torch 2.13); `hexmath.warm_cpu_math` makes a one-element call
+# first, once a process. Only a fresh interpreter shows the fault, so
+# these tests start them (in parallel, each under its own timeout)
+# through `mosaic_tpu_torch.tools.first_call_sweep`.
+
+
+def test_first_cell_assignment_of_fresh_processes_is_right():
+    """32 fresh interpreters with 32 intra-op threads each (where the
+    fault is likeliest on this path): each one's FIRST `point_to_cell`
+    (f32 tensor, the 161,354 seed-7 NYC points, res 9) equals its second,
+    and its f64 tensor path equals the numpy host path."""
+    from mosaic_tpu_torch.tools.first_call_sweep import sweep
+
+    out = sweep(32, parallel=4, mode="cells", timeout_s=600.0, threads=32)
+    assert out["differing"] == 0, out["rows_differing"]
+
+
+def test_first_transcendental_of_fresh_processes_is_right():
+    """64 fresh interpreters, 16 for each op: once a CPU `TorchNamespace`
+    is made, the process's first f32 ``cos`` or ``sin`` through it, or
+    ``sqrt`` or ``atan`` through torch, equals its second call."""
+    from mosaic_tpu_torch.tools.first_call_sweep import sweep
+
+    out = sweep(64, parallel=6, mode="trig", timeout_s=600.0)
+    assert out["differing"] == 0, out["rows_differing"]
+
+
+def test_cpu_namespace_sets_up_vector_math_once_a_process(monkeypatch):
+    """The set-up is one one-element ``cos``, made by the first CPU
+    namespace of a process and by no later one, on any thread; a CUDA
+    namespace makes none."""
+    import threading
+
+    from mosaic_tpu_torch.core.index.h3 import hexmath
+
+    calls = []
+    real = torch.cos
+    monkeypatch.setattr(torch, "cos", lambda x: calls.append(x.numel()) or real(x))
+    monkeypatch.setattr(hexmath, "_CPU_MATH_READY", False)
+    hexmath.TorchNamespace("cpu")
+    hexmath.TorchNamespace("cpu")
+    assert calls == [1]
+    t = threading.Thread(target=hexmath.TorchNamespace, args=("cpu",))  # lint: thread-context-adoption-ok (the test needs a fresh thread with no context)
+    t.start()
+    t.join()
+    hexmath.TorchNamespace("cuda")  # builds nothing, sets up nothing
+    assert calls == [1]

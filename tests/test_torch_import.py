@@ -54,6 +54,15 @@ MODULES = [
     "mosaic_tpu_torch.serve.bucket",
     "mosaic_tpu_torch.serve.engine",
     "mosaic_tpu_torch.serve.router",
+    "mosaic_tpu_torch.expr",
+    "mosaic_tpu_torch.expr.ast",
+    "mosaic_tpu_torch.expr.compile",
+    "mosaic_tpu_torch.expr.eval",
+    "mosaic_tpu_torch.expr.host_oracle",
+    "mosaic_tpu_torch.kernels.overlay",
+    "mosaic_tpu_torch.sql.overlay",
+    "mosaic_tpu_torch.core.geometry.hostops",
+    "mosaic_tpu_torch.tools.first_call_sweep",
 ]
 
 
@@ -92,6 +101,21 @@ def test_serve_modules_leave_jax_and_reference_out():
     """The serving slice's entry modules, imported alone."""
     code = (
         "import mosaic_tpu_torch.serve, mosaic_tpu_torch.dispatch, sys; "
+        "assert 'jax' not in sys.modules and 'mosaic_tpu' not in sys.modules"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=str(ROOT), timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_expr_and_overlay_modules_leave_jax_and_reference_out():
+    """The expression compiler's and the overlay join's entry modules,
+    imported alone."""
+    code = (
+        "import mosaic_tpu_torch.expr, mosaic_tpu_torch.sql.overlay, sys; "
         "assert 'jax' not in sys.modules and 'mosaic_tpu' not in sys.modules"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -182,3 +206,19 @@ def test_entry_points_raise_without_cuda(no_cuda):
     with ServeEngine(ix, H3IndexSystem(), 9) as eng:  # the index's device
         assert eng.core.device.type == "cpu"
         assert eng.join(pts, deadline_s=30.0).shape == (1,)
+    from mosaic_tpu_torch import expr as E
+    from mosaic_tpu_torch.raster import Raster
+    from mosaic_tpu_torch.sql.overlay import intersects_join, overlay_measures
+
+    r = Raster(data=np.ones((2, 4, 4)), gt=(-74.0, 0.001, 0.0, 40.71, 0.0, -0.001))
+    with pytest.raises(DeviceUnavailable):
+        E.map_pixels(E.ndvi(), r)
+    assert E.map_pixels(E.ndvi(), r, device="cpu")[1].all()
+    with pytest.raises(DeviceUnavailable):
+        overlay_measures(zones, zones, H3IndexSystem(), 9)
+    got = overlay_measures(zones, zones, H3IndexSystem(), 9, device="cpu")
+    assert got.lane == "device" and got.pairs.tolist() == [[0, 0]]
+    with pytest.raises(DeviceUnavailable):  # never answered by the host oracle
+        intersects_join(zones, zones, H3IndexSystem(), 9)
+    assert intersects_join(zones, zones, H3IndexSystem(), 9,
+                           device="cpu").tolist() == [[0, 0]]

@@ -757,3 +757,153 @@ def test_two_tenant_engines_warming_at_once_agree_with_pip_join(cuda):
     finally:
         for eng in engines:
             eng.close()
+
+
+# ---- expressions and the overlay join on the card
+
+
+def _expr_raster():
+    """Three NaN-speckled bands over the custom indexes' zones (the
+    `_custom_raster` box and pixels)."""
+    from mosaic_tpu_torch.raster import Raster
+
+    rng = np.random.default_rng(43)
+    data = rng.uniform(1.0, 100.0, (3, 300, 330))
+    for b in range(3):
+        data[b][rng.random((300, 330)) < 0.08] = np.nan
+    return Raster(data=data, gt=(-20.3, 0.125, 0.0, 19.7, 0.0, -0.125), srid=0,
+                  nodata=float("nan"))
+
+
+def _same_result(a, b):
+    np.testing.assert_array_equal(a.keys, b.keys)
+    np.testing.assert_array_equal(a.count, b.count)
+    for x, y in ((a.sum, b.sum), (a.min, b.min), (a.max, b.max)):
+        np.testing.assert_array_equal(x.view(np.int64), y.view(np.int64))
+
+
+@pytest.mark.parametrize("by", ["zones", "grid"])
+def test_fused_map_on_card_equals_cpu_and_oracle(cuda, by):
+    """A fused expression fold on the card (probe through
+    `pip_heavy_tiled`, the f64 fold through `zonal_seq_fold`) equals the
+    CPU's plain path and the f64 host oracle bit for bit."""
+    from mosaic_tpu_torch import expr as E
+    from mosaic_tpu_torch.raster import ZonalEngine
+
+    grid, ixs = _custom_indexes(cuda)
+    r = _expr_raster()
+    tree = E.ndvi(nir=2, red=1).mask_where(E.band(3) < 80.0).zonal(by=by)
+    TP.pip_heavy_tiled.launches = TZ.zonal_fold.launches = 0
+    got = ZonalEngine(grid, 3, chip_index=ixs["cuda"], device=cuda).map(tree, r, tile=(64, 64))
+    assert TZ.zonal_fold.launches > 0
+    assert by == "grid" or TP.pip_heavy_tiled.launches > 0
+    cpu = ZonalEngine(grid, 3, chip_index=ixs["cpu"], device="cpu").map(tree, r, tile=(64, 64))
+    oracle = E.host_expr_zonal_oracle(
+        r, tree, index_system=grid, resolution=3,
+        chip_index=ixs["cpu"] if by == "zones" else None, tile=(64, 64),
+    )
+    assert got.keys.size > 0
+    _same_result(got, cpu)
+    _same_result(got, oracle)
+
+
+def test_expr_scan_and_join_on_card_equal_cpu(cuda, tmp_path):
+    from mosaic_tpu_torch import expr as E
+    from mosaic_tpu_torch.raster import ZonalEngine
+    from mosaic_tpu_torch.runtime import faults
+    from mosaic_tpu_torch.sql import RasterStream
+
+    grid, ixs = _custom_indexes(cuda)
+    r = _expr_raster()
+    tree = E.norm_diff(E.band(2), E.band(1)).zonal(by="zones")
+    st = RasterStream(ixs["cuda"], grid, 3)
+    scan = st.scan(r, expr=tree, tile=(64, 64)).stats
+    _same_result(scan, ZonalEngine(grid, 3, chip_index=ixs["cpu"], device="cpu").map(
+        tree, r, tile=(64, 64)))
+    d = str(tmp_path)
+    with faults.inject(fail_first=99, skip_first=3, sites=("raster.zonal",),
+                       exc_factory=lambda s: RuntimeError("kill")):
+        with pytest.raises(RuntimeError):
+            st.scan(r, expr=tree, tile=(64, 64), run_dir=d, snapshot_every=1)
+    _same_result(st.resume(d, r, expr=tree).stats, scan)
+    j = E.ndvi().join()
+    got = ZonalEngine(grid, 3, chip_index=ixs["cuda"], device=cuda).map(j, r, tile=(64, 64))
+    want = ZonalEngine(grid, 3, chip_index=ixs["cpu"], device="cpu").map(j, r, tile=(64, 64))
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[2], want[2])
+    assert got[1].tobytes() == want[1].tobytes()
+
+
+def test_expr_on_card_raises_when_retries_exhausted(cuda):
+    """Past the retry budget a fused tile on the card raises
+    `RetryExhausted`; no tile is answered by the host oracle."""
+    from mosaic_tpu_torch import expr as E
+    from mosaic_tpu_torch.raster import ZonalEngine
+    from mosaic_tpu_torch.runtime import RetryExhausted, RetryPolicy, faults, telemetry
+
+    grid, ixs = _custom_indexes(cuda)
+    eng = ZonalEngine(grid, 3, chip_index=ixs["cuda"], device=cuda)
+    with telemetry.capture() as ev:
+        with faults.transient_errors(50, sites=("expr.map",)):
+            with pytest.raises(RetryExhausted):
+                eng.map(E.ndvi().zonal(by="zones"), _expr_raster(), tile=(64, 64),
+                        retry_policy=RetryPolicy(max_attempts=3, base_delay_s=0.0,
+                                                 jitter=0.0))
+    assert "degraded" not in [e["event"] for e in ev]
+
+
+def _square_cols(n, offset):
+    from mosaic_tpu_torch.core.types import GeometryType, PackedGeometry
+
+    j, i = np.divmod(np.arange(n * n), n)
+    x, y = offset[0] + i * 2.9, offset[1] + j * 2.9
+    s = 2.4 if offset[0] else 2.7
+    xy = np.stack([np.stack([x, y], -1), np.stack([x + s, y], -1),
+                   np.stack([x + s, y + s], -1), np.stack([x, y + s], -1)],
+                  axis=1).reshape(-1, 2)
+    k = np.arange(n * n + 1)
+    return PackedGeometry(xy=xy, ring_offsets=4 * k, part_offsets=k, geom_offsets=k,
+                          geom_type=np.full(n * n, int(GeometryType.POLYGON)),
+                          srid=np.zeros(n * n, np.int32))
+
+
+@pytest.mark.parametrize("pair_cap", [None, 5])
+def test_overlay_measures_on_card_equals_host_lane(cuda, pair_cap):
+    """The overlay device lane on the card (clip, fold through
+    `zonal_seq_fold`, pair tree) equals the f64 host lane bit for bit,
+    the OVERFLOW row included, and degrades nowhere."""
+    from mosaic_tpu_torch import expr as E
+    from mosaic_tpu_torch.core.index import CustomIndexSystem, GridConf
+    from mosaic_tpu_torch.sql import overlay as OV
+
+    grid = CustomIndexSystem(GridConf(-180, 180, -90, 90, 2, 10.0, 10.0))
+    left, right = _square_cols(5, (0.0, 0.0)), _square_cols(5, (0.9, 0.6))
+    TZ.zonal_fold.launches = 0
+    dev = OV.overlay_measures(left, right, grid, 3, E.overlap_fraction(),
+                              pair_cap=pair_cap, device=cuda)
+    assert dev.lane == "device" and not dev.degraded
+    assert TZ.zonal_fold.launches == 1
+    host = OV.overlay_measures(left, right, grid, 3, E.overlap_fraction(),
+                               pair_cap=pair_cap, device=cuda, lane="host")
+    for f in ("pairs", "value", "valid", "area", "sure"):
+        a, b = np.asarray(getattr(dev, f)), np.asarray(getattr(host, f))
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), f
+    assert dev.overflow == host.overflow and (pair_cap is None) == (dev.overflow == 0)
+
+
+def test_intersects_join_device_predicate_on_card_equals_oracle(cuda):
+    """By default `intersects_join` refines the border pairs on the card,
+    in f64, and returns the CPU path's pairs; the batched predicate on
+    the card answers as the host oracle, row for row."""
+    from mosaic_tpu_torch.core.geometry.oracle import pair_intersects
+    from mosaic_tpu_torch.core.index import CustomIndexSystem, GridConf
+    from mosaic_tpu_torch.sql import overlay as OV
+
+    grid = CustomIndexSystem(GridConf(-180, 180, -90, 90, 2, 10.0, 10.0))
+    left, right = _square_cols(5, (0.0, 0.0)), _square_cols(5, (0.9, 0.6))
+    got = OV.intersects_join(left, right, grid, 3)
+    np.testing.assert_array_equal(got, OV.intersects_join(left, right, grid, 3,
+                                                          device="cpu"))
+    assert got.shape[0] > 0
+    np.testing.assert_array_equal(OV._device_pair_intersects(left, right, cuda),
+                                  pair_intersects(left, right))

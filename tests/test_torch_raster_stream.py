@@ -347,8 +347,12 @@ def test_resume_reads_a_snapshot_without_lane_as_fold(ref_stream, ref_raster,
 
 def test_unported_arguments_raise(index, raster):
     st = RasterStream(index, PORT, RES)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        st.scan(raster, expr=object())
+    # expression scans are ported: a tree the raster cannot feed is
+    # refused by validation before any tile runs
+    from mosaic_tpu_torch import expr as E
+
+    with pytest.raises(ValueError, match="out of range"):
+        st.scan(raster, expr=E.band(9).zonal())
     with pytest.raises(NotImplementedError, match="item 12"):
         RasterStream(index, PORT, RES, mesh=object())
     with pytest.raises(NotImplementedError, match="item 13"):
