@@ -63,8 +63,8 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    float values (the sequential branch): the wrapper's time, the
    kernel's own, the longest run, the longest sequential-branch run and
    the measured latency of one dependent ``__dadd_rn`` that bounds it;
-8. raster path: ``synthetic_raster(4800, 4800)`` (23.04M pixels of about
-   12 x 14 m) over the same zones and index, default (256, 256) tiles:
+8. raster path: ``synthetic_raster(2400, 2400)`` (5.76M pixels of about
+   24 x 28 m) over the same zones and index, default (256, 256) tiles:
    ``ZonalEngine.zones`` in the tiled lane (must launch ``zonal_tiled``
    once per tile with live pixels, and ``pip_heavy_tiled``), in the fold
    lane, and ``ZonalEngine.grid``, each with its warm wall time and
@@ -98,8 +98,8 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    crop (fold lane) the plain, durable, killed-and-resumed and retried
    scans must equal the fold zones bit for bit; prints tiles/s and
    pixels/s;
-8g. expressions (``mosaic_tpu_torch/expr``): ``synthetic_raster(4800,
-   4800, bands=3)`` over phase 3's zones; the tree ``ndvi(nir=2,
+8g. expressions (``mosaic_tpu_torch/expr``): ``synthetic_raster(2400,
+   2400, bands=3)`` over phase 3's zones; the tree ``ndvi(nir=2,
    red=1).mask_where(band(3) < t)``, ``t`` the 80th percentile of band
    3's valid values, run as one fused program a tile (probe through
    ``pip_heavy_tiled``, fold in f64 through ``zonal_seq_fold``) by zones,
@@ -117,19 +117,19 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    scan resumed equals the uninterrupted one, and a resume with another
    tree refuses; no cold compile and no nvcc build after the warmups of
    8g. Prints tiles/s beside ``map_zonal``'s;
-8i. the overlay join (``sql/overlay.py``) at the reference overlay bench's
-   defaults: 110 x 110 squares a side on the custom grid
-   ``GridConf(-180, 180, -90, 90, 2, 10, 10)`` at resolution 4 (24,200
-   geometries), ``overlap_fraction()``, ``prepare_overlay`` once and
+8i. the overlay join (``sql/overlay.py``) on the reference overlay
+   bench's squares, 55 x 55 a side (the bench's default is 110 x 110) on
+   the custom grid ``GridConf(-180, 180, -90, 90, 2, 10, 10)`` at
+   resolution 4 (6,050 geometries), ``overlap_fraction()``, ``prepare_overlay`` once and
    ``warmup_overlay``. Gates: the device lane equals the f64 host lane
    bit for bit on pairs, value, valid, area and sure; no overflow; no
    nvcc build and no cold compile in the warm runs; the fold at the
    overlay's shapes equals the CPU lane. Prints pairs/s of both lanes
    and the host-overridden pairs;
-8d-8f run in a process of their own (``--serve-child``; its lines'
-   ``t_s`` count from its own start), which loads phase 3's index from
-   disk and the kernel libraries built in phase 2: it must start no nvcc
-   build. The ``serve_process`` line gives a
+8d-8f and 8j run in a process of their own (``--serve-child``; its
+   lines' ``t_s`` count from its own start, the parent passes them
+   through), which loads phase 3's index from disk and the kernel
+   libraries built in phase 2: it must start no nvcc build. The ``serve_process`` line gives a
    1,024-row dispatch's host ms in this process, which the profiler has
    traced (every later eager op runs slower), beside the child's;
 8d. serving (``serve/engine.py ServeEngine``, the reference serve
@@ -145,14 +145,15 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    requests/s, points/s, p50 and p99 latency, occupancy, batches, and a
    1,024-row dispatch's host ms alone and beside a thread holding the
    GIL (a 2,250 Hz ticker of 80 µs, and a thread that never leaves
-   Python); after 8f, the ``serve_profile`` line gives the device idle
+   Python); after 8j, the ``serve_profile`` line gives the device idle
    share over a profiled window of 200 requests;
 8e. serve resilience on that engine: a transient fault at
    ``serve.dispatch`` is retried to the same bits; exhausted retries
    fail the request with ``RetryExhausted`` and nothing degrades; a
    request with 100 NaN rows is parked (-1) and its batchmates' bits are
    untouched; ``hot_swap`` to the index of ``synthetic_zones(16, 16,
-   verts=256, seed=12)`` in the middle of a stream of requests: every
+   verts=256, seed=12)`` over the middle quarter of the bbox, in the
+   middle of a stream of requests: every
    answer equals one of the two indexes' ``pip_join``, every request
    submitted after the swap returned equals the new index's, and the
    swap makes no cold compile and no nvcc build;
@@ -162,6 +163,28 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    nothing and every answer is exact; with ``max_resident=2`` a third
    tenant evicts one, and a submit revives it with no nvcc build and no
    cold compile. Prints each tenant's shed rate, p50 and p99;
+8j. KNN (``mosaic_tpu_torch/knn``, ``models/knn.py``), in the serving
+   process after 8f: 10,000 squares over the NYC bbox (uniform corners,
+   sides of 0.5-1.5 H3 res-9 cell widths, the reference's
+   ``tests/test_knn_serve.py`` candidates), ``build_knn_index`` at H3
+   res 9, k = 5, both lanes warmed. Gates, each bit for bit: both lanes
+   equal ``brute_force_knn`` on 32 queries; the Voronoi lane equals the
+   ring lane on 64 rows; the card equals the CPU frontend on them;
+   ``SpatialKNN`` (exact) on the card equals the CPU on 200 landmarks; a
+   transient fault at ``knn.distance`` retries to the same bits;
+   exhausted retries raise ``RetryExhausted`` and record no degradation;
+   the warmups' signatures equal the rungs; no nvcc build and no cold
+   compile; in a mixed closed loop of 300 requests (8 clients, half pip
+   of 1-1,024 rows, half KNN of 1-8 rows, ring lane) every pip answer
+   equals ``pip_join`` and every KNN answer the engine-less ring lane,
+   pip and KNN requests share batches, nothing is shed or degraded and
+   ``pip_heavy_tiled`` is launched. The loop's deadline is
+   ``max(SERVE_DEADLINE_S, 10 x)`` one warm top-rung mixed dispatch
+   measured before it; the line prints ``max_latency_over_deadline``
+   (a finding, not a gate), latency per kind, each lane's queries/s, the
+   stage split of a 64-row dispatch and ``knn_s``; the ``knn_profile``
+   line, after every other phase of the process, gives that dispatch's
+   device ops and idle share;
 9. a ``kernels`` line with each kernel's launches (their sum over the
    paths above, and each path's own count), times and bound, and each
    raster kernel's device time per launch in the crop profile.
@@ -175,9 +198,13 @@ The build phase reports each kernel's FFMA/DFMA count in the SASS
 (``cuobjdump -sass``): the kernels build with ``-fmad=false``, so only
 IEEE division's own sequence holds any.
 
-Every phase prints one JSON line; any failed check exits non-zero. The
-last line is ``{"ok": true, "device": {...}}``. Exits non-zero without a
-result when no CUDA card is available or the package is missing.
+Every phase prints one JSON line; a line whose gates hold a false one
+names them (``failed_gates``); any failed check prints ``{"phase":
+"failed", "in": <phase>, "why": ..., "t_s": ...}`` on stdout and exits
+non-zero, and so does a serving process killed at its time limit (with
+the phase of its last line). The last line is ``{"ok": true, "device":
+{...}}``. Exits non-zero without a result when no CUDA card is available
+or the package is missing.
 """
 
 from __future__ import annotations
@@ -189,6 +216,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -201,7 +229,7 @@ N_EXACT = 1_000_000        # subset of the exact join held against host_join
 N_DRIFT = 1_000_000        # global points a drift-sweep configuration
 N_FAULT = 200_000          # points of each fault-pass join
 WATCHDOG_S = 2.0           # the fault pass's watchdog deadline
-RASTER = (4800, 4800)      # width, height: the Sentinel-2 10 m class over NYC
+RASTER = (2400, 2400)      # width, height: the Landsat 30 m class over NYC
 CROP = 1024                # side of the crop held against the f64 oracles
 NODATA = 32767
 RES = 9
@@ -212,7 +240,10 @@ STREAM_RING = 8            # ring slots of N_POINTS: the stream bench's --ring 8
 STREAM_BATCHES = 25        # 25 x 4M = 100M points, the stream bench's long run
 STREAM_HEADROOM = 1.05     # cap headroom over the largest slot's exact counts
 STREAM_POISON = 1000       # rows poisoned in each of 3 admitted batches
+STREAM_EVERY1_REPS = 1     # runs of each executor snapshotting every batch
+RASTER_WARM_REPS = 2       # warm whole-raster calls of each raster path
 RUNS_DIR = ".chip_smoke_runs"  # run directories of the durable phases (removed)
+CHILD_TIMEOUT_S = 600       # the serving process (8d-8f, 8j)
 # serving (8d-8f): the reference serve bench's settings
 # (tools/serve_bench.py defaults) and SERVE_TENANT_r16.json's traffic
 SERVE_LADDER = (64, 16384)  # --min-bucket, --max-bucket
@@ -227,14 +258,29 @@ SERVE_SEED = 7
 SERVE_PROFILED = 200        # requests in the profiled window
 SERVE_POISON = 100          # NaN rows of the parked request
 SWAP_SEED = 12              # zones of the index swapped in under load
+SWAP_BOX = 0.25             # share of the bbox they cover, in its middle
 TENANTS = 3                 # tenant_0 the aggressor
 TENANT_RATE = 150.0         # requests/s of each victim, open loop
 TENANT_MULT = 15.0          # the aggressor's multiple of rate and requests
 TENANT_REQUESTS = 100       # per victim
 EXPR_KEEP = 0.8             # share of band 3's valid pixels the expr mask keeps
-OVERLAY_N = 110             # squares per side per table (tools/overlay_bench.py)
+OVERLAY_N = 55              # squares per side per table (tools/overlay_bench.py: 110)
 OVERLAY_RES = 4
 OVERLAY_REPS = 3
+# KNN (8j): the reference's test_knn_serve.py square candidates over NYC
+KNN_CANDIDATES = 10_000     # squares, uniform corners and sides
+KNN_SIDE = (0.5, 1.5)       # side range in H3 res-9 cell widths
+KNN_RES = 9
+KNN_K = 5
+KNN_SEED = 19
+KNN_ORACLE = 32             # queries held against brute_force_knn
+KNN_ROWS = 64               # rows of the lane and CPU comparisons
+KNN_LANDMARKS = 200         # SpatialKNN landmarks, card against CPU
+KNN_MODEL_BOX = 0.25        # SpatialKNN's candidates: this share of the bbox
+KNN_REQUESTS = 300          # mixed closed loop: half pip, half KNN
+KNN_REQ_ROWS = (1, 8)       # rows of a KNN request
+KNN_DEADLINE_X = 10.0       # loop deadline over one warm top-rung mixed dispatch
+KNN_HEADROOM = 0.25         # most a request's latency may take of its deadline
 
 #: H100 SXM rates: HBM3 bytes/s (NVIDIA data sheet); single f32 and f64
 #: operations per second outside the tensor cores. The data sheet's 67 and
@@ -276,18 +322,30 @@ ZONAL_SUM_RTOL = 1e-6
 
 
 START = time.perf_counter()
+#: the phase of the last line printed, named by a failure
+LAST_PHASE = "start"
 
 
 def emit(obj) -> None:
     """Print one JSON line; a phase line carries the script's elapsed
-    seconds as ``t_s``."""
+    seconds as ``t_s``, and a line whose ``gates`` hold a false one names
+    them in ``failed_gates``."""
+    global LAST_PHASE
     if "phase" in obj:
-        obj = {**obj, "t_s": time.perf_counter() - START}
+        LAST_PHASE = obj["phase"]
+        bad = [k for k, v in obj.get("gates", {}).items() if not v]
+        obj = {**obj, **({"failed_gates": bad} if bad else {}),
+               "t_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
-def fail(msg: str) -> int:
-    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+def fail(msg: str, where: str | None = None) -> int:
+    """Report a failure on stdout (a ``failed`` line naming the phase it
+    came in) and stderr; returns the exit code 1."""
+    where = where or LAST_PHASE
+    print(json.dumps({"phase": "failed", "in": where, "why": msg,
+                      "t_s": time.perf_counter() - START}), flush=True)
+    print(f"chip_smoke: FAILED in {where}: {msg}", file=sys.stderr, flush=True)
     return 1
 
 
@@ -485,7 +543,7 @@ def dispatch_contention(core, pts) -> dict:
 
     out = {}
     for name, target, reps in (("alone", None, 20), ("ticker_2250hz_80us", ticker, 20),
-                               ("busy_python_thread", busy, 3)):
+                               ("busy_python_thread", busy, 2)):
         stop.clear()
         th = threading.Thread(target=target, daemon=True) if target else None
         if th:
@@ -814,10 +872,75 @@ def expr_overlay_phases(ix, H3, dev, n_zones, counted, cuda_ms, runs_dir, fold_e
     }
 
 
+class GcPauses:
+    """Garbage-collection pauses while active (``gc.callbacks``): their
+    count and seconds by generation, and each pause's (start, seconds) on
+    the perf_counter clock."""
+
+    def __init__(self):
+        self.pauses, self._t0 = [], None
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.pauses.append((self._t0, time.perf_counter() - self._t0,
+                                info.get("generation")))
+            self._t0 = None
+
+    def __enter__(self):
+        import gc
+
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._cb)
+
+    def summary(self) -> dict:
+        by_gen = {}
+        for _, sec, gen in self.pauses:
+            c, t = by_gen.get(gen, (0, 0.0))
+            by_gen[gen] = (c + 1, t + sec)
+        return {"count_and_s_by_generation": {str(g): v for g, v in by_gen.items()},
+                "max_s": max((p[1] for p in self.pauses), default=0.0)}
+
+
+def latency_outlier(lat, t_start, t0, rows, events, gcp) -> dict:
+    """Where the slowest request of a closed loop came from: its index,
+    submit time (s after the loop began), rows and latency; the dispatches
+    that ran while it was in flight (bucket, seconds, and whether it was
+    that bucket's first dispatch since warmup); and the GC pauses that
+    overlapped it."""
+    i = max(range(len(lat)), key=lambda j: lat[j] if lat[j] is not None else -1.0)
+    a, b = t_start[i], t_start[i] + lat[i]
+    off = time.monotonic() - time.perf_counter()  # events stamp ts_mono
+    first, during = set(), []
+    for e in events:
+        if e.get("event") != "serve_stage" or e.get("stage") != "dispatch":
+            continue
+        bucket = e.get("bucket")
+        is_first = bucket not in first
+        first.add(bucket)
+        end = e["ts_mono"] - off
+        if a <= end <= b:
+            during.append({"kind": e.get("kind", "pip"), "bucket": bucket,
+                           "rows": e.get("rows"), "seconds": e.get("seconds"),
+                           "first_at_bucket": is_first})
+    gc_in = [{"at_s": p0 - t0, "seconds": sec, "generation": gen}
+             for p0, sec, gen in gcp.pauses if p0 < b and p0 + sec > a]
+    return {"request": i, "submitted_at_s": a - t0, "rows": rows[i],
+            "latency_s": lat[i], "dispatches_in_flight": during[:8],
+            "gc_pauses_in_flight": gc_in}
+
+
 def serve_phases(ix, H3, dev):
     """Phases 8d-8f, serving over phase 3's index. Returns (failure
-    message or None, {"serve": launches, "router": launches}) of
-    ``pip_heavy_tiled``, each counted from 0 just before its run."""
+    message or None, {"serve": launches, "router": launches} of
+    ``pip_heavy_tiled``, each counted from 0 just before its run, and the
+    function that runs the profiled window, to be called last)."""
     import numpy as np
     import torch
 
@@ -865,10 +988,12 @@ def serve_phases(ix, H3, dev):
                         if d is not None else None, type(a).__name__)
         return None
 
-    def closed_loop(eng, reqs):
+    def closed_loop(eng, reqs, timing=None):
         """(answers, errors, wall s): SERVE_CLIENTS clients, each submitting
-        its next request when its last one is answered."""
+        its next request when its last one is answered. ``timing``, a dict,
+        gets each request's client-side latency and submit instant."""
         answers, errors = [None] * len(reqs), []
+        lat, t_start = [None] * len(reqs), [None] * len(reqs)
         cursor, lock = iter(range(len(reqs))), threading.Lock()
         sinks = telemetry.current_sinks()
 
@@ -879,10 +1004,12 @@ def serve_phases(ix, H3, dev):
                     i = next(cursor, None)
                 if i is None:
                     return
+                t_start[i] = time.perf_counter()
                 try:
                     answers[i] = eng.submit(reqs[i]).result()
                 except Exception as e:  # lint: broad-except-ok (every failure is listed and gated)
                     errors.append((i, repr(e)[:200]))
+                lat[i] = time.perf_counter() - t_start[i]
 
         threads = [threading.Thread(target=client, daemon=True)
                    for _ in range(SERVE_CLIENTS)]
@@ -891,6 +1018,8 @@ def serve_phases(ix, H3, dev):
             t.start()
         for t in threads:
             t.join()
+        if timing is not None:
+            timing.update(lat=lat, t_start=t_start, t0=t0)
         return answers, errors, time.perf_counter() - t0
 
     reqs = make_requests(SERVE_SEED, SERVE_REQUESTS)
@@ -909,9 +1038,12 @@ def serve_phases(ix, H3, dev):
         staged = eng.core.stage(rng.uniform(bbox[:2], bbox[2:], (b, 2)))
         syncs[b] = count_syncs(lambda: eng.core.probe_staged(*staged))[0]
     K.pip_heavy_tiled.launches = 0
-    with telemetry.capture() as events:
-        answers, errors, wall = closed_loop(eng, reqs)
+    timing = {}
+    with telemetry.capture() as events, GcPauses() as gcp:
+        answers, errors, wall = closed_loop(eng, reqs, timing)
     serve_launches = K.pip_heavy_tiled.launches
+    outlier = latency_outlier(timing["lat"], timing["t_start"], timing["t0"],
+                              [len(r) for r in reqs], events, gcp)
     m = eng.metrics()
     lat = telemetry.summarize(events, "serve_request")
     with ServeEngine(ix, H3, RES, **ekw) as eng_s:  # the default probe
@@ -946,6 +1078,7 @@ def serve_phases(ix, H3, dev):
                              "after_serving": b_after},
         "host_syncs_per_rung": syncs,
         "dispatch_ms_1024_rows": contention,
+        "latency_max_request": outlier, "gc_during_loop": gcp.summary(),
         "scatter_engine": {"wall_s": wall_s, "requests_per_s": SERVE_REQUESTS / wall_s,
                            "batches": m_s["batches"]},
         "errors": errors[:3] + errors_s[:3],
@@ -955,7 +1088,7 @@ def serve_phases(ix, H3, dev):
     bad = [k for k, v in serve_ok.items() if not v]
     if bad:
         eng.close()
-        return f"serve gates failed: {bad}", None
+        return f"serve gates failed: {bad}", None, None
 
     # 8e. resilience and a hot swap under load, on the same engine
     with telemetry.capture() as ev1:
@@ -982,7 +1115,10 @@ def serve_phases(ix, H3, dev):
                         probe="scatter", recheck=False)
     parked = eng.metrics()["quarantined"] - q0
     t0 = time.perf_counter()
-    zones2 = synthetic_zones(*ZONES, verts=256, seed=SWAP_SEED)
+    mid = np.add(bbox[:2], bbox[2:]) / 2
+    half = np.subtract(bbox[2:], bbox[:2]) * np.sqrt(SWAP_BOX) / 2
+    box2 = tuple(float(v) for v in (*(mid - half), *(mid + half)))
+    zones2 = synthetic_zones(*ZONES, bbox=box2, verts=256, seed=SWAP_SEED)
     ix2 = J.build_chip_index(tessellate(zones2, H3, RES, keep_core_geoms=False), device=dev)
     ix2_s = time.perf_counter() - t0
     want2 = joined(reqs, ix2)
@@ -1050,7 +1186,7 @@ def serve_phases(ix, H3, dev):
     })
     bad = [k for k, v in res_ok.items() if not v]
     if bad:
-        return f"serve_resilience gates failed: {bad}", None
+        return f"serve_resilience gates failed: {bad}", None, None
 
     # 8f. the router: an aggressor at 15x a victim's rate, open loop
     rkw = dict(ekw, probe="adaptive")
@@ -1179,35 +1315,347 @@ def serve_phases(ix, H3, dev):
     })
     bad = [k for k, v in router_ok.items() if not v]
     if bad:
-        return f"router gates failed: {bad}", None
+        return f"router gates failed: {bad}", None, None
     if router_launches <= 0:
-        return "the router's engines never launched pip_heavy_tiled", None
-    # the profiled window last: a process the profiler has traced runs
-    # every later eager op slower (the serve_process line)
-    sub = reqs[:SERVE_PROFILED]
-    with ServeEngine(ix, H3, RES, probe="adaptive", **ekw) as eng_p:
-        eng_p.warmup()
-        sub_wall = min(closed_loop(eng_p, sub)[2] for _ in range(2))
-        b0 = eng_p.metrics()["batches"]
-        busy, rows, prof_ms = profile_device(lambda: closed_loop(eng_p, sub))
-        prof_batches = eng_p.metrics()["batches"] - b0
+        return "the router's engines never launched pip_heavy_tiled", None, None
+
+    def profile_window():
+        """The profiled window, run after every other phase of the
+        process: a process the profiler has traced runs every later eager
+        op slower (the serve_process line)."""
+        sub = reqs[:SERVE_PROFILED]
+        with ServeEngine(ix, H3, RES, probe="adaptive", **ekw) as eng_p:
+            eng_p.warmup()
+            sub_wall = min(closed_loop(eng_p, sub)[2] for _ in range(2))
+            b0 = eng_p.metrics()["batches"]
+            busy, rows, prof_ms = profile_device(lambda: closed_loop(eng_p, sub))
+            prof_batches = eng_p.metrics()["batches"] - b0
+        emit({
+            "phase": "serve_profile", "requests": SERVE_PROFILED, "probe": "adaptive",
+            "warm_wall_ms": sub_wall * 1e3, "profiled_wall_ms": prof_ms,
+            "batches": prof_batches,
+            "device_ops_per_batch": sum(c for _, _, c in rows) / max(prof_batches, 1),
+            **idle_share(busy, rows, sub_wall * 1e3),
+            "kernels_profiled": kernel_times(rows),
+            "top_device_ops": [{"op": k[:80], "ms": ms_, "calls": c}
+                               for ms_, k, c in rows[:6]],
+        })
+
+    return None, {"serve": serve_launches, "router": router_launches}, profile_window
+
+
+def knn_candidates(H3, bbox, n, seed):
+    """``n`` CCW squares over ``bbox``: uniform lower-left corners and
+    sides uniform in ``KNN_SIDE`` H3 res-``KNN_RES`` cell widths (the
+    reference's ``tests/test_knn_serve.py square_wkts``, as CSR arrays)."""
+    import numpy as np
+
+    from mosaic_tpu_torch.core.types import GeometryType, PackedGeometry
+
+    rng = np.random.default_rng(seed)
+    w = float(np.sqrt(H3.cell_area_approx(KNN_RES)))
+    cx = rng.uniform(bbox[0], bbox[2], n)
+    cy = rng.uniform(bbox[1], bbox[3], n)
+    s = rng.uniform(*KNN_SIDE, n) * w
+    xy = np.stack([np.stack([cx, cy], -1), np.stack([cx + s, cy], -1),
+                   np.stack([cx + s, cy + s], -1), np.stack([cx, cy + s], -1)],
+                  axis=1).reshape(-1, 2)
+    k = np.arange(n + 1, dtype=np.int64)
+    return PackedGeometry(
+        xy=xy, ring_offsets=4 * k, part_offsets=k, geom_offsets=k,
+        geom_type=np.full(n, int(GeometryType.POLYGON), np.uint8),
+        srid=np.full(n, 4326, np.int32),
+    )
+
+
+def point_column(pts):
+    """A POINT PackedGeometry column of (n, 2) coordinates."""
+    import numpy as np
+
+    from mosaic_tpu_torch.core.types import GeometryType, PackedGeometry
+
+    k = np.arange(len(pts) + 1, dtype=np.int64)
+    return PackedGeometry(
+        xy=pts, ring_offsets=k, part_offsets=k, geom_offsets=k,
+        geom_type=np.full(len(pts), int(GeometryType.POINT), np.uint8),
+        srid=np.full(len(pts), 4326, np.int32),
+    )
+
+
+def knn_phase(ix, H3, dev):
+    """Phase 8j, KNN on the card (``mosaic_tpu_torch/knn``, the batch
+    model and KNN serving). Returns (failure message or None,
+    ``pip_heavy_tiled`` launches of the mixed loop, the function that runs
+    the profiled 64-row dispatch, to be called last)."""
+    import numpy as np
+    import torch
+
+    from mosaic_tpu_torch.datasets import NYC_BBOX, random_points
+    from mosaic_tpu_torch.dispatch import BucketLadder, backend_compiles
+    from mosaic_tpu_torch.kernels import pip as K
+    from mosaic_tpu_torch.knn import KNNFrontend, brute_force_knn, build_knn_index
+    from mosaic_tpu_torch.models import SpatialKNN
+    from mosaic_tpu_torch.runtime import DegradedResult, RetryExhausted, faults, telemetry
+    from mosaic_tpu_torch.serve import ServeEngine
+    from mosaic_tpu_torch.sql import join as J
+
+    t_phase = time.perf_counter()
+    bbox, k = NYC_BBOX, KNN_K
+    b0 = backend_compiles()
+    cand = knn_candidates(H3, bbox, KNN_CANDIDATES, KNN_SEED)
+    t0 = time.perf_counter()
+    kx = build_knn_index(cand, H3, KNN_RES, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    fe = {lane: KNNFrontend(kx, lane=lane) for lane in ("ring", "voronoi")}
+    t0 = time.perf_counter()
+    warm = {lane: f.warmup() for lane, f in fe.items()}
+    warm_s = time.perf_counter() - t0
+    rungs = len(fe["ring"].row_ladder.buckets) + len(fe["ring"].pair_ladder.buckets)
+
+    def same(a, b) -> bool:
+        a, b = np.asarray(a), np.asarray(b)
+        return a.shape == b.shape and np.array_equal(a.view(np.int64), b.view(np.int64))
+
+    def wire(ids, dist):
+        return np.concatenate([dist, ids.astype(np.float64)], axis=1)
+
+    # both lanes against the brute-force f64 oracle
+    q_o = random_points(KNN_ORACLE, bbox, seed=KNN_SEED + 1)
+    t0 = time.perf_counter()
+    want_o = wire(*brute_force_knn(q_o, kx, k))
+    oracle_s = time.perf_counter() - t0
+    lanes_oracle = all(same(f.dispatch(q_o, k)[0], want_o) for f in fe.values())
+    # the lanes on 64 rows: Voronoi = ring, each lane's rate
+    q64 = random_points(KNN_ROWS, bbox, seed=KNN_SEED + 2)
+    lane_s, outs = {}, {}
+    for lane, f in fe.items():
+        it0, t0 = f.stats["iterations"], time.perf_counter()
+        outs[lane] = f.dispatch(q64, k)[0]
+        lane_s[lane] = {"seconds": time.perf_counter() - t0,
+                        "iterations": f.stats["iterations"] - it0}
+    lane_s["voronoi"]["fallback_rows"] = fe["voronoi"].stats["voronoi_fallback"]
+    # where one 64-row ring dispatch spends its time, on the host clock
+    with telemetry.capture() as ev:
+        t0 = time.perf_counter()
+        fe["ring"].dispatch(q64, k)
+        dispatch64_s = time.perf_counter() - t0
+    stages = {}
+    for e in ev:
+        if e["event"] == "knn_stage" and "seconds" in e:
+            stages[e["stage"]] = stages.get(e["stage"], 0.0) + e["seconds"]
+    # the card against the CPU frontend on the same index
+    kx_cpu = kx.to("cpu")
+    t0 = time.perf_counter()
+    out_cpu = KNNFrontend(kx_cpu, lane="ring").dispatch(q64, k)[0]
+    cpu_s = time.perf_counter() - t0
+    # transient faults retry to the same bits; exhaustion raises on the card
+    q8 = q64[:8]
+    with telemetry.capture() as ev1, faults.transient_errors(1, sites=("knn.distance",)):
+        retried = fe["ring"].dispatch(q8, k)[0]
+    retries = [e["event"] for e in ev1].count("transient_retry")
+    with telemetry.capture() as ev2, faults.transient_errors(50, sites=("knn.distance",)):
+        try:
+            fe["ring"].dispatch(q8, k)
+            exhausted = False
+        except RetryExhausted:
+            exhausted = True
+    kinds2 = [e["event"] for e in ev2]
+    # the batch model: card against CPU on 200 landmarks (candidates and
+    # landmarks in the middle KNN_MODEL_BOX share of the bbox)
+    cxy = cand.bounds()
+    half = np.sqrt(KNN_MODEL_BOX) / 2
+    mid = np.array([(bbox[0] + bbox[2]) / 2, (bbox[1] + bbox[3]) / 2])
+    span = np.array([bbox[2] - bbox[0], bbox[3] - bbox[1]])
+    lo, hi = mid - half * span, mid + half * span
+    inside = np.nonzero(((cxy[:, :2] >= lo) & (cxy[:, 2:] <= hi)).all(axis=1))[0]
+    sub = cand.take(inside)
+    land = point_column(random_points(KNN_LANDMARKS, (*(lo + 0.1 * half * span),
+                                                      *(hi - 0.1 * half * span)),
+                                      seed=KNN_SEED + 3))
+    model = {}
+    for name, d in (("card", dev), ("cpu", "cpu")):
+        m = SpatialKNN(H3, KNN_RES, k_neighbours=k, max_iterations=64,
+                       early_stop_iterations=100, approximate=False, device=d)
+        t0 = time.perf_counter()
+        model[name] = (m.transform(land, sub), time.perf_counter() - t0)
+    rc, rp = model["card"][0], model["cpu"][0]
+    model_equal = (not rc.metrics["degraded"] and all(
+        np.array_equal(getattr(rc, f), getattr(rp, f))
+        for f in ("landmark_id", "candidate_id", "rank")) and same(rc.distance, rp.distance))
+
+    # the mixed closed loop: half pip requests of 1-1,024 rows, half KNN
+    # requests of 1-8 rows, on one engine over phase 3's index
+    rng = np.random.default_rng(KNN_SEED + 4)
+    kinds = rng.permutation(np.arange(KNN_REQUESTS) % 2)  # 0 pip, 1 knn
+    reqs = []
+    for kind in kinds:
+        lo_r, hi_r = (KNN_REQ_ROWS if kind else SERVE_ROWS)
+        n = int(rng.integers(lo_r, hi_r + 1))
+        reqs.append(("knn" if kind else "pip", rng.uniform(bbox[:2], bbox[2:], (n, 2))))
+    pip_idx = [i for i, (kd, _) in enumerate(reqs) if kd == "pip"]
+    knn_idx = [i for i, (kd, _) in enumerate(reqs) if kd == "knn"]
+    want = [None] * len(reqs)
+    pj = J.pip_join(np.concatenate([reqs[i][1] for i in pip_idx]), None, H3, RES,
+                    chip_index=ix, probe="scatter", recheck=False)
+    for i, part in zip(pip_idx, np.split(pj, np.cumsum([len(reqs[i][1]) for i in pip_idx])[:-1])):
+        want[i] = part
+    t0 = time.perf_counter()
+    kr = fe["ring"].dispatch(np.concatenate([reqs[i][1] for i in knn_idx]), k)[0]
+    want_knn_s = time.perf_counter() - t0
+    for i, part in zip(knn_idx, np.split(kr, np.cumsum([len(reqs[i][1]) for i in knn_idx])[:-1])):
+        want[i] = part
+    ekw = dict(
+        ladder=BucketLadder(*SERVE_LADDER), max_batch_rows=SERVE_MAX_BATCH,
+        max_wait_s=SERVE_WINDOW_S, queue_capacity=SERVE_QUEUE,
+        default_deadline_s=SERVE_DEADLINE_S, bounds=bbox,
+    )
+    eng = ServeEngine(ix, H3, RES, probe="adaptive", knn=fe["ring"], **ekw)
+    eng.warmup()
+    b_warm = backend_compiles()
+    # one warm top-rung mixed dispatch: pip rows filling the top rung
+    # beside the most KNN rows a batch of the loop can hold (every client
+    # holding a KNN request of the most rows)
+    knn_rows = SERVE_CLIENTS * KNN_REQ_ROWS[1]
+    top = [types.SimpleNamespace(kind="pip", n=SERVE_MAX_BATCH - knn_rows, k=0),
+           types.SimpleNamespace(kind="knn", n=knn_rows, k=k)]
+    top_pts = rng.uniform(bbox[:2], bbox[2:], (SERVE_MAX_BATCH, 2))
+    top_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        eng._dispatch(top_pts, None, top)
+        top_s.append(time.perf_counter() - t0)
+    deadline = max(SERVE_DEADLINE_S, KNN_DEADLINE_X * top_s[-1])
+    answers, errors = [None] * len(reqs), []
+    lat, t_start = [None] * len(reqs), [None] * len(reqs)
+    cursor, lock = iter(range(len(reqs))), threading.Lock()
+    sinks = telemetry.current_sinks()
+
+    def client():
+        telemetry.adopt_sinks(sinks)
+        while True:
+            with lock:
+                i = next(cursor, None)
+            if i is None:
+                return
+            kind, pts = reqs[i]
+            t1 = t_start[i] = time.perf_counter()
+            try:
+                if kind == "knn":
+                    answers[i] = eng.submit_knn(pts, k, deadline_s=deadline).result()
+                else:
+                    answers[i] = eng.submit(pts, deadline_s=deadline).result()
+            except Exception as e:  # lint: broad-except-ok (every failure is listed and gated)
+                errors.append((i, repr(e)[:200]))
+            lat[i] = time.perf_counter() - t1
+
+    mixed_batches, plain_mixed = [0], eng._dispatch_mixed
+
+    def counted_mixed(*a):
+        mixed_batches[0] += any(r.kind == "pip" for r in a[-1])
+        return plain_mixed(*a)
+
+    eng._dispatch_mixed = counted_mixed
+    K.pip_heavy_tiled.launches = 0
+    threads = [threading.Thread(target=client, daemon=True) for _ in range(SERVE_CLIENTS)]
+    with telemetry.capture() as loop_events, GcPauses() as gcp:
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        loop_s = time.perf_counter() - t0
+    loop_launches = K.pip_heavy_tiled.launches
+    m = eng.metrics()
+    eng.close()
+    b_after = backend_compiles()
+
+    def exact(i) -> bool:
+        a = answers[i]
+        if a is None:
+            return False
+        if reqs[i][0] == "pip":
+            return not isinstance(a, DegradedResult) and np.array_equal(a, want[i])
+        return not a.degraded and same(wire(a.ids, a.distance), want[i])
+
+    bad_answers = [i for i in range(len(reqs)) if not exact(i)]
+
+    def lat_summary(idx):
+        v = np.asarray([lat[i] for i in idx if lat[i] is not None])
+        return {"p50_s": float(np.percentile(v, 50)), "p99_s": float(np.percentile(v, 99)),
+                "max_s": float(v.max())} if v.size else None
+
+    max_lat = max((x for x in lat if x is not None), default=float("inf"))
+    outlier = latency_outlier(lat, t_start, t0, [len(r[1]) for r in reqs], loop_events, gcp)
+    outlier["kind"] = reqs[outlier["request"]][0]
+    gates = {
+        "lanes_equal_oracle": lanes_oracle,
+        "voronoi_equal_ring": same(outs["voronoi"], outs["ring"]),
+        "card_equal_cpu": same(outs["ring"], out_cpu),
+        "spatial_knn_equal_cpu": model_equal,
+        "transient_retried_same_bits": retries >= 1 and same(retried, outs["ring"][:8]),
+        "exhaustion_raises_no_degradation": exhausted and "degraded" not in kinds2
+        and "retry_exhausted" in kinds2,
+        "warmup_signatures_equal_rungs": all(w["signatures"] == rungs for w in warm.values()),
+        "no_nvcc_build_or_cold_compile": backend_compiles() == b0 == b_warm == b_after
+        and m["cold_compiles"] == 0 and all(f.cold_compiles == 0 for f in fe.values()),
+        "mixed_loop_exact": not errors and not bad_answers,
+        "nothing_shed_or_degraded": m["shed"] == 0 and m["degraded"] == 0 and not errors,
+        "launched_pip_heavy_tiled": loop_launches > 0,
+        "pip_and_knn_co_batched": mixed_batches[0] > 0,
+    }
+    knn_s = time.perf_counter() - t_phase
+
+    def profile_64():
+        """Device ops and idle share of one warm 64-row ring dispatch."""
+        busy, rows, prof_ms = profile_device(lambda: fe["ring"].dispatch(q64, k))
+        emit({"phase": "knn_profile", "rows": KNN_ROWS, "lane": "ring",
+              "warm_ms": dispatch64_s * 1e3, "profiled_wall_ms": prof_ms,
+              "device_ops": sum(c for _, _, c in rows),
+              **idle_share(busy, rows, dispatch64_s * 1e3),
+              "top_device_ops": [{"op": key[:80], "ms": ms_, "calls": c}
+                                 for ms_, key, c in rows[:5]]})
+
     emit({
-        "phase": "serve_profile", "requests": SERVE_PROFILED, "probe": "adaptive",
-        "warm_wall_ms": sub_wall * 1e3, "profiled_wall_ms": prof_ms,
-        "batches": prof_batches,
-        "device_ops_per_batch": sum(c for _, _, c in rows) / max(prof_batches, 1),
-        **idle_share(busy, rows, sub_wall * 1e3),
-        "kernels_profiled": kernel_times(rows),
-        "top_device_ops": [{"op": k[:80], "ms": ms_, "calls": c} for ms_, k, c in rows[:6]],
+        "phase": "knn", "candidates": KNN_CANDIDATES, "resolution": KNN_RES, "k": k,
+        "index": {"build_s": build_s, "chips": int(kx.cells.size),
+                  "voronoi_sites": kx.voronoi.num_sites, "voronoi_method": kx.voronoi.method,
+                  "cell_width_deg": kx.cell_width},
+        "warmup_s": warm_s, "rungs": rungs, "oracle_queries": KNN_ORACLE, "oracle_s": oracle_s,
+        "lanes_64_rows": {lane: {**v, "queries_per_s": KNN_ROWS / v["seconds"]}
+                          for lane, v in lane_s.items()},
+        "dispatch_64_rows_s": dispatch64_s, "stage_s_64_rows": stages,
+        "cpu_frontend_s": cpu_s, "transient_retries": retries,
+        "spatial_knn": {"landmarks": KNN_LANDMARKS, "candidates": len(sub),
+                        "iterations": rc.metrics["iterations"],
+                        "card_s": model["card"][1], "cpu_s": model["cpu"][1]},
+        "mixed": {"requests": len(reqs), "pip": len(pip_idx), "knn": len(knn_idx),
+                  "knn_rows": int(sum(len(reqs[i][1]) for i in knn_idx)),
+                  "lane": "ring", "clients": SERVE_CLIENTS,
+                  "top_rung_mixed_dispatch_s": top_s, "deadline_s": deadline,
+                  "max_latency_over_deadline": max_lat / deadline,
+                  "headroom_limit": KNN_HEADROOM, "co_batched_batches": mixed_batches[0],
+                  "wall_s": loop_s, "requests_per_s": len(reqs) / loop_s,
+                  "latency": {"pip": lat_summary(pip_idx), "knn": lat_summary(knn_idx)},
+                  "latency_max_request": outlier, "gc_during_loop": gcp.summary(),
+                  "batches": m["batches"], "pair_occupancy": m["knn_pair_occupancy"],
+                  "ring_reference_s": want_knn_s,
+                  "pip_heavy_tiled_launches": loop_launches,
+                  "errors": errors[:3], "bad_answers": bad_answers[:5]},
+        "nvcc_builds": backend_compiles() - b0, "knn_s": knn_s, "gates": gates,
     })
-    return None, {"serve": serve_launches, "router": router_launches}
+    bad = [g for g, v in gates.items() if not v]
+    if bad:
+        return f"knn gates failed: {bad}", None, None
+    return None, loop_launches, profile_64
 
 
 def serve_child(index_path: str, result_path: str) -> int:
-    """Phases 8d-8f in a process of their own (``chip_smoke.py
+    """Phases 8d-8f and 8j in a process of their own (``chip_smoke.py
     --serve-child INDEX RESULT``): phase 3's index from ``INDEX`` (npz),
-    the outcome to ``RESULT`` (JSON: error, launches, the nvcc builds this
-    process started)."""
+    the outcome to ``RESULT`` (JSON: error and the phase it came in,
+    launches, the nvcc builds this process started). The profiled windows
+    of 8d and 8j run after both."""
     import numpy as np
     import torch
 
@@ -1220,13 +1668,90 @@ def serve_child(index_path: str, result_path: str) -> int:
     from mosaic_tpu_torch.sql import join as J
 
     dev = torch.device(DEVICE)
+    H3 = H3IndexSystem()
     with np.load(index_path) as z:
         ix = J.ChipIndex.from_arrays(dict(z), device=dev)
-    err, launches = serve_phases(ix, H3IndexSystem(), dev)
+    err, launches, serve_profile = serve_phases(ix, H3, dev)
+    if not err:
+        err, knn_launches, knn_profile = knn_phase(ix, H3, dev)
+        if not err:
+            launches["knn_serve"] = knn_launches
+            serve_profile()
+            knn_profile()
     with open(result_path, "w") as fh:
-        json.dump({"error": err, "launches": launches,
+        json.dump({"error": err, "in": LAST_PHASE, "launches": launches,
                    "nvcc_builds": backend_compiles()}, fh)
     return 1 if err else 0
+
+
+def run_child(args, timeout_s: float) -> tuple:
+    """Run this script as a child with ``args``, its lines passed through
+    to stdout as they come. Returns (exit code, the phase of its last
+    line); a child past ``timeout_s`` is killed and gives (None, phase)."""
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), *args],
+                            stdout=subprocess.PIPE, text=True, bufsize=1)
+    last = ["none"]
+
+    def pump():
+        for line in proc.stdout:
+            print(line, end="", flush=True)
+            try:
+                last[0] = json.loads(line).get("phase", last[0])
+            except (ValueError, AttributeError):
+                pass
+
+    th = threading.Thread(target=pump, daemon=True)
+    th.start()
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    th.join(timeout=10)
+    return rc, last[0]
+
+
+def serve_process(ix, H3, runs_dir: str):
+    """Run phases 8d-8f and 8j in the serving child over ``ix``; print its
+    ``serve_process`` line. Returns the child's result (its ``launches``),
+    or the exit code of a failure."""
+    import numpy as np
+
+    from mosaic_tpu_torch.datasets import NYC_BBOX, random_points
+    from mosaic_tpu_torch.dispatch import BucketLadder, DispatchCore
+
+    os.makedirs(runs_dir, exist_ok=True)
+    index_path = os.path.join(runs_dir, "serve_index.npz")
+    result_path = os.path.join(runs_dir, "serve_result.json")
+    np.savez(index_path, **ix.to_arrays())
+    core1024 = DispatchCore(ix, H3, RES, probe="adaptive", ladder=BucketLadder(64, 1024))
+    core1024.warmup()
+    parent_ms = dispatch_ms(core1024, random_points(1024, NYC_BBOX, seed=SERVE_SEED))
+    t0 = time.perf_counter()
+    child_rc, child_last = run_child(["--serve-child", index_path, result_path],
+                                     CHILD_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    if child_rc is None:
+        shutil.rmtree(runs_dir, ignore_errors=True)
+        return fail(f"the serving process passed its {CHILD_TIMEOUT_S:.0f} s limit "
+                    f"and was killed", where=child_last)
+    try:
+        with open(result_path) as fh:
+            served = json.load(fh)
+    except (OSError, ValueError) as exc:
+        served = {"error": f"no result from the serving process: {exc!r}",
+                  "in": child_last}
+    shutil.rmtree(runs_dir, ignore_errors=True)
+    emit({"phase": "serve_process", "child_rc": child_rc, "child_s": child_s,
+          "parent_dispatch_ms_1024_rows": parent_ms,
+          "child_nvcc_builds": served.get("nvcc_builds")})
+    if child_rc or served.get("error"):
+        return fail(served.get("error") or f"the serving process exited {child_rc}",
+                    where=served.get("in", child_last))
+    if served.get("nvcc_builds") != 0:
+        return fail(f"the serving process built kernels: {served.get('nvcc_builds')} nvcc jobs")
+    return served
 
 
 def main() -> int:
@@ -2012,7 +2537,7 @@ def main() -> int:
         cold_s = time.perf_counter() - t0
         launches[name] = {k: fn.launches for k, fn in counted.items()}
         warm_s = []
-        for _ in range(2):
+        for _ in range(RASTER_WARM_REPS):
             t0 = time.perf_counter()
             call(raster)
             warm_s.append(time.perf_counter() - t0)
@@ -2212,9 +2737,9 @@ def main() -> int:
             "resume_equal_to_run": stats3(resumed) == want3, "resume_s": resume_s,
         }
     # snapshots every batch: where the pipelined executor's writer thread
-    # has the most to overlap (each executor twice, interleaved)
+    # has the most to overlap (each executor STREAM_EVERY1_REPS times)
     every1 = {"sync": [], "pipelined": [], "equal_to_run": True}
-    for rep_i in range(2):
+    for rep_i in range(STREAM_EVERY1_REPS):
         for name, kw in (("sync", {}), ("pipelined", {"pipeline": True, "window": 4})):
             d = os.path.join(runs_dir, f"every1_{name}_{rep_i}")
             r = sj.run_durable(ring, STREAM_BATCHES, run_dir=d, snapshot_every=1, **kw)
@@ -2386,37 +2911,14 @@ def main() -> int:
     o_fold_equal, o_fold_ms, o_segments = (
         x_out["o_fold_equal"], x_out["o_fold_ms"], x_out["o_segments"])
 
-    # 8d-8f. serving over phase 3's index (the engine, its resilience and a
-    # swap under load, the router) in a process of its own, as a server
-    # runs: the profiler the phases above attached to this process slows
-    # every later eager op, and a dispatch is ~930 of them. The child
-    # loads the index from disk and the kernel libraries nvcc built here.
-    from mosaic_tpu_torch.dispatch import BucketLadder, DispatchCore
-
-    os.makedirs(runs_dir, exist_ok=True)
-    index_path = os.path.join(runs_dir, "serve_index.npz")
-    result_path = os.path.join(runs_dir, "serve_result.json")
-    np.savez(index_path, **ix.to_arrays())
-    core1024 = DispatchCore(ix, H3, RES, probe="adaptive", ladder=BucketLadder(64, 1024))
-    core1024.warmup()
-    parent_ms = dispatch_ms(core1024, random_points(1024, NYC_BBOX, seed=SERVE_SEED))
-    t0 = time.perf_counter()
-    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-child",
-                            index_path, result_path], timeout=900)
-    child_s = time.perf_counter() - t0
-    try:
-        with open(result_path) as fh:
-            served = json.load(fh)
-    except (OSError, ValueError) as exc:
-        served = {"error": f"no result from the serving process: {exc!r}"}
-    shutil.rmtree(runs_dir, ignore_errors=True)
-    emit({"phase": "serve_process", "child_rc": child.returncode, "child_s": child_s,
-          "parent_dispatch_ms_1024_rows": parent_ms,
-          "child_nvcc_builds": served.get("nvcc_builds")})
-    if child.returncode or served.get("error"):
-        return fail(served.get("error") or f"the serving process exited {child.returncode}")
-    if served.get("nvcc_builds") != 0:
-        return fail(f"the serving process built kernels: {served.get('nvcc_builds')} nvcc jobs")
+    # 8d-8f, 8j. serving and KNN over phase 3's index in a process of
+    # its own, as a server runs: the profiler the phases above attached to
+    # this process slows every later eager op, and a dispatch is ~930 of
+    # them. The child loads the index from disk and the kernel libraries
+    # nvcc built here.
+    served = serve_process(ix, H3, runs_dir)
+    if isinstance(served, int):
+        return served
     serve_launches = served["launches"]
 
     # 9. the kernels line; "crop_ms_per_launch" is a kernel's device time
@@ -2435,7 +2937,9 @@ def main() -> int:
          "launches": heavy_launches + recheck_launches + stream_launches
          + rs_launches["pip_heavy_tiled"] + rs_fold_launches["pip_heavy_tiled"]
          + serve_launches["serve"] + serve_launches["router"]
+         + serve_launches["knn_serve"]
          + x_launches["pip_heavy_tiled"] + xs_launches["pip_heavy_tiled"],
+         "launches_knn_serve": serve_launches["knn_serve"],
          "launches_expr": x_launches["pip_heavy_tiled"],
          "launches_expr_scan": xs_launches["pip_heavy_tiled"],
          "launches_join": heavy_launches, "launches_exact_join": recheck_launches,

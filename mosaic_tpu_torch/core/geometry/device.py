@@ -120,6 +120,19 @@ def pack_to_device(
     )
 
 
+def take_rows(dg: DeviceGeometry, rows) -> DeviceGeometry:
+    """Row-gather a DeviceGeometry column (the shared shift is
+    untouched)."""
+    return DeviceGeometry(
+        verts=dg.verts[rows],
+        ring_len=dg.ring_len[rows],
+        ring_is_hole=dg.ring_is_hole[rows],
+        n_rings=dg.n_rings[rows],
+        geom_type=dg.geom_type[rows],
+        shift=dg.shift,
+    )
+
+
 def edges(geoms, xp=torch):
     """Shared edge extraction: returns (a, b, poly_mask, line_mask, type_mask).
 

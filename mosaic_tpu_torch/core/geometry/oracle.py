@@ -4,8 +4,10 @@ Port of the part of ``mosaic_tpu/core/geometry/oracle.py`` that the
 port's callers use: the ring walk :func:`_rings`, which
 `runtime/quarantine.py degenerate_zone_mask` reads, and the exact
 row-wise intersects predicate :func:`pair_intersects` that
-`sql/overlay.py intersects_join` refines candidates with. The other
-measures and predicates come with ROADMAP queue 1 item 14.
+`sql/overlay.py intersects_join` refines candidates with, and the
+exact row-wise distance :func:`pair_distance` that `models/knn.py`
+degrades to on the CPU. The other measures and predicates come with
+ROADMAP queue 1 item 14.
 """
 
 from __future__ import annotations
@@ -80,4 +82,44 @@ def pair_intersects(a: PackedGeometry, b: PackedGeometry) -> np.ndarray:
             and bool(_even_odd_inside(pa, rb).any())
         )
         out[g] = bool(in_a or in_b)
+    return out
+
+
+def point_boundary_distance(col: PackedGeometry, g: int, pt: np.ndarray) -> float:
+    """Min distance from ``pt`` to any boundary edge of geometry ``g``
+    (f64 host)."""
+    p = np.asarray(pt, dtype=np.float64)
+    closed = col.geometry_type(g).base == GeometryType.POLYGON
+    best = np.inf
+    for _, xy in _rings(col, g):
+        if xy.shape[0] == 0:
+            continue
+        if xy.shape[0] == 1:
+            best = min(best, float(np.linalg.norm(xy[0] - p)))
+            continue
+        a = xy if closed else xy[:-1]
+        b = np.roll(xy, -1, axis=0) if closed else xy[1:]
+        d = b - a
+        l2 = np.sum(d * d, axis=1)
+        l2 = np.where(l2 == 0, 1.0, l2)
+        t = np.clip(np.sum((p - a) * d, axis=1) / l2, 0.0, 1.0)
+        proj = a + t[:, None] * d
+        best = min(best, float(np.min(np.linalg.norm(proj - p, axis=1))))
+    return best
+
+
+def pair_distance(a: PackedGeometry, b: PackedGeometry) -> np.ndarray:
+    """(G,) row-wise euclidean distance of two equal-length columns, 0
+    where they intersect, exact in f64 — the reference's
+    ``st_distance(..., backend="oracle")``."""
+    n = len(a)
+    out = np.zeros(n)
+    inter = pair_intersects(a, b)
+    for g in range(n):
+        if inter[g]:
+            continue
+        pa, pb = a.geom_xy(g), b.geom_xy(g)
+        da = min((point_boundary_distance(b, g, p) for p in pa), default=np.inf)
+        db = min((point_boundary_distance(a, g, p) for p in pb), default=np.inf)
+        out[g] = min(da, db)
     return out

@@ -4,7 +4,8 @@ Port of ``mosaic_tpu/core/index/h3/index.py``. ``point_to_cell`` is one
 fused array program: numpy on the host (float64, the exact path that
 tessellation and the host oracle use) and torch on a tensor's device (the
 join's cell assignment, float32 on the card). Everything else — centers,
-boundaries, neighbors, polyfill candidates — runs on the host in numpy,
+boundaries, neighbors, k-rings and loops, grid distance, polyfill
+candidates — runs on the host in numpy,
 as in the reference, and accepts tensors by moving them to the host.
 
 Coordinates are (lng, lat) degrees in xy order, matching GeoJSON and the
@@ -45,6 +46,28 @@ class H3IndexSystem(IndexSystem):
 
     def resolutions(self) -> Sequence[int]:
         return list(range(C.MAX_RES + 1))
+
+    def resolution_of(self, cells):
+        """(N,) int32 resolution of each cell id (host numpy; a tensor
+        comes back as a tensor on its device)."""
+        if isinstance(cells, torch.Tensor):
+            return ((cells.to(torch.int64) >> C.RES_OFFSET) & 0xF).to(torch.int32)
+        cells = np.asarray(cells).astype(np.int64)
+        return ((cells >> C.RES_OFFSET) & 0xF).astype(np.int32)
+
+    def cell_area_approx(self, resolution: int) -> float:
+        """Mean cell area in square degrees (CRS units of EPSG:4326)."""
+        sphere_sq_deg = 4 * np.pi * (180 / np.pi) ** 2
+        n_cells = 2 + 120 * (7**resolution)
+        return float(sphere_sq_deg / n_cells)
+
+    def is_pentagon(self, cells):
+        """(N,) bool: the cell is one of the 12 pentagons of its
+        resolution (host numpy)."""
+        return np.asarray(
+            core.is_pentagon_cell(np.asarray(_host(cells), dtype=np.int64), np),
+            dtype=bool,
+        )
 
     # ---------------------------------------------------------------- core
     def _geo(self, xy, resolution: int, **variant):
@@ -340,6 +363,106 @@ class H3IndexSystem(IndexSystem):
                 dup |= (out[:, m : m + 1] == out[:, :m]).any(axis=1)
             out[dup, m] = -1
         return out
+
+    @staticmethod
+    def _row_unique(a: np.ndarray, width: int | None = None) -> np.ndarray:
+        """Per-row sorted unique of an int64 array; -1 entries dropped,
+        result left-packed ascending and -1-padded to ``width`` columns."""
+        big = np.iinfo(np.int64).max
+        s = np.sort(np.where(a < 0, big, a), axis=1)
+        dup = np.zeros_like(s, dtype=bool)
+        dup[:, 1:] = s[:, 1:] == s[:, :-1]
+        s[dup] = big
+        s = np.sort(s, axis=1)
+        used = int((s != big).sum(axis=1).max()) if s.size else 0
+        w = max(width if width is not None else used, 1)
+        if s.shape[1] < w:
+            s = np.pad(s, ((0, 0), (0, w - s.shape[1])), constant_values=big)
+        s = s[:, :w]
+        return np.where(s == big, np.int64(-1), s)
+
+    def k_ring(self, cells, k: int) -> np.ndarray:
+        """(N,) -> (N, 1+3k(k+1)) filled disk, sorted ascending, -1 pads
+        (host numpy). Level-wise expansion: each round takes the raw
+        neighbours of the whole current disk in one batched call and
+        row-uniques them; a row does not depend on the other rows."""
+        cells = np.asarray(_host(cells), dtype=np.int64).reshape(-1)
+        N = cells.shape[0]
+        m_out = 1 + 3 * k * (k + 1)
+        disk = cells[:, None].copy()
+        if N == 0 or k == 0:
+            return self._row_unique(disk, width=m_out)
+        for _ in range(k):
+            disk = self.disk_grow(disk)
+        return self._row_unique(disk, width=m_out)
+
+    def disk_grow(self, disk: np.ndarray) -> np.ndarray:
+        """One round of :meth:`k_ring`'s expansion: (N, W) disks (column 0
+        each row's center, -1 pads) -> the disks one ring wider, sorted
+        and -1-padded (untruncated). ``_row_unique(disk, 1+3k(k+1))``
+        after k rounds from ``cells[:, None]`` is ``k_ring(cells, k)``; a
+        caller growing disks ring by ring (the KNN frontend) reads every
+        radius from one round each instead of k rounds a radius. The
+        center stays in column 0 only in the first round's input: later
+        rounds substitute the row's smallest cell for pads, whose
+        neighbours the disk holds already."""
+        disk = np.asarray(disk, dtype=np.int64)
+        N = disk.shape[0]
+        # -1 pads would corrupt the geometric step: substitute a cell of
+        # the row (its neighbors are already in the disk)
+        safe = np.where(disk >= 0, disk, disk[:, :1])
+        nb = self.neighbors_raw(safe.reshape(-1)).reshape(N, -1)
+        return self._row_unique(np.concatenate([disk, nb], axis=1))
+
+    def k_loop(self, cells, k: int) -> np.ndarray:
+        """Hollow ring: k_ring(k) minus k_ring(k-1); sorted, -1 pads."""
+        cells = np.asarray(_host(cells), dtype=np.int64).reshape(-1)
+        full = self.k_ring(cells, k)
+        if k == 0:
+            return full
+        inner = self.k_ring(cells, k - 1)
+        m_out = 6 * k
+        # membership test: both sides sorted per row; chunk the broadcast
+        N = full.shape[0]
+        keep = np.zeros_like(full, dtype=bool)
+        chunk = max(1, int(2e7 // max(full.shape[1] * inner.shape[1], 1)))
+        for s in range(0, N, chunk):
+            sl = slice(s, s + chunk)
+            keep[sl] = (full[sl] >= 0) & ~(
+                full[sl][:, :, None] == inner[sl][:, None, :]
+            ).any(axis=2)
+        out = np.where(keep, full, np.int64(-1))
+        return self._row_unique(out, width=m_out)
+
+    def grid_distance(self, cells_a, cells_b) -> np.ndarray:
+        """Hex grid distance via planar ijk on a common face projection
+        (host numpy). Exact when both cells project onto one face; a pair
+        spanning icosahedron faces gives -1, the reference's
+        flagged-failure contract."""
+        xp = np
+        a = np.asarray(_host(cells_a), dtype=np.int64)
+        b = np.asarray(_host(cells_b), dtype=np.int64)
+        fa, xa_, ya_, res_a = core.cell_center_frame(a, xp)
+        fb, xb0, yb0, res_b = core.cell_center_frame(b, xp)
+        lat_b, lng_b = core._per_res_geo(fb, xb0, yb0, res_b, xp)
+        res_arr = (a >> C.RES_OFFSET) & 0xF
+        # project both on a's owning face: exact for same-face pairs, and
+        # cross-face pairs are flagged -1 below anyway
+        out = np.zeros(len(a), dtype=np.int64)
+        for r in np.unique(res_arr):
+            sel = res_arr == r
+            xa, ya = xa_[sel], ya_[sel]
+            _, xb, yb = hm.geo_to_hex2d(lat_b[sel], lng_b[sel], int(r), face=fa[sel])
+            ia, ja = hm.hex2d_to_axial(xa, ya)
+            ib, jb = hm.hex2d_to_axial(xb, yb)
+            di = ia - ib
+            dj = ja - jb
+            # hex distance in the (i at 0deg, j at 120deg) basis where the
+            # six unit steps are +-(1,0), +-(0,1), +-(1,1)
+            out[sel] = np.maximum.reduce(
+                [np.abs(di), np.abs(dj), np.abs(di - dj)]
+            )
+        return np.where(fa != fb, np.int64(-1), out)
 
     # ------------------------------------------------------------ polyfill
     def _bbox_sample_points(

@@ -38,6 +38,10 @@ What differs from the reference, and why:
   oracle (`DegradedResult`); on the card the dispatch raises
   `RetryExhausted` and no work moves to the CPU (the rule of
   `pip_join`);
+- on the card a dispatch replays its rung's probe as a CUDA graph
+  captured at the rung's first dispatch (warmup), so its host time is a
+  few calls, not the ~930 eager ops that each hand the GIL over
+  (`DispatchCore._graph_run`); on the CPU it runs the eager ops;
 - dispatches on one device take one lock (`_device_lock`): engines on
   one card (the router's tenants) run their dispatches one after
   another instead of interleaving their eager ops under the GIL;
@@ -49,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import threading
 
 import numpy as np
@@ -347,6 +352,8 @@ class DispatchCore:
         self._warmed: frozenset | None = None
         self._cold_compiles = 0
         self._on_cold_compile = on_cold_compile
+        #: bucket -> the rung's captured probe (CUDA only, `_graph_run`)
+        self._graphs: dict = {}
 
     # ------------------------------------------------------- accounting
 
@@ -455,7 +462,10 @@ class DispatchCore:
             )
         try:
             with _device_lock(self.device), _device_scope(self.device):
-                out = self.probe_staged(*self.stage(padded))
+                if self.device.type == "cuda":
+                    out = self._graph_run(padded)
+                else:
+                    out = self.probe_staged(*self.stage(padded))
                 with _trace.span(
                     "dispatch.transfer.d2h", nbytes=int(out.numel()) * 4,
                     bucket=bucket,
@@ -465,6 +475,65 @@ class DispatchCore:
             if comp_span is not None:
                 comp_span.set(backend_compiles=backend_compiles() - comp_c0)
                 comp_span.end()
+
+    def _graph_run(self, padded: np.ndarray) -> torch.Tensor:
+        """One bucket's probe on the card as a CUDA graph replay: the
+        rung's first dispatch runs the probe's eager ops and captures them
+        into a graph on its staged tensors; later dispatches copy their
+        staged points into those tensors and replay it. A dispatch is then
+        a handful of host calls instead of several hundred eager ops, each
+        of which hands the GIL over (the serving path's bound, PERF.md
+        §5). The probe makes no host sync at full-bucket caps, so its
+        graph is its eager run, bit for bit. The kernel wrappers record
+        the launches they capture, and each replay counts them
+        (`kernels._build.captured_launches`)."""
+        from ..kernels import _build
+
+        bucket = padded.shape[0]
+        g = self._graphs.get(bucket)
+        if g is not None:
+            pts, shifted = self.stage(padded)
+            g["pts"].copy_(pts)
+            g["shifted"].copy_(shifted)
+            g["graph"].replay()
+            _build.count_replay(g["launches"])
+            return g["out"]
+        pts, shifted = self.stage(padded)
+        # the eager run answers this dispatch and makes every lazy
+        # initialisation (device constant tables, the kernel library, the
+        # allocator's blocks) before the capture
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            out = self.probe_staged(pts, shifted)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # no garbage collection during the capture: a collected core's
+        # graphs free their memory pools (cudaFree), which would
+        # invalidate it (`torch.cuda.graph` collects once before it)
+        gc_was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with _build.captured_launches() as launches, torch.cuda.graph(
+                graph, capture_error_mode="thread_local"
+            ):
+                gout = self.probe_staged(pts, shifted)
+        finally:
+            if gc_was_enabled:
+                gc.enable()
+        self._graphs[bucket] = {
+            "graph": graph, "pts": pts, "shifted": shifted, "out": gout,
+            "launches": launches,
+        }
+        return out
+
+    def release_graphs(self) -> None:
+        """Free the rungs' CUDA graphs now. A closed engine can live on in
+        a reference cycle until a full garbage collection, and a graph
+        freed there is freed in the middle of whatever dispatch the
+        process is running. A later dispatch captures its rung again."""
+        with _device_lock(self.device):
+            self._graphs = {}
 
     def execute(self, points) -> np.ndarray:
         """Pad → dispatch → unpad (exact, unguarded)."""

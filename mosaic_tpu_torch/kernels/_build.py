@@ -14,6 +14,7 @@ held bit for bit against their plain torch versions.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,6 +22,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 from ..runtime.errors import KernelCompileError, KernelLaunchError
 
@@ -180,3 +183,41 @@ def check(rc: int, what: str) -> None:
     """Raise when a C entry point reports a CUDA error."""
     if rc:
         raise KernelLaunchError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+#: per thread: the launches recorded under a CUDA graph capture
+#: (`captured_launches`)
+_CAPTURE = threading.local()
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of the kernel behind ``wrapper`` in its
+    ``launches`` attribute. Under a CUDA graph capture nothing runs: the
+    launch goes to the capture's record (`captured_launches`), and each
+    replay of the graph counts it (`count_replay`)."""
+    if torch.cuda.is_current_stream_capturing():
+        record = getattr(_CAPTURE, "record", None)
+        if record is not None:
+            record[wrapper] = record.get(wrapper, 0) + 1
+        return
+    wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Record the kernel launches captured into a CUDA graph in this
+    thread during the block; yields ``{wrapper: launches}``, which
+    `count_replay` adds to the wrappers' counts at each replay."""
+    outer = getattr(_CAPTURE, "record", None)
+    record: dict = {}
+    _CAPTURE.record = record
+    try:
+        yield record
+    finally:
+        _CAPTURE.record = outer
+
+
+def count_replay(record: dict) -> None:
+    """Count the launches one replay of a captured graph makes."""
+    for wrapper, n in record.items():
+        wrapper.launches += n

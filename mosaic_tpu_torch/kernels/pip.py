@@ -11,10 +11,11 @@ Port of ``mosaic_tpu/kernels/pip.py``. Two functions reach a kernel:
 Each wrapper takes its plain torch version (:func:`pip_zone_plain`,
 :func:`pip_heavy_plain`) only for tensors that lie on the CPU; for CUDA
 tensors it launches the kernel in ``csrc/pip.cu`` or raises. Each wrapper
-counts its launches in a ``launches`` attribute. The plain versions repeat
-the kernels' arithmetic one torch op per step (eager torch rounds every
-op, and no fused op is used), so they are exact twins of the kernels and
-of the reference.
+counts its launches in a ``launches`` attribute (a launch captured into a
+CUDA graph counts at each replay, `_build.count_launch`). The plain
+versions repeat the kernels' arithmetic one torch op per step (eager
+torch rounds every op, and no fused op is used), so they are exact twins
+of the kernels and of the reference.
 
 The tiling arguments and the :class:`TilingError` checks are kept for API
 parity with the reference; the CUDA kernels choose their own tiles.
@@ -188,7 +189,7 @@ def pip_zone(
             planes.shape[2], int(n_real_g), out.data_ptr(), stream,
         )
     _build.check(rc, "pip_zone")
-    pip_zone.launches += 1
+    _build.count_launch(pip_zone)
     return out
 
 
@@ -354,7 +355,7 @@ def pip_heavy_tiled(
             scratch.data_ptr(), n_scratch, stream,
         )
     _build.check(rc, "pip_heavy_tiled")
-    pip_heavy_tiled.launches += 1
+    _build.count_launch(pip_heavy_tiled)
     return best, (near if banded else None)
 
 

@@ -32,7 +32,8 @@ nowhere (nodata, tile pad, or no containing zone):
 
 Pixel values are expected pre-masked (pad/nodata pixels carry value 0
 AND segment -1, see `raster/tiles.py`). Each CUDA wrapper counts its
-launches in a ``launches`` attribute.
+launches in a ``launches`` attribute (a launch captured into a CUDA graph
+counts at each replay, `_build.count_launch`).
 """
 
 from __future__ import annotations
@@ -221,7 +222,7 @@ def _seq_fold_sorted(sorted_vals: torch.Tensor, ends: torch.Tensor, k: int):
             cnt.data_ptr(), s.data_ptr(), mn.data_ptr(), mx.data_ptr(), stream,
         )
     _build.check(rc, "zonal_fold")
-    zonal_fold.launches += 1
+    _build.count_launch(zonal_fold)
     return cnt, s, mn, mx
 
 
@@ -342,7 +343,7 @@ def zonal_tiled(
             mn.data_ptr(), mx.data_ptr(), stream,
         )
     _build.check(rc, "zonal_tiled")
-    zonal_tiled.launches += 1
+    _build.count_launch(zonal_tiled)
     return cnt, s, mn, mx
 
 

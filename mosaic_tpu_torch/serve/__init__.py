@@ -1,8 +1,7 @@
 """Online query serving: dynamic micro-batching over a resident index.
 
-Port of ``mosaic_tpu/serve`` (without KNN serving, ROADMAP queue 1 item
-10). The request-facing path: many small concurrent point-in-polygon
-queries coalesced into padded, shape-bucketed dispatches on the dispatch
+Port of ``mosaic_tpu/serve``. The request-facing path: many small
+concurrent point-in-polygon and KNN queries coalesced into padded, shape-bucketed dispatches on the dispatch
 core, with admission control in front and the runtime's resilience
 (watchdog, retry, quarantine, fault injection) underneath.
 

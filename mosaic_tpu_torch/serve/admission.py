@@ -2,9 +2,9 @@
 diversion — load never turns into unbounded memory, unbounded latency,
 or a corrupted shared batch.
 
-Port of ``mosaic_tpu/serve/admission.py`` (point-in-polygon requests;
-KNN requests are ROADMAP queue 1 item 10). Three decisions happen at the
-submit boundary, in order:
+Port of ``mosaic_tpu/serve/admission.py``: point-in-polygon and KNN
+requests share one queue (``Request.kind``). Three decisions happen at
+the submit boundary, in order:
 
 1. **Fault hooks** — ``serve.admit`` is a fault-injection site:
    `runtime/faults.maybe_fail` can raise a synthetic transient here and
@@ -69,6 +69,11 @@ class Request:
     #: context, which the batcher thread adopts
     span: "_trace.Span | None" = None
     ctx: "_trace.SpanContext | None" = None
+    #: request family sharing this queue: "pip" ((n,) int32 answers) or
+    #: "knn" ((n, 2k) f64 wire rows) — one admission/deadline/shed budget
+    #: covers both, the engine's dispatch splits a mixed batch by kind
+    kind: str = "pip"
+    k: int = 0  # neighbour count, kind == "knn" only
 
     def remaining(self, now: float | None = None) -> float:
         if self.deadline is None:
@@ -119,10 +124,18 @@ class AdmissionController:
     # ------------------------------------------------------ submit side
 
     def admit(
-        self, points: np.ndarray, *, deadline_s: float | None = None,
+        self,
+        points: np.ndarray,
+        *,
+        deadline_s: float | None = None,
+        kind: str = "pip",
+        k: int = 0,
     ) -> Request:
         """Scrub, stamp, and enqueue one request; returns it with its
-        future. Raises :class:`Overloaded` when the queue is full."""
+        future. Raises :class:`Overloaded` when the queue is full.
+        ``kind``/``k`` route the request family (KNN requests co-batch
+        with point-in-polygon traffic under this same queue, deadline
+        budget and shed taxonomy)."""
         _faults.maybe_fail("serve.admit")
         raw = np.asarray(
             _faults.maybe_corrupt("serve.admit", points), dtype=np.float64
@@ -142,18 +155,20 @@ class AdmissionController:
         # ended at scatter-back (or shed) on the batcher thread
         root = _trace.start_span(
             "serve.request", detached=True, rows=int(raw.shape[0]),
+            kind=kind,
         )
         try:
             with _trace.span(
                 "serve.admit", parent=root.context, rows=int(raw.shape[0]),
             ):
-                return self._admit_scrubbed(raw, deadline_s, root)
+                return self._admit_scrubbed(raw, deadline_s, root, kind, k)
         except BaseException as e:  # noqa: BLE001 — span closed, re-raised
             root.end(error=type(e).__name__)
             raise
 
     def _admit_scrubbed(
         self, raw: np.ndarray, deadline_s: float | None, root,
+        kind: str = "pip", k: int = 0,
     ) -> Request:
         report = None
         parked = 0
@@ -187,6 +202,8 @@ class AdmissionController:
             plans=_faults.current_plans(),
             span=root,
             ctx=root.context,
+            kind=kind,
+            k=int(k),
         )
         with self._not_empty:
             if len(self._queue) >= self.capacity:

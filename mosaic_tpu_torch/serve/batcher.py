@@ -58,10 +58,13 @@ class MicroBatcher:
     ``(results, occupancy)`` (padding, bucketing, retry, and degradation
     live there; the hint — the batch's largest remaining request budget
     in seconds — becomes the watchdog default; ``reqs`` is the live
-    request list in concatenation order). The result only needs
-    ``out[off : off + n]`` slicing at the request boundaries. The
-    batcher owns request lifecycle: coalescing, deadline shedding,
-    scatter-back, and future resolution.
+    request list in concatenation order, which lets the engine split a
+    mixed point-in-polygon/KNN batch by ``Request.kind`` and answer each
+    segment in its own wire shape). The result only needs
+    ``out[off : off + n]`` slicing at the request boundaries — a plain
+    (n,) array for uniform batches, the engine's segment view for mixed
+    ones. The batcher owns request lifecycle: coalescing, deadline
+    shedding, scatter-back, and future resolution.
     """
 
     def __init__(
@@ -191,7 +194,11 @@ class MicroBatcher:
                 self._fail(req, e)
             return
 
-        degraded = isinstance(out, DegradedResult)
+        # mixed-batch segment views flag degradation via a plain
+        # attribute (they are not ndarray subclasses)
+        degraded = isinstance(out, DegradedResult) or bool(
+            getattr(out, "degraded", False)
+        )
         now = time.monotonic()
         off = 0
         for req in live:

@@ -32,17 +32,22 @@ What differs from the reference, and why:
   ``cell_dtype`` says otherwise;
 - past the retry budget only an engine on the CPU degrades to the f64
   host oracle (`DegradedResult`); on the card the batch's futures raise
-  `RetryExhausted` and no work moves to the CPU;
-- ``knn=``/``knn_lane=`` raise ``NotImplementedError`` (ROADMAP queue 1
-  item 10); ``submit_knn`` raises the reference's ``RuntimeError`` for an
-  engine without KNN, which every engine of the port is; ``profile=``
-  raises (item 13), ``mesh=`` (item 12) and ``program_store=``
-  (`dispatch/programs.py`) too.
+  `RetryExhausted` and no work moves to the CPU — KNN batches included
+  (`knn/frontend.py`);
+- ``profile=`` raises (ROADMAP queue 1 item 13), ``mesh=`` (item 12) and
+  ``program_store=`` (`dispatch/programs.py`) too.
+
+KNN requests (``knn=`` a :class:`~mosaic_tpu_torch.knn.KNNIndex` or a
+ready :class:`~mosaic_tpu_torch.knn.KNNFrontend`, ``submit_knn``) ride
+the same admission queue, deadline budget, micro-batch window and shed
+taxonomy; a mixed batch is split by request kind (:meth:`ServeEngine.
+_dispatch_mixed`) and each family keeps its exact answers.
 """
 
 from __future__ import annotations
 
 import threading
+from concurrent.futures import Future
 
 import numpy as np
 import torch
@@ -52,20 +57,35 @@ from ..dispatch.bucket import mesh_key
 from ..dispatch.programs import resolve_program_store
 from ..obs import trace as _trace
 from ..runtime import quarantine as _quarantine, telemetry as _telemetry
+from ..runtime.errors import DegradedResult
 from ..tune.resolve import resolve_knobs
 from .admission import AdmissionController
 from .batcher import MicroBatcher
 
-_KNN_TODO = (
-    "is not ported yet (ROADMAP queue 1, item 10: KNN serving)"
-)
 
+class _MixedOut:
+    """Result view of a mixed-kind batch: per-request answer segments
+    keyed by their ``(start, stop)`` row interval in the concatenated
+    batch. Requests are never split across batches, so the batcher's
+    scatter-back slices ``out[off : off + req.n]`` land exactly on these
+    keys — each request reads its own wire shape ((n,) int32 for PIP,
+    (n, 2k) f64 for KNN).
 
-def _refuse_knn(knn, knn_lane) -> None:
-    if knn is not None:
-        raise NotImplementedError(f"ServeEngine(knn=...) {_KNN_TODO}")
-    if knn_lane is not None:
-        raise NotImplementedError(f"ServeEngine(knn_lane=...) {_KNN_TODO}")
+    ``degraded`` is batch-level and conservative: if ANY segment fell
+    back to the host oracle (on the CPU), every request in the batch is
+    flagged (values are exact either way)."""
+
+    def __init__(self, segments, *, degraded=False, reason=None, attempts=0):
+        self._segments = segments
+        self.degraded = bool(degraded)
+        self.reason = reason
+        self.attempts = attempts
+
+    def __getitem__(self, sl: slice):
+        seg = self._segments.get((sl.start, sl.stop))
+        if seg is None:
+            raise KeyError(f"no batch segment at rows [{sl.start}, {sl.stop})")
+        return seg
 
 
 class ServeEngine:
@@ -101,7 +121,6 @@ class ServeEngine:
         knn=None,
         knn_lane: str | None = None,
     ):
-        _refuse_knn(knn, knn_lane)
         mesh_key(mesh)
         resolve_program_store(program_store)
         self.index = index
@@ -111,8 +130,8 @@ class ServeEngine:
         # the host entry point (a profile raises: item 13)
         knobs = resolve_knobs(
             "serve_engine", profile,
-            explicit={"probe": probe, "lookup": lookup},
-            defaults={"probe": "scatter", "lookup": None},
+            explicit={"probe": probe, "lookup": lookup, "knn_lane": knn_lane},
+            defaults={"probe": "scatter", "lookup": None, "knn_lane": None},
         )
         self.ladder = ladder or BucketLadder()
         self.writeback = writeback or "scatter"
@@ -131,7 +150,11 @@ class ServeEngine:
         self.probe = self.core.probe
         self.lookup = self.core.lookup
         self.mesh = None
-        self.knn = None
+        # optional KNN frontend riding the same queue and batcher: a
+        # KNNIndex builds a fresh frontend sharing the engine's
+        # cold-compile tripwire; a KNNFrontend is adopted as it is
+        self.knn_lane = knobs["knn_lane"]
+        self.knn = self._build_knn(knn, self.knn_lane)
         self.admission = AdmissionController(
             capacity=queue_capacity,
             default_deadline_s=default_deadline_s,
@@ -181,14 +204,33 @@ class ServeEngine:
         return self.submit(points, deadline_s=deadline_s).result(timeout)
 
     def submit_knn(self, points, k: int, *, deadline_s: float | None = None):
-        """KNN requests ride the same queue in the reference; the port's
-        engines carry no KNN frontend (ROADMAP queue 1 item 10)."""
+        """Enqueue one k-nearest-neighbour request; returns a Future
+        resolving to a :class:`~mosaic_tpu_torch.knn.KNNAnswer` with
+        (n, k) ``ids``/``distance`` arrays (:class:`Overloaded` when
+        shed). KNN requests ride the same admission queue, deadline
+        budget, micro-batch window and shed taxonomy as point-in-polygon
+        traffic. Quarantined (non-finite / out-of-bounds) rows answer
+        ``ids=-1, distance=inf``."""
         if self._closed:
             raise RuntimeError("engine is closed")
-        raise RuntimeError(
-            "engine has no KNN frontend — pass knn= at construction "
-            "or hot_swap(knn=...) (KNN serving is ROADMAP queue 1 item 10)"
-        )
+        if self.knn is None:
+            raise RuntimeError(
+                "engine has no KNN frontend — pass knn= at construction "
+                "or hot_swap(knn=...)"
+            )
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"k must be >= 1, got {k}")
+        pts = np.asarray(points, dtype=np.float64)
+        if pts.ndim != 2 or pts.shape[1] != 2:
+            raise ValueError(f"expected (n, 2) points, got {pts.shape}")
+        if pts.shape[0] > self.ladder.max_bucket:
+            raise ValueError(
+                f"request of {pts.shape[0]} rows exceeds the top bucket "
+                f"{self.ladder.max_bucket} — split it upstream"
+            )
+        req = self.admission.admit(pts, deadline_s=deadline_s, kind="knn", k=k)
+        return _decode_knn_future(req, k)
 
     def join_knn(
         self, points, k: int, *, deadline_s: float | None = None, timeout=None
@@ -206,7 +248,8 @@ class ServeEngine:
         batch per rung, so the first real request at any admitted shape
         finds the library bound and the allocator primed. Returns
         ``{"buckets", "seconds", "signatures", "backend_compiles"}``
-        (nvcc builds started) and ``"rung_seconds"``; after this, any
+        (nvcc builds started) and ``"rung_seconds"``, and ``"knn"`` (the
+        frontend's warmup) when the engine serves KNN; after this, any
         dispatch that still introduces a new signature is counted in
         ``metrics()["cold_compiles"]`` (and emits ``serve_compile``)."""
         from ..dispatch import backend_compiles
@@ -222,6 +265,7 @@ class ServeEngine:
                     "serve_stage", stage="warmup", bucket=b
                 ):
                     self.core.execute_padded(pts)
+            knn_stats = self.knn.warmup() if self.knn is not None else None
         rungs = {
             e["bucket"]: e["seconds"]
             for e in events
@@ -235,6 +279,8 @@ class ServeEngine:
             "backend_compiles": backend_compiles() - t0,
             "rung_seconds": rungs,
         }
+        if knn_stats is not None:
+            out["knn"] = knn_stats
         _telemetry.record("serve_warmup", **out)
         return out
 
@@ -258,9 +304,10 @@ class ServeEngine:
         flight finish on the old core, requests after the swap run on the
         warmed new one. Any post-swap dispatch that still introduces a
         signature counts in ``metrics()["cold_compiles"]``. Unset knobs
-        keep the engine's current settings. Returns the new core's warmup
-        stats."""
-        _refuse_knn(knn, knn_lane)
+        keep the engine's current settings. A new ``knn=`` swaps the same
+        way: its frontend is built and warmed off to the side and rebound
+        with the core (a batch in flight holds its snapshot). Returns the
+        new core's warmup stats (``"knn"``: the new frontend's)."""
         index = self.index if index is None else index
         knobs = resolve_knobs(
             "serve_engine.hot_swap", profile,
@@ -282,11 +329,16 @@ class ServeEngine:
                 on_cold_compile=self._on_cold_compile,
             )
             stats = core.warmup()  # runs every rung, then freezes
+            new_knn = self.knn
+            if knn is not None:
+                new_knn = self._build_knn(knn, knn_lane or self.knn_lane)
+                stats["knn"] = new_knn.warmup()
             with self._swap_lock:
                 self.index = index
                 self.resolution = new_resolution
                 self.ladder = ladder
                 self.core = core
+                self.knn = new_knn
                 self.writeback = new_writeback
                 self.probe = core.probe
                 self.lookup = core.lookup
@@ -306,6 +358,9 @@ class ServeEngine:
         out["queue_depth"] = self.admission.depth()
         out["compile_signatures"] = len(self.core.signatures)
         out["cold_compiles"] = self.core.cold_compiles
+        if self.knn is not None:
+            out.update(self.knn.metrics())
+            out["cold_compiles"] += self.knn.cold_compiles
         out["occupancy_mean"] = round(
             b["occupancy_sum"] / b["batches"], 4
         ) if b["batches"] else 0.0
@@ -313,10 +368,12 @@ class ServeEngine:
 
     def close(self, timeout: float = 5.0) -> None:
         """Stop the batcher; queued requests are shed
-        (``reason="shutdown"``)."""
+        (``reason="shutdown"``); the core's CUDA graphs are freed at once
+        (`DispatchCore.release_graphs`)."""
         if not self._closed:
             self._closed = True
             self.batcher.stop(timeout)
+            self.core.release_graphs()
 
     def __enter__(self):
         return self
@@ -326,13 +383,38 @@ class ServeEngine:
 
     # --------------------------------------------------------- dispatch
 
+    def _build_knn(self, knn, lane):
+        """Wrap a KNNIndex in a frontend sharing the engine's cold-compile
+        tripwire; pass a ready-made frontend through unchanged; None
+        stays None."""
+        if knn is None:
+            return None
+        from ..knn.frontend import KNNFrontend
+        from ..knn.index import KNNIndex
+
+        if isinstance(knn, KNNFrontend):
+            return knn
+        if not isinstance(knn, KNNIndex):
+            raise TypeError(
+                f"knn= takes a KNNIndex or a KNNFrontend, got {type(knn).__name__}"
+            )
+        return KNNFrontend(
+            knn, lane=lane or "ring", on_cold_compile=self._on_cold_compile,
+        )
+
     def _dispatch(self, points: np.ndarray, deadline_hint=None, reqs=None):
         """Batcher callback: pad, dispatch with resilience, unpad.
-        Returns ``(results, occupancy)``."""
+        Returns ``(results, occupancy)`` — a plain (n,) array for a
+        uniform point-in-polygon batch, a :class:`_MixedOut` segment view
+        when the batch carries KNN requests."""
         # snapshot the swap unit so a concurrent hot_swap can never pad
         # with one ladder and execute on the other core
         with self._swap_lock:
-            ladder, core = self.ladder, self.core
+            ladder, core, knn = self.ladder, self.core, self.knn
+        if reqs is not None and any(r.kind == "knn" for r in reqs):
+            return self._dispatch_mixed(
+                ladder, core, knn, points, deadline_hint, reqs
+            )
         padded, n = ladder.pad(points)
         bucket = padded.shape[0]
         with _trace.span(
@@ -342,6 +424,78 @@ class ServeEngine:
         ):
             out = self._dispatch_resilient(core, padded, deadline_hint)
         return out[:n], n / bucket
+
+    def _dispatch_mixed(self, ladder, core, knn, points, deadline_hint, reqs):
+        """Split a mixed batch by request kind: ALL point-in-polygon rows
+        go through one padded core dispatch, KNN rows group by k into one
+        frontend dispatch each. Answers come back as a :class:`_MixedOut`
+        keyed by each request's row interval; occupancy is the
+        rows-weighted mean over the dispatches issued."""
+        bounds, off = [], 0
+        for r in reqs:
+            bounds.append((r, off, off + r.n))
+            off += r.n
+        segs = {}
+        degraded, reason, attempts = False, None, 0
+        occ_rows, rows_total = 0.0, 0
+
+        pip = [(r, a, b) for (r, a, b) in bounds if r.kind != "knn"]
+        if pip:
+            pts = np.concatenate([points[a:b] for (_r, a, b) in pip])
+            padded, n = ladder.pad(pts)
+            bucket = padded.shape[0]
+            with _trace.span(
+                "serve.dispatch", bucket=bucket, rows=n,
+            ), _telemetry.timed(
+                "serve_stage", stage="dispatch", bucket=bucket, rows=n,
+            ):
+                out = self._dispatch_resilient(core, padded, deadline_hint)
+            if isinstance(out, DegradedResult):
+                degraded, reason, attempts = True, out.reason, out.attempts
+            vals = np.asarray(out[:n])
+            o = 0
+            for (r, a, b) in pip:
+                segs[(a, b)] = vals[o : o + r.n]
+                o += r.n
+            occ_rows += (n / bucket) * n
+            rows_total += n
+
+        knn_reqs = [(r, a, b) for (r, a, b) in bounds if r.kind == "knn"]
+        if knn_reqs:
+            if knn is None:
+                raise RuntimeError(
+                    "KNN request admitted but the engine has no KNN frontend"
+                )
+            default_s = (
+                None
+                if deadline_hint is None
+                else max(float(deadline_hint), 0.05) + self.watchdog_grace_s
+            )
+            by_k: dict[int, list] = {}
+            for item in knn_reqs:
+                by_k.setdefault(item[0].k, []).append(item)
+            for k, group in sorted(by_k.items()):
+                pts = np.concatenate([points[a:b] for (_r, a, b) in group])
+                n = int(pts.shape[0])
+                with _trace.span(
+                    "serve.dispatch", rows=n, kind="knn", k=k,
+                ), _telemetry.timed(
+                    "serve_stage", stage="dispatch", rows=n, kind="knn", k=k,
+                ):
+                    out, occ = knn.dispatch(pts, k, default_s=default_s)
+                if isinstance(out, DegradedResult):
+                    degraded, reason, attempts = True, out.reason, out.attempts
+                vals = np.asarray(out)
+                o = 0
+                for (r, a, b) in group:
+                    segs[(a, b)] = vals[o : o + r.n]
+                    o += r.n
+                occ_rows += float(occ) * n
+                rows_total += n
+
+        occupancy = occ_rows / rows_total if rows_total else 1.0
+        view = _MixedOut(segs, degraded=degraded, reason=reason, attempts=attempts)
+        return view, occupancy
 
     def _on_cold_compile(self, bucket: int, signatures: int) -> None:
         """Core callback: a post-warmup dispatch introduced a new
@@ -391,3 +545,44 @@ class ServeEngine:
         return _quarantine.find_park_point(
             assign, self.index.cells.cpu().numpy(), bounds
         )
+
+
+def _decode_knn_future(req, k: int) -> Future:
+    """Chain the request's raw wire future ((n, 2k) f64 rows) into one
+    resolving to a batched :class:`~mosaic_tpu_torch.knn.KNNAnswer`.
+    Quarantined rows were answered at the park point — masked back to the
+    sentinel (``ids=-1, distance=inf``) so a poisoned coordinate can never
+    surface a real neighbour. Exceptions (Overloaded sheds, injected
+    faults, RetryExhausted) pass through untranslated."""
+    from ..knn.frontend import KNNAnswer, decode_knn
+
+    fut: Future = Future()
+
+    def _done(raw: Future) -> None:
+        if raw.cancelled():
+            fut.cancel()
+            return
+        exc = raw.exception()
+        if exc is not None:
+            fut.set_exception(exc)
+            return
+        try:
+            out = raw.result()
+            degraded = isinstance(out, DegradedResult) or bool(
+                getattr(out, "degraded", False)
+            )
+            reason = getattr(out, "reason", None) if degraded else None
+            ids, dist = decode_knn(np.asarray(out), k)
+            if req.quarantine is not None:
+                dist = dist.copy()
+                bad = [r for (_b, r) in req.quarantine.rows]
+                ids[bad] = -1
+                dist[bad] = np.inf
+            fut.set_result(
+                KNNAnswer(ids=ids, distance=dist, degraded=degraded, reason=reason)
+            )
+        except BaseException as e:  # noqa: BLE001 — delivered via the future
+            fut.set_exception(e)
+
+    req.future.add_done_callback(_done)
+    return fut

@@ -27,8 +27,9 @@ admission).
 What differs from the reference: there is no program store
 (`dispatch/programs.py`: ``program_store=`` raises), no tuning profile
 (``add_tenant(profile=/profile_root=)`` raises, ROADMAP queue 1 item
-13), no epochal index (``advance_epoch`` raises, item 11) and no KNN
-(``submit_knn`` raises, item 10).
+13) and no epochal index (``advance_epoch`` raises, item 11). A tenant
+whose engine serves KNN (``add_tenant(..., knn=...)``) takes
+:meth:`ServeRouter.submit_knn`.
 """
 
 from __future__ import annotations
@@ -281,11 +282,35 @@ class ServeRouter:
         ).result(timeout)
 
     def submit_knn(self, tenant: str, points, k: int, *, deadline_s=None):
-        """KNN requests per tenant are ROADMAP queue 1 item 10."""
-        raise NotImplementedError(
-            "ServeRouter.submit_knn is not ported yet (ROADMAP queue 1, "
-            "item 10: KNN serving)"
-        )
+        """Admit one KNN request for ``tenant`` (its engine built with
+        ``knn=``); the quota, revival and shed semantics of :meth:`submit`,
+        the future resolves to a batched
+        :class:`~mosaic_tpu_torch.knn.KNNAnswer`."""
+        if self._closed:
+            raise RuntimeError("router is closed")
+        with _telemetry.timed(
+            "router_stage", stage="admit", tenant=tenant, kind="knn",
+        ):
+            _faults.maybe_fail("router.admit")
+            with self._lock:
+                t = self._require(tenant)
+                if t.engine is None:
+                    self._revive(t)
+                t.last_used = time.monotonic()
+                t.submitted += 1
+                engine = t.engine
+        try:
+            return engine.submit_knn(points, k, deadline_s=deadline_s)
+        except Overloaded as e:
+            t.shed_admit += 1
+            _telemetry.record("router_shed", tenant=tenant, reason=e.reason)
+            raise
+
+    def join_knn(self, tenant, points, k, *, deadline_s=None, timeout=None):
+        """Synchronous convenience wrapper: submit_knn and wait."""
+        return self.submit_knn(
+            tenant, points, k, deadline_s=deadline_s
+        ).result(timeout)
 
     def swap(self, tenant: str, index=None, **hot_swap_kw) -> dict:
         """Hot-swap one tenant's index under the ``router.swap``

@@ -132,7 +132,10 @@ class ChipIndex:
     convex_ybin (Cv, 3) f32.
 
     Indexes built by :func:`build_chip_index` also carry ``host``, the
-    f64 :class:`HostRecheck` companion (numpy, never on the device).
+    f64 :class:`HostRecheck` companion, and ``voronoi``, the
+    :class:`VoronoiTables` of the convex chip sites (both numpy, never on
+    the device; ``voronoi`` is None for an index rebuilt from arrays
+    without them).
     """
 
     cells: torch.Tensor
@@ -158,6 +161,7 @@ class ChipIndex:
     convex_ebits: torch.Tensor
     convex_geom: torch.Tensor
     convex_ybin: torch.Tensor
+    voronoi: "VoronoiTables | None" = None
 
     @property
     def device(self) -> torch.device:
@@ -185,7 +189,10 @@ class ChipIndex:
 
     @classmethod
     def field_names(cls) -> list[str]:
-        return [f.name for f in dataclasses.fields(cls) if f.name != "border"]
+        return [
+            f.name for f in dataclasses.fields(cls)
+            if f.name not in ("border", "voronoi")
+        ]
 
     @classmethod
     def from_arrays(cls, arrays: dict, device=None) -> "ChipIndex":
@@ -212,6 +219,8 @@ class ChipIndex:
         idx.host = (
             HostRecheck.from_arrays(arrays) if "hr_cells" in arrays else None
         )
+        if "voronoi.sites" in arrays:
+            idx.voronoi = VoronoiTables.from_arrays(arrays)
         return idx
 
     def to_arrays(self) -> dict:
@@ -229,6 +238,8 @@ class ChipIndex:
             out[f"border.{n}"] = getattr(self.border, n).cpu().numpy()
         if getattr(self, "host", None) is not None:
             out.update(self.host.save_arrays())
+        if self.voronoi is not None:
+            out.update(self.voronoi.to_arrays())
         return out
 
 
@@ -630,7 +641,129 @@ def build_chip_index(
         shift=shift64,
         coord_scale=coord_scale,
     )
+    # Voronoi adjacency of the convex chip sites, host numpy like
+    # ``host``: the KNN frontend's convex lane walks it (knn/frontend.py)
+    idx.voronoi = _build_voronoi_tables(
+        uniq, cell_convex, epc, cell_edges64, convex_geom, shift64
+    )
     return idx
+
+
+@dataclasses.dataclass
+class VoronoiTables:
+    """Host-side Voronoi adjacency of the convex chip sites: one site per
+    convex-lane cell (the single chip's vertex centroid), with the
+    Delaunay-dual neighbour lists that make "move to the adjacent site
+    closer to the query" walks possible (the reference's
+    ``sql/join.py VoronoiTables``, field for field).
+
+    The KNN frontend's Voronoi lane walks it to bound a query's kth
+    distance, which collapses the iterative ring loop into one
+    guaranteed-cover dispatch. Correctness never depends on the
+    adjacency (the ring cover is what is exact); its quality only sets
+    how tight the bound is, which is why the nearest-neighbour fallback
+    is sound.
+
+    sites:    (Cv, 2) f64 — convex chip vertex centroids (recentred frame).
+    adjacency:(Cv, DEG) int32 — neighbouring convex rows, -1 padded.
+    geom:     (Cv,) int32 — the site's source polygon row (== convex_geom).
+    cell:     (Cv,) int64 — the site's cell id.
+    shift:    (2,) f64 — the recenter origin of ``sites``; walks subtract
+              it from raw queries.
+    method:   "delaunay" | "nearest" — how adjacency was derived.
+    """
+
+    sites: np.ndarray
+    adjacency: np.ndarray
+    geom: np.ndarray
+    cell: np.ndarray
+    shift: np.ndarray
+    method: str
+
+    _ARRAYS = ("sites", "adjacency", "geom", "cell", "shift")
+
+    @property
+    def num_sites(self) -> int:
+        return int(self.sites.shape[0])
+
+    def to_arrays(self) -> dict:
+        """``voronoi.<field>`` numpy arrays (``method`` as a 0-d string)."""
+        out = {f"voronoi.{n}": np.asarray(getattr(self, n)) for n in self._ARRAYS}
+        out["voronoi.method"] = np.asarray(self.method)
+        return out
+
+    @classmethod
+    def from_arrays(cls, arrays: dict) -> "VoronoiTables":
+        return cls(
+            **{n: np.array(arrays[f"voronoi.{n}"]) for n in cls._ARRAYS},
+            method=str(np.asarray(arrays["voronoi.method"])),
+        )
+
+
+def _voronoi_adjacency(sites: np.ndarray):
+    """(Cv, DEG) int32 neighbour lists: the Delaunay dual (scipy), or the
+    nearest-DEG heuristic when the sites are too few or degenerate for a
+    triangulation — it only loosens the walk's bound, never the
+    exactness of the ring cover."""
+    Cv = sites.shape[0]
+    if Cv <= 1:
+        return np.full((Cv, 1), -1, dtype=np.int32), "nearest"
+    neigh = [set() for _ in range(Cv)]
+    method = "nearest"
+    if Cv >= 4:
+        from scipy.spatial import Delaunay, QhullError
+
+        try:
+            tri = Delaunay(sites)
+        except (QhullError, ValueError):
+            pass  # degenerate (collinear) sites: the fallback below
+        else:
+            for simplex in tri.simplices:
+                for i in simplex:
+                    for j in simplex:
+                        if i != j:
+                            neigh[i].add(int(j))
+            method = "delaunay"
+    if method == "nearest":
+        deg = min(8, Cv - 1)
+        d2 = ((sites[:, None, :] - sites[None, :, :]) ** 2).sum(axis=-1)
+        np.fill_diagonal(d2, np.inf)
+        nearest = np.argsort(d2, axis=1, kind="stable")[:, :deg]
+        for i in range(Cv):
+            neigh[i].update(int(j) for j in nearest[i])
+            # symmetrize so walks can traverse in both directions
+            for j in nearest[i]:
+                neigh[int(j)].add(i)
+    deg = max(1, max(len(s) for s in neigh))
+    adj = np.full((Cv, deg), -1, dtype=np.int32)
+    for i, s in enumerate(neigh):
+        row = sorted(s)
+        adj[i, : len(row)] = row
+    return adj, method
+
+
+def _build_voronoi_tables(
+    uniq, cell_convex, epc, cell_edges, convex_geom, shift
+) -> VoronoiTables:
+    """Host: site + adjacency tables over the convex-lane cells, built
+    from the same f64 edge rows as the convex tables."""
+    rows = np.nonzero(cell_convex >= 0)[0]
+    Cv = rows.size
+    sites = np.zeros((Cv, 2), dtype=np.float64)
+    cell = np.zeros(Cv, dtype=np.int64)
+    for u in rows:
+        r = int(cell_convex[u])
+        k = int(epc[u])
+        # one closed convex ring: the edge 'a' endpoints enumerate the
+        # ring's vertices exactly once
+        sites[r] = cell_edges[u, :k, 0:2].astype(np.float64).mean(axis=0)
+        cell[r] = uniq[u]
+    adj, method = _voronoi_adjacency(sites)
+    return VoronoiTables(
+        sites=sites, adjacency=adj,
+        geom=np.asarray(convex_geom, dtype=np.int32), cell=cell,
+        shift=np.asarray(shift, dtype=np.float64), method=method,
+    )
 
 
 def _build_convex_tables(

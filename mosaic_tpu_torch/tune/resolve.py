@@ -14,7 +14,9 @@ does. The knobs carried are the ones the port reads:
 - ``probe`` (``MOSAIC_TUNE_PROBE``) and ``lookup``
   (``MOSAIC_TUNE_LOOKUP``);
 - ``stream_pipeline`` (``MOSAIC_STREAM_PIPELINE``, "" and "0" are
-  false) and ``stream_window`` (``MOSAIC_STREAM_WINDOW``, an int).
+  false) and ``stream_window`` (``MOSAIC_STREAM_WINDOW``, an int);
+- ``knn_lane`` (``MOSAIC_TUNE_KNN_LANE``, ``ring`` or ``voronoi``), the
+  KNN frontend's lane that `ServeEngine` builds.
 
 Each entry-point call records ONE ``tune_resolve`` telemetry event naming
 every resolved knob's value and source.
@@ -35,11 +37,18 @@ def _parse_bool(raw: str):
     return raw not in ("", "0")
 
 
+def _parse_lane(raw: str) -> str:
+    if raw not in ("ring", "voronoi"):
+        raise ValueError(f"knn lane must be 'ring' or 'voronoi', got {raw!r}")
+    return raw
+
+
 #: knob -> (env reader, parser); the readers keep each name as a literal
 #: ``os.environ.get`` call, so a scan of the source sees every spelling
 _ENV = {
     "probe": (lambda: os.environ.get("MOSAIC_TUNE_PROBE"), str),
     "lookup": (lambda: os.environ.get("MOSAIC_TUNE_LOOKUP"), str),
+    "knn_lane": (lambda: os.environ.get("MOSAIC_TUNE_KNN_LANE"), _parse_lane),
     "stream_window": (lambda: os.environ.get("MOSAIC_STREAM_WINDOW"), int),
     "stream_pipeline": (
         lambda: os.environ.get("MOSAIC_STREAM_PIPELINE"), _parse_bool,

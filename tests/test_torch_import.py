@@ -63,6 +63,14 @@ MODULES = [
     "mosaic_tpu_torch.sql.overlay",
     "mosaic_tpu_torch.core.geometry.hostops",
     "mosaic_tpu_torch.tools.first_call_sweep",
+    "mosaic_tpu_torch.core.geometry.predicates",
+    "mosaic_tpu_torch.functions.geometry",
+    "mosaic_tpu_torch.knn",
+    "mosaic_tpu_torch.knn.frontend",
+    "mosaic_tpu_torch.knn.index",
+    "mosaic_tpu_torch.knn.oracle",
+    "mosaic_tpu_torch.models",
+    "mosaic_tpu_torch.models.knn",
 ]
 
 
@@ -116,6 +124,20 @@ def test_expr_and_overlay_modules_leave_jax_and_reference_out():
     imported alone."""
     code = (
         "import mosaic_tpu_torch.expr, mosaic_tpu_torch.sql.overlay, sys; "
+        "assert 'jax' not in sys.modules and 'mosaic_tpu' not in sys.modules"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=str(ROOT), timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_knn_modules_leave_jax_and_reference_out():
+    """The KNN slice's entry modules, imported alone."""
+    code = (
+        "import mosaic_tpu_torch.knn, mosaic_tpu_torch.models, sys; "
         "assert 'jax' not in sys.modules and 'mosaic_tpu' not in sys.modules"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -699,6 +699,70 @@ def test_serve_dispatch_on_card_is_free_of_host_syncs(cuda):
         np.testing.assert_array_equal(out.cpu().numpy(), core.execute_padded(pts))
 
 
+def test_serve_dispatch_on_card_replays_its_rungs_graph(cuda):
+    """Every warmed rung holds a captured graph; a replay equals the eager
+    probe bit for bit and counts the heavy kernel's launches as the eager
+    probe does."""
+    from mosaic_tpu_torch.dispatch import BucketLadder, DispatchCore
+
+    h3, ix = _serve_index(cuda)
+    core = DispatchCore(ix, h3, 9, probe="adaptive", ladder=BucketLadder(64, 1024))
+    core.warmup()
+    assert sorted(core._graphs) == list(core.ladder.buckets)
+    for b in core.ladder.buckets:
+        (pts,) = _requests(b + 1, [b])
+        l0 = TP.pip_heavy_tiled.launches
+        eager = core.probe_staged(*core.stage(pts)).cpu().numpy()
+        l1 = TP.pip_heavy_tiled.launches
+        np.testing.assert_array_equal(core.execute_padded(pts), eager)
+        assert TP.pip_heavy_tiled.launches - l1 == l1 - l0 == 1
+        assert core._graphs[b]["launches"] == {TP.pip_heavy_tiled: 1}
+
+
+def test_graph_capture_counts_launches_at_each_replay(cuda):
+    """A wrapper captured into a CUDA graph counts nothing while it is
+    captured and, at each replay, what its eager call counts; the replay
+    gives the eager call's bits."""
+    from mosaic_tpu_torch.kernels import _build
+
+    heavy = [torch.as_tensor(a, device=cuda) for a in _heavy_inputs(4_000)]
+    zones = synthetic_zones(4, 4, bbox=BBOX, verts=40)
+    planes, n_real = TP.edge_planes(
+        pack_to_device(zones, dtype=torch.float32, recenter=True, device=cuda))
+    pts = torch.as_tensor(np.random.default_rng(5).uniform(-0.05, 0.05, (3_000, 2))
+                          .astype(np.float32), device=cuda)
+    wrappers = (TP.pip_heavy_tiled, TP.pip_zone)
+
+    def calls():
+        best, _ = TP.pip_heavy_tiled(*heavy, eps2=None)
+        return best, TP.pip_zone(pts, planes, n_real)
+
+    def counts():
+        return [w.launches for w in wrappers]
+
+    c0 = counts()
+    eager = calls()
+    c1 = counts()
+    assert [b - a for a, b in zip(c0, c1)] == [1, 1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    c2 = counts()
+    graph = torch.cuda.CUDAGraph()
+    with _build.captured_launches() as record, torch.cuda.graph(graph):
+        out = calls()
+    assert counts() == c2
+    assert record == {TP.pip_heavy_tiled: 1, TP.pip_zone: 1}
+    for rep in (1, 2):
+        graph.replay()
+        _build.count_replay(record)
+        assert [b - a for a, b in zip(c2, counts())] == [rep, rep]
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, e) for g, e in zip(out, eager))
+
+
 def test_serve_on_card_raises_when_retries_exhausted(cuda):
     """Past the retry budget a dispatch on the card fails its requests
     with `RetryExhausted`; nothing degrades to the CPU."""
@@ -907,3 +971,117 @@ def test_intersects_join_device_predicate_on_card_equals_oracle(cuda):
     assert got.shape[0] > 0
     np.testing.assert_array_equal(OV._device_pair_intersects(left, right, cuda),
                                   pair_intersects(left, right))
+
+
+# ------------------------------------------------------------------- KNN
+
+
+def _knn_problem(device, n=600, seed=19):
+    """``n`` squares over ``BBOX`` (sides 0.5-1.5 H3 res-9 cell widths),
+    the KNN index on ``device`` and on the CPU, and H3."""
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+    from mosaic_tpu_torch.core.types import GeometryType, PackedGeometry
+    from mosaic_tpu_torch.knn import build_knn_index
+
+    h3 = H3IndexSystem()
+    rng = np.random.default_rng(seed)
+    w = float(np.sqrt(h3.cell_area_approx(9)))
+    cx, cy = rng.uniform(BBOX[0], BBOX[2], n), rng.uniform(BBOX[1], BBOX[3], n)
+    s = rng.uniform(0.5, 1.5, n) * w
+    xy = np.stack([np.stack([cx, cy], -1), np.stack([cx + s, cy], -1),
+                   np.stack([cx + s, cy + s], -1), np.stack([cx, cy + s], -1)],
+                  axis=1).reshape(-1, 2)
+    k = np.arange(n + 1, dtype=np.int64)
+    cand = PackedGeometry(xy=xy, ring_offsets=4 * k, part_offsets=k, geom_offsets=k,
+                          geom_type=np.full(n, int(GeometryType.POLYGON), np.uint8),
+                          srid=np.full(n, 4326, np.int32))
+    kx = build_knn_index(cand, h3, 9, device=device)
+    return h3, cand, kx, kx.to("cpu")
+
+
+def _f64_bits(a):
+    return np.ascontiguousarray(np.asarray(a, dtype=np.float64)).view(np.int64)
+
+
+@pytest.mark.parametrize("lane", ["ring", "voronoi"])
+def test_knn_lanes_on_card_equal_cpu_and_oracle(cuda, lane):
+    """Both lanes on the card answer the CPU frontend's bits and the f64
+    brute-force oracle's: ids and distance bits (the pair program is f64
+    on the card, where IEEE sqrt and divide are exact)."""
+    from mosaic_tpu_torch.knn import KNNFrontend, brute_force_knn
+
+    _, _, kx, kx_cpu = _knn_problem(cuda)
+    q = np.random.default_rng(3).uniform(BBOX[:2], BBOX[2:], (40, 2))
+    fe = KNNFrontend(kx, lane=lane)
+    assert fe.warmup()["backend_compiles"] == 0
+    out, _ = fe.dispatch(q, 4)
+    cpu, _ = KNNFrontend(kx_cpu, lane=lane).dispatch(q, 4)
+    np.testing.assert_array_equal(_f64_bits(out), _f64_bits(cpu))
+    ids, dist = brute_force_knn(q, kx, 4)
+    np.testing.assert_array_equal(out[:, 4:].astype(np.int64), ids)
+    np.testing.assert_array_equal(_f64_bits(out[:, :4]), _f64_bits(dist))
+    assert fe.cold_compiles == 0
+
+
+def test_knn_pair_program_on_card_equals_cpu(cuda):
+    """The shared pair program on the card, point x polygon and polygon x
+    polygon, equals the CPU's bits."""
+    from mosaic_tpu_torch.functions import geometry as G
+    from mosaic_tpu_torch.knn.frontend import _point_pair_prog
+
+    _, cand, kx, kx_cpu = _knn_problem(cuda, n=200)
+    rng = np.random.default_rng(5)
+    qxy = torch.from_numpy(rng.uniform(-0.05, 0.05, (3000, 2)))
+    rows = torch.from_numpy(rng.integers(0, 200, 3000))
+    prog = _point_pair_prog()
+    got = prog(kx.dc, qxy.to(cuda), rows.to(cuda)).cpu().numpy()
+    want = prog(kx_cpu.dc, qxy, rows).numpy()
+    np.testing.assert_array_equal(_f64_bits(got), _f64_bits(want))
+    a, b = cand.take(np.arange(100)), cand.take(np.arange(100, 200))
+    da, db = G._pair_pack(a, b, device=cuda)
+    ca, cb = G._pair_pack(a, b, device="cpu")
+    np.testing.assert_array_equal(
+        _f64_bits(G._vmap_pair(G._distance_dense, da, db).cpu()),
+        _f64_bits(G._vmap_pair(G._distance_dense, ca, cb)))
+
+
+def test_knn_on_card_raises_when_retries_exhausted(cuda):
+    """Past the retry budget a KNN batch on the card raises
+    `RetryExhausted`, served or direct; nothing degrades to the CPU."""
+    from mosaic_tpu_torch.knn import KNNFrontend
+    from mosaic_tpu_torch.runtime import RetryExhausted, faults, telemetry
+    from mosaic_tpu_torch.serve import BucketLadder, ServeEngine
+
+    h3, ix = _serve_index(cuda)
+    _, _, kx, _ = _knn_problem(cuda)
+    q = np.random.default_rng(4).uniform(BBOX[:2], BBOX[2:], (5, 2))
+    fe = KNNFrontend(kx)
+    with telemetry.capture() as ev, faults.transient_errors(50, sites=("knn.distance",)):
+        with pytest.raises(RetryExhausted):
+            fe.dispatch(q, 3)
+        with ServeEngine(ix, h3, 9, ladder=BucketLadder(64, 256), bounds=BBOX,
+                         knn=fe) as eng:
+            with pytest.raises(RetryExhausted):
+                eng.submit_knn(q, 3, deadline_s=30.0).result(timeout=60)
+            assert eng.metrics()["degraded"] == 0
+    assert "degraded" not in [e["event"] for e in ev]
+
+
+def test_spatial_knn_on_card_equals_cpu(cuda):
+    from mosaic_tpu_torch.models import SpatialKNN
+    from mosaic_tpu_torch.core.types import GeometryType, PackedGeometry
+
+    h3, cand, _, _ = _knn_problem(cuda, n=300)
+    pts = np.random.default_rng(6).uniform(BBOX[:2], BBOX[2:], (30, 2))
+    k = np.arange(31, dtype=np.int64)
+    land = PackedGeometry(xy=pts, ring_offsets=k, part_offsets=k, geom_offsets=k,
+                          geom_type=np.full(30, int(GeometryType.POINT), np.uint8),
+                          srid=np.full(30, 4326, np.int32))
+    kw = dict(k_neighbours=3, max_iterations=64, early_stop_iterations=100,
+              approximate=False)
+    got = SpatialKNN(h3, 9, device=cuda, **kw).transform(land, cand)
+    want = SpatialKNN(h3, 9, device="cpu", **kw).transform(land, cand)
+    for f in ("landmark_id", "candidate_id", "rank"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    np.testing.assert_array_equal(_f64_bits(got.distance), _f64_bits(want.distance))
+    assert not got.metrics["degraded"]

@@ -292,3 +292,28 @@ def test_plain_path_only_for_cpu_tensors(monkeypatch):
     before = (TP.pip_heavy_tiled.launches, TP.pip_zone.launches)
     _port_heavy(px, py, rows, edges, bits, geom)
     assert (TP.pip_heavy_tiled.launches, TP.pip_zone.launches) == before
+
+
+@pytest.mark.parametrize("capturing", [False, True], ids=["eager", "captured"])
+def test_launch_counted_eagerly_or_at_each_replay(monkeypatch, capturing):
+    """An eager launch counts at once; a launch captured into a CUDA graph
+    counts nothing until each replay (`_build.count_replay`), for any
+    counted wrapper."""
+    from mosaic_tpu_torch.kernels import _build
+
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing)
+    before = (TP.pip_heavy_tiled.launches, TP.pip_zone.launches)
+    with _build.captured_launches() as record:
+        _build.count_launch(TP.pip_heavy_tiled)
+        _build.count_launch(TP.pip_zone)
+        _build.count_launch(TP.pip_zone)
+    added = (TP.pip_heavy_tiled.launches - before[0], TP.pip_zone.launches - before[1])
+    if not capturing:
+        assert added == (1, 2) and record == {}
+        return
+    assert added == (0, 0) and record == {TP.pip_heavy_tiled: 1, TP.pip_zone: 2}
+    for rep in (1, 2):
+        _build.count_replay(record)
+        assert (TP.pip_heavy_tiled.launches - before[0],
+                TP.pip_zone.launches - before[1]) == (rep, 2 * rep)
+    TP.pip_heavy_tiled.launches, TP.pip_zone.launches = before

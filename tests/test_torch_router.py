@@ -378,7 +378,9 @@ class TestNotPorted:
             router.add_tenant("a", index_a, RES, warm=False)
             with pytest.raises(NotImplementedError, match="item 11"):
                 router.advance_epoch("a", object())
-            with pytest.raises(NotImplementedError, match="item 10"):
+            # KNN is ported: a tenant whose engine has no KNN frontend
+            # refuses KNN requests (tests/test_torch_knn_serve.py serves them)
+            with pytest.raises(RuntimeError, match="no KNN frontend"):
                 router.submit_knn("a", np.zeros((2, 2)), 3)
 
 

@@ -18,8 +18,9 @@ Contracts, each exact (tolerance 0):
 - one connected trace per request across the submit and batcher
   threads;
 - what the port does not carry raises a typed error naming its ROADMAP
-  entry (KNN item 10, profiles item 13, mesh item 12, the program store
-  queue 3).
+  entry (profiles item 13, mesh item 12, the program store queue 3); a
+  ``knn=`` that is neither a KNN index nor a frontend raises
+  ``TypeError`` (KNN serving itself: `tests/test_torch_knn_serve.py`).
 """
 
 import time
@@ -378,6 +379,33 @@ class TestHotSwap:
             assert eng.metrics()["cold_compiles"] == 0
 
 
+class TestClose:
+    def test_close_frees_the_cores_graphs_without_a_collection(self, index, grid):
+        """A closed engine may outlive its last reference in a cycle until
+        a full collection; its core's graphs (captured on the card; a
+        stand-in here) are freed at close, not by that collection."""
+        import gc
+        import weakref
+
+        class Graph:
+            pass
+
+        eng = make_engine(index, grid, ladder=BucketLadder(64, 256))
+        eng.warmup()
+        graph = Graph()
+        eng.core._graphs[64] = {"graph": graph}
+        freed = weakref.ref(graph)
+        del graph
+        gc_was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            eng.close()
+            assert freed() is None and eng.core._graphs == {}
+        finally:
+            if gc_was_enabled:
+                gc.enable()
+
+
 class TestJoinCacheHatch:
     def test_stats_and_clear(self):
         with telemetry.capture() as events:
@@ -498,12 +526,12 @@ class TestSummarize:
 
 
 class TestNotPorted:
+    # KNN serving is ported (tests/test_torch_knn_serve.py): the cases of
+    # its two refusals went with them; the ids keep the other cases' names
     @pytest.mark.parametrize("kw,item", [
-        (dict(knn=object()), "item 10"),
-        (dict(knn_lane="ring"), "item 10"),
-        (dict(profile=object()), "item 13"),
-        (dict(mesh=2), "item 12"),
-        (dict(program_store="/nonexistent"), "queue 3"),
+        pytest.param(dict(profile=object()), "item 13", id="kw2-item 13"),
+        pytest.param(dict(mesh=2), "item 12", id="kw3-item 12"),
+        pytest.param(dict(program_store="/nonexistent"), "queue 3", id="kw4-queue 3"),
     ])
     def test_engine_arguments_raise_naming_their_item(self, index, grid, kw, item):
         with pytest.raises(NotImplementedError, match=item):
@@ -513,7 +541,9 @@ class TestNotPorted:
         with make_engine(index, grid) as eng:
             with pytest.raises(RuntimeError, match="no KNN frontend"):
                 eng.submit_knn(np.zeros((2, 2)), 3)
-            with pytest.raises(NotImplementedError, match="item 10"):
+            with pytest.raises(TypeError, match="KNNIndex or a KNNFrontend"):
                 eng.hot_swap(knn=object())
             with pytest.raises(NotImplementedError, match="item 13"):
                 eng.hot_swap(profile=object())
+        with pytest.raises(TypeError, match="KNNIndex or a KNNFrontend"):
+            make_engine(index, grid, knn=object())
