@@ -67,9 +67,11 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    24 x 28 m) over the same zones and index, default (256, 256) tiles:
    ``ZonalEngine.zones`` in the tiled lane (must launch ``zonal_tiled``
    once per tile with live pixels, and ``pip_heavy_tiled``), in the fold
-   lane, and ``ZonalEngine.grid``, each with its warm wall time and
-   pixels/s, and its device idle share on a 1024x1024 crop (the profiler
-   traces 16 tiles; the whole raster's ~10**6 device ops take it minutes);
+   lane, and ``ZonalEngine.grid``, each with the wall time of its one
+   warm call and pixels/s, and its device idle share on the 512x512
+   middle of the crop (the profiler traces 4 tiles; the whole raster's
+   ~10**6 device ops take it minutes, and it spends seconds on every
+   thousand);
    then where one warm tiled zones call spends its time, stage by stage,
    on the host clock. Gates: fold zones and grid on the 1024x1024 crop
    equal the f64 host oracles bit for bit (agreement 1.0), and the tiled
@@ -111,7 +113,7 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    zone plane equals the rows the fold lane's zones fold by, and one
    tile's fold equals the CPU lane. Prints pixels/s fused and staged,
    the program's torch ops and the device ops a tile, the idle share on
-   the crop, and the kernels' launches;
+   the crop's 512x512 middle, and the kernels' launches;
 8h. the durable expression scan: ``RasterStream.scan(expr=...)`` over the
    whole raster equals ``map_zonal`` bit for bit; on the crop a killed
    scan resumed equals the uninterrupted one, and a resume with another
@@ -126,12 +128,17 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    nvcc build and no cold compile in the warm runs; the fold at the
    overlay's shapes equals the CPU lane. Prints pairs/s of both lanes
    and the host-overridden pairs;
-8d-8f and 8j run in a process of their own (``--serve-child``; its
+8d-8f, 8j and 8k run in a process of their own (``--serve-child``; its
    lines' ``t_s`` count from its own start, the parent passes them
-   through), which loads phase 3's index from disk and the kernel
-   libraries built in phase 2: it must start no nvcc build. The ``serve_process`` line gives a
-   1,024-row dispatch's host ms in this process, which the profiler has
-   traced (every later eager op runs slower), beside the child's;
+   through), started right after phase 3: it loads phase 3's index from
+   disk and the kernel libraries built in phase 2 (it must start no nvcc
+   build) and, while this process runs phases 4-8i, builds on the host
+   and the card what its phases need (8k's epochal index and its rebuild,
+   8j's KNN index; the ``serve_prep`` line gives their seconds); its
+   phases start when this process sends ``go``. The ``serve_process``
+   line gives a 1,024-row dispatch's host ms in this process, which the
+   profiler has traced (every later eager op runs slower), beside the
+   child's;
 8d. serving (``serve/engine.py ServeEngine``, the reference serve
    bench's settings): ``probe="adaptive"``, ladder 64-16,384, a 2 ms
    window, a queue of 64, 2 s deadlines; ``warmup()`` (seconds per rung,
@@ -145,15 +152,15 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    requests/s, points/s, p50 and p99 latency, occupancy, batches, and a
    1,024-row dispatch's host ms alone and beside a thread holding the
    GIL (a 2,250 Hz ticker of 80 µs, and a thread that never leaves
-   Python); after 8j, the ``serve_profile`` line gives the device idle
-   share over a profiled window of 200 requests;
+   Python); after 8k, the ``serve_profile`` line gives the device idle
+   share over a profiled window of 50 requests;
 8e. serve resilience on that engine: a transient fault at
    ``serve.dispatch`` is retried to the same bits; exhausted retries
    fail the request with ``RetryExhausted`` and nothing degrades; a
    request with 100 NaN rows is parked (-1) and its batchmates' bits are
    untouched; ``hot_swap`` to the index of ``synthetic_zones(16, 16,
-   verts=256, seed=12)`` over the middle quarter of the bbox, in the
-   middle of a stream of requests: every
+   verts=256, seed=12)`` over the middle quarter of the bbox (epoch 0 of
+   8k's ``EpochalIndex``), in the middle of a stream of requests: every
    answer equals one of the two indexes' ``pip_join``, every request
    submitted after the swap returned equals the new index's, and the
    swap makes no cold compile and no nvcc build;
@@ -182,9 +189,31 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    ``max(SERVE_DEADLINE_S, 10 x)`` one warm top-rung mixed dispatch
    measured before it; the line prints ``max_latency_over_deadline``
    (a finding, not a gate), latency per kind, each lane's queries/s, the
-   stage split of a 64-row dispatch and ``knn_s``; the ``knn_profile``
-   line, after every other phase of the process, gives that dispatch's
-   device ops and idle share;
+   stage split of a 64-row dispatch, ``knn_s`` (the phase after its
+   index, which ``serve_prep`` built) and the index's build seconds; the
+   ``knn_profile`` line, after every other phase of the process, gives
+   that dispatch's device ops and idle share;
+8k. epochs under load (``index/epoch.py EpochalIndex``, ``ServeRouter.
+   advance_epoch``): 8e's zone set as an epochal index with a delta log,
+   4 epochs, each upserting 8 live zones with grown or moved versions,
+   inserting 4 and removing 4, each published into a router tenant's
+   engine through ``advance_epoch`` while 8 closed-loop clients submit
+   pip requests of 1-1,024 rows; the last publish is killed at its torn
+   boundary (index swapped, epoch counter not bumped). Gates: every
+   answer equals ``pip_join`` of an epoch live while it was in flight,
+   bit for bit; every request submitted after a publish returned equals
+   that epoch's (or a later one's); no nvcc build and no cold compile
+   after each publish; no shed or degradation; the final index equals
+   ``build_chip_index(tessellate(column))`` on the card
+   (``chip_index_equal``); ``EpochalIndex.replay`` of the log on the card
+   equals the live index at the applied epoch, so the torn publish
+   replays to a clean epoch; ``memory_allocated`` beyond the indexes
+   still held grows by at most one rung's pool (the device memory the
+   top rung's captured graph reserves) from epoch to epoch, and each
+   replaced core is gone or holds no graph (a swap frees its graphs). Prints each epoch's apply and
+   publish seconds (tessellate, append; materialize, build, swap), its
+   ``memory_allocated``, the replay's seconds, ``pip_heavy_tiled``
+   launches, the loop's GC pauses and its slowest request;
 9. a ``kernels`` line with each kernel's launches (their sum over the
    paths above, and each path's own count), times and bound, and each
    raster kernel's device time per launch in the crop profile.
@@ -218,6 +247,7 @@ import threading
 import time
 import types
 import warnings
+import weakref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -241,9 +271,11 @@ STREAM_BATCHES = 25        # 25 x 4M = 100M points, the stream bench's long run
 STREAM_HEADROOM = 1.05     # cap headroom over the largest slot's exact counts
 STREAM_POISON = 1000       # rows poisoned in each of 3 admitted batches
 STREAM_EVERY1_REPS = 1     # runs of each executor snapshotting every batch
-RASTER_WARM_REPS = 2       # warm whole-raster calls of each raster path
+RASTER_WARM_REPS = 1       # warm whole-raster calls of each raster path
+PROFILE_CROP = 512         # side of the crop's middle that the profiler traces
 RUNS_DIR = ".chip_smoke_runs"  # run directories of the durable phases (removed)
-CHILD_TIMEOUT_S = 600       # the serving process (8d-8f, 8j)
+CHILD_TIMEOUT_S = 600       # the serving process after go (8d-8f, 8j, 8k)
+SERVE_DIR = ".chip_smoke_serve"  # the serving process's index, result and epoch log (removed)
 # serving (8d-8f): the reference serve bench's settings
 # (tools/serve_bench.py defaults) and SERVE_TENANT_r16.json's traffic
 SERVE_LADDER = (64, 16384)  # --min-bucket, --max-bucket
@@ -255,7 +287,7 @@ SERVE_CLIENTS = 8           # --concurrency, closed loop
 SERVE_REQUESTS = 2000       # of 1-1,024 rows each (--rows-min/max), ~1M points
 SERVE_ROWS = (1, 1024)
 SERVE_SEED = 7
-SERVE_PROFILED = 200        # requests in the profiled window
+SERVE_PROFILED = 50         # requests in the profiled window
 SERVE_POISON = 100          # NaN rows of the parked request
 SWAP_SEED = 12              # zones of the index swapped in under load
 SWAP_BOX = 0.25             # share of the bbox they cover, in its middle
@@ -281,6 +313,13 @@ KNN_REQUESTS = 300          # mixed closed loop: half pip, half KNN
 KNN_REQ_ROWS = (1, 8)       # rows of a KNN request
 KNN_DEADLINE_X = 10.0       # loop deadline over one warm top-rung mixed dispatch
 KNN_HEADROOM = 0.25         # most a request's latency may take of its deadline
+# epochs under load (8k): deltas over 8e's swapped zone set
+EPOCHS = 4
+EPOCH_UPSERTS = 8           # live ids grown or moved an epoch
+EPOCH_INSERTS = 4           # new ids an epoch
+EPOCH_REMOVES = 4           # live ids removed an epoch
+EPOCH_SEED = 13
+EPOCH_POOL = 400            # requests of 1-1,024 rows the clients cycle through
 
 #: H100 SXM rates: HBM3 bytes/s (NVIDIA data sheet); single f32 and f64
 #: operations per second outside the tensor cores. The data sheet's 67 and
@@ -397,6 +436,19 @@ def square_grid(n: int, x0: float, y0: float, size: float, pitch: float):
         geom_type=np.full(n * n, int(GeometryType.POLYGON), np.uint8),
         srid=np.full(n * n, 4326, np.int32),
     )
+
+
+def middle(raster, side: int):
+    """The ``side`` x ``side`` middle of ``raster``, georeferenced."""
+    from mosaic_tpu_torch.raster import Raster
+
+    r0 = (raster.height - side) // 2
+    c0 = (raster.width - side) // 2
+    wx, wy = raster.raster_to_world(c0, r0)
+    gt = raster.gt
+    return Raster(data=raster.data[:, r0:r0 + side, c0:c0 + side].copy(),
+                  gt=(float(wx), gt[1], gt[2], float(wy), gt[4], gt[5]),
+                  srid=raster.srid, nodata=raster.nodata)
 
 
 def profile_device(fn):
@@ -584,13 +636,7 @@ def expr_overlay_phases(ix, H3, dev, n_zones, counted, cuda_ms, runs_dir, fold_e
     from mosaic_tpu_torch.expr import eval as EV
 
     raster3 = synthetic_raster(*RASTER, NYC_BBOX, bands=3, nodata=NODATA, seed=SEED)
-    r0 = (raster3.height - CROP) // 2
-    c0 = (raster3.width - CROP) // 2
-    wx, wy = raster3.raster_to_world(c0, r0)
-    gt = raster3.gt
-    crop3 = Raster(data=raster3.data[:, r0:r0 + CROP, c0:c0 + CROP].copy(),
-                   gt=(float(wx), gt[1], gt[2], float(wy), gt[4], gt[5]),
-                   srid=raster3.srid, nodata=raster3.nodata)
+    crop3 = middle(raster3, CROP)
     n_tiles = plan_tiles(raster3).ntiles
     real_pixels = raster3.height * raster3.width
     b3 = raster3.data[2]
@@ -617,10 +663,8 @@ def expr_overlay_phases(ix, H3, dev, n_zones, counted, cuda_ms, runs_dir, fold_e
     EC.freeze()
     nv0, cold0 = backend_compiles(), EC.cold_compiles()
     t0 = time.perf_counter()
+    # warmup_expr ran every tile shape, so this first call is warm
     fused, x_launches = counted_run(lambda: eng_x.map(tree, raster3))
-    fused_first_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    eng_x.map(tree, raster3)
     fused_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     fgrid, xg_launches = counted_run(lambda: eng_x.map(gtree, raster3))
@@ -672,12 +716,11 @@ def expr_overlay_phases(ix, H3, dev, n_zones, counted, cuda_ms, runs_dir, fold_e
                               cplan3.origins[t_chk],
                               torch.from_numpy(vals3[t_chk]).to(dev),
                               torch.from_numpy(mask3[t_chk]).to(dev), seg_chk)
-    crop_x_s = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        eng_x.map(tree, crop3)
-        crop_x_s.append(time.perf_counter() - t0)
-    busy_x, rows_x, prof_x_ms = profile_device(lambda: eng_x.map(tree, crop3))
+    pcrop3 = middle(raster3, PROFILE_CROP)
+    t0 = time.perf_counter()
+    eng_x.map(tree, pcrop3)
+    crop_x_s = time.perf_counter() - t0
+    busy_x, rows_x, prof_x_ms = profile_device(lambda: eng_x.map(tree, pcrop3))
     expr_kernels = kernel_times(rows_x)
     x_ok = {
         "fused_equal_to_staged": staged_agree == 1.0,
@@ -695,18 +738,18 @@ def expr_overlay_phases(ix, H3, dev, n_zones, counted, cuda_ms, runs_dir, fold_e
         "kept_share_of_band3_valid": EXPR_KEEP,
         "keys": int(fused.keys.size), "pixels_folded": int(fused.pixels),
         "warmup_s": warmup_x_s, "nvcc_builds_in_warmup": backend_compiles() - nv_w,
-        "fused_first_s": fused_first_s, "fused_warm_s": fused_s,
-        "fused_pixels_per_s": real_pixels / fused_s,
+        "fused_s": fused_s, "fused_pixels_per_s": real_pixels / fused_s,
         "staged_s": staged_s, "staged_map_pixels_s": pixels_s,
         "staged_pixels_per_s": real_pixels / staged_s,
         "grid_s": grid_x_s, "grid_pixels_per_s": real_pixels / grid_x_s,
         "grid_keys": int(fgrid.keys.size),
         "launches_zones": x_launches, "launches_grid": xg_launches,
         "program_torch_ops_per_tile": prog_ops,
-        "device_ops_per_tile": sum(c for _, _, c in rows_x) / cplan3.ntiles,
-        "profiled_on": f"{CROP}x{CROP} crop, {cplan3.ntiles} tiles",
+        "device_ops_per_tile": sum(c for _, _, c in rows_x) / plan_tiles(pcrop3).ntiles,
+        "profiled_on": f"{PROFILE_CROP}x{PROFILE_CROP} crop, "
+                       f"{plan_tiles(pcrop3).ntiles} tiles",
         "crop_warm_s": crop_x_s, "profiled_wall_ms": prof_x_ms,
-        **idle_share(busy_x, rows_x, min(crop_x_s) * 1e3),
+        **idle_share(busy_x, rows_x, crop_x_s * 1e3),
         "crop_kernels": expr_kernels,
         "top_device_ops": [{"op": k[:80], "ms": ms, "calls": c} for ms, k, c in rows_x[:6]],
         "tile_fold_ms": x_fold_ms, "tile_fold_max_abs_err": x_fold_err,
@@ -936,16 +979,17 @@ def latency_outlier(lat, t_start, t0, rows, events, gcp) -> dict:
             "gc_pauses_in_flight": gc_in}
 
 
-def serve_phases(ix, H3, dev):
-    """Phases 8d-8f, serving over phase 3's index. Returns (failure
-    message or None, {"serve": launches, "router": launches} of
+def serve_phases(ix, H3, dev, ix2, ix2_s):
+    """Phases 8d-8f, serving over phase 3's index; 8e swaps in ``ix2``,
+    epoch 0 of phase 8k's epochal index, which the serving process built
+    and published in ``ix2_s`` seconds before its phases. Returns
+    (failure message or None, {"serve": launches, "router": launches} of
     ``pip_heavy_tiled``, each counted from 0 just before its run, and the
     function that runs the profiled window, to be called last)."""
     import numpy as np
     import torch
 
-    from mosaic_tpu_torch.core.tessellate import tessellate
-    from mosaic_tpu_torch.datasets import NYC_BBOX, synthetic_zones
+    from mosaic_tpu_torch.datasets import NYC_BBOX
     from mosaic_tpu_torch.dispatch import BucketLadder, backend_compiles
     from mosaic_tpu_torch.kernels import pip as K
     from mosaic_tpu_torch.runtime import (
@@ -1114,13 +1158,6 @@ def serve_phases(ix, H3, dev):
     want_p = J.pip_join(poison[~bad_rows], None, H3, RES, chip_index=ix,
                         probe="scatter", recheck=False)
     parked = eng.metrics()["quarantined"] - q0
-    t0 = time.perf_counter()
-    mid = np.add(bbox[:2], bbox[2:]) / 2
-    half = np.subtract(bbox[2:], bbox[:2]) * np.sqrt(SWAP_BOX) / 2
-    box2 = tuple(float(v) for v in (*(mid - half), *(mid + half)))
-    zones2 = synthetic_zones(*ZONES, bbox=box2, verts=256, seed=SWAP_SEED)
-    ix2 = J.build_chip_index(tessellate(zones2, H3, RES, keep_core_geoms=False), device=dev)
-    ix2_s = time.perf_counter() - t0
     want2 = joined(reqs, ix2)
     subs, stop, swapped = [], threading.Event(), threading.Event()
 
@@ -1326,7 +1363,7 @@ def serve_phases(ix, H3, dev):
         sub = reqs[:SERVE_PROFILED]
         with ServeEngine(ix, H3, RES, probe="adaptive", **ekw) as eng_p:
             eng_p.warmup()
-            sub_wall = min(closed_loop(eng_p, sub)[2] for _ in range(2))
+            sub_wall = closed_loop(eng_p, sub)[2]
             b0 = eng_p.metrics()["batches"]
             busy, rows, prof_ms = profile_device(lambda: closed_loop(eng_p, sub))
             prof_batches = eng_p.metrics()["batches"] - b0
@@ -1382,18 +1419,20 @@ def point_column(pts):
     )
 
 
-def knn_phase(ix, H3, dev):
+def knn_phase(ix, H3, dev, kx, build_s):
     """Phase 8j, KNN on the card (``mosaic_tpu_torch/knn``, the batch
-    model and KNN serving). Returns (failure message or None,
-    ``pip_heavy_tiled`` launches of the mixed loop, the function that runs
-    the profiled 64-row dispatch, to be called last)."""
+    model and KNN serving) over ``kx``, the candidates' index that the
+    serving process built before its phases (``build_s`` seconds).
+    Returns (failure message or None, ``pip_heavy_tiled`` launches of the
+    mixed loop, the function that runs the profiled 64-row dispatch, to be
+    called last)."""
     import numpy as np
     import torch
 
     from mosaic_tpu_torch.datasets import NYC_BBOX, random_points
     from mosaic_tpu_torch.dispatch import BucketLadder, backend_compiles
     from mosaic_tpu_torch.kernels import pip as K
-    from mosaic_tpu_torch.knn import KNNFrontend, brute_force_knn, build_knn_index
+    from mosaic_tpu_torch.knn import KNNFrontend, brute_force_knn
     from mosaic_tpu_torch.models import SpatialKNN
     from mosaic_tpu_torch.runtime import DegradedResult, RetryExhausted, faults, telemetry
     from mosaic_tpu_torch.serve import ServeEngine
@@ -1402,11 +1441,7 @@ def knn_phase(ix, H3, dev):
     t_phase = time.perf_counter()
     bbox, k = NYC_BBOX, KNN_K
     b0 = backend_compiles()
-    cand = knn_candidates(H3, bbox, KNN_CANDIDATES, KNN_SEED)
-    t0 = time.perf_counter()
-    kx = build_knn_index(cand, H3, KNN_RES, device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    cand = kx.candidates
     fe = {lane: KNNFrontend(kx, lane=lane) for lane in ("ring", "voronoi")}
     t0 = time.perf_counter()
     warm = {lane: f.warmup() for lane, f in fe.items()}
@@ -1650,100 +1685,481 @@ def knn_phase(ix, H3, dev):
     return None, loop_launches, profile_64
 
 
+def swap_box():
+    """The middle ``SWAP_BOX`` share of the NYC bbox: 8e's and 8k's zones."""
+    import numpy as np
+
+    from mosaic_tpu_torch.datasets import NYC_BBOX
+
+    mid = np.add(NYC_BBOX[:2], NYC_BBOX[2:]) / 2
+    half = np.subtract(NYC_BBOX[2:], NYC_BBOX[:2]) * np.sqrt(SWAP_BOX) / 2
+    return tuple(float(v) for v in (*(mid - half), *(mid + half)))
+
+
+def epoch_edits(base, box):
+    """Phase 8k's ``EPOCHS`` deltas over ``base`` (stable ids 0..n-1), from
+    ``EPOCH_SEED``: each upserts ``EPOCH_UPSERTS`` live ids with a grown
+    (scaled 1.15-1.35 about its vertex mean) or moved (a third of a zone
+    cell) version of its current ring, inserts ``EPOCH_INSERTS`` zones of
+    another ``synthetic_zones`` lattice over ``box`` under new ids, and
+    removes ``EPOCH_REMOVES`` other live ids. Returns [(upsert column,
+    ids, removed ids)]."""
+    import numpy as np
+
+    from mosaic_tpu_torch.core.types import GeometryBuilder, GeometryType
+    from mosaic_tpu_torch.datasets import synthetic_zones
+
+    rng = np.random.default_rng(EPOCH_SEED)
+    fresh = synthetic_zones(*ZONES, bbox=box, verts=256, seed=EPOCH_SEED)
+    step = np.subtract(box[2:], box[:2]) / np.asarray(ZONES) / 3
+    rings = {g: base.geom_xy(g) for g in range(len(base))}
+    next_id, out = 10_000, []
+    for _ in range(EPOCHS):
+        live = np.asarray(sorted(rings))
+        pick = rng.choice(live, EPOCH_UPSERTS + EPOCH_REMOVES, replace=False)
+        ups, gone = pick[:EPOCH_UPSERTS], pick[EPOCH_UPSERTS:]
+        b, ids = GeometryBuilder(), []
+        for g in ups:
+            xy = rings[int(g)]
+            if rng.random() < 0.5:
+                c = xy.mean(axis=0)
+                xy = c + (xy - c) * rng.uniform(1.15, 1.35)
+            else:
+                xy = xy + step * rng.choice([-1.0, 1.0], 2)
+            rings[int(g)] = xy
+            b.add_geometry(GeometryType.POLYGON, [[xy]], srid=int(base.srid[0]))
+            ids.append(int(g))
+        for f in rng.choice(len(fresh), EPOCH_INSERTS, replace=False):
+            rings[next_id] = fresh.geom_xy(int(f))
+            b.add_geometry(GeometryType.POLYGON, [[rings[next_id]]],
+                           srid=int(base.srid[0]))
+            ids.append(next_id)
+            next_id += 1
+        for g in gone:
+            del rings[int(g)]
+        out.append((b.build(), np.asarray(ids, np.int64), gone.astype(np.int64)))
+    return out
+
+
+def final_column(base, edits):
+    """The column ``EpochalIndex`` holds after ``edits``, in its column
+    order (an upsert keeps its id's place, a new id goes last, a removal
+    closes up): the input of the from-scratch rebuild phase 8k holds the
+    last epoch to."""
+    from mosaic_tpu_torch.core.types import GeometryBuilder
+
+    order = list(range(len(base)))
+    src = {g: (base, g) for g in order}
+    for col, ids, gone in edits:
+        for g in gone:
+            order.remove(int(g))
+            del src[int(g)]
+        for i, g in enumerate(ids):
+            if int(g) not in src:
+                order.append(int(g))
+            src[int(g)] = (col, i)
+    b = GeometryBuilder()
+    for g in order:
+        b.append_from(*src[g])
+    return b.build()
+
+
+def index_bytes(index) -> int:
+    """Bytes of a chip index's tensors on the device."""
+    from mosaic_tpu_torch.sql import join as J
+
+    ts = [getattr(index, n) for n in J.ChipIndex.field_names()]
+    ts += [getattr(index.border, n) for n in J.ChipIndex._BORDER]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def epoch_phase(prep, H3, dev, ekw):
+    """Phase 8k, epochs under load: ``EPOCHS`` deltas (``prep.edits``)
+    applied to ``prep.ep`` (epoch 0 published) and each published through
+    ``ServeRouter.advance_epoch`` while closed-loop clients submit pip
+    requests; the last publish is killed at its torn boundary.
+    ``prep.rebuilt`` is the card's ``build_chip_index(tessellate(column))``
+    of the final column. Returns (failure message or None,
+    ``pip_heavy_tiled`` launches of the loop)."""
+    import numpy as np
+    import torch
+
+    from mosaic_tpu_torch.dispatch import BucketLadder, DispatchCore, backend_compiles
+    from mosaic_tpu_torch.index import EpochalIndex, chip_index_equal
+    from mosaic_tpu_torch.kernels import pip as K
+    from mosaic_tpu_torch.runtime import faults, telemetry
+    from mosaic_tpu_torch.serve import ServeRouter
+    from mosaic_tpu_torch.sql import join as J
+
+    t_phase = time.perf_counter()
+    ep, edits = prep.ep, prep.edits
+    box = swap_box()
+    rng = np.random.default_rng(EPOCH_SEED + 1)
+    sizes = rng.integers(SERVE_ROWS[0], SERVE_ROWS[1] + 1, EPOCH_POOL)
+    pool = [rng.uniform(box[:2], box[2:], (int(n), 2)) for n in sizes]
+    cat, cuts = np.concatenate(pool), np.cumsum(sizes)[:-1]
+
+    def answers(index):
+        return np.split(J.pip_join(cat, None, H3, RES, chip_index=index,
+                                   probe="scatter", recheck=False), cuts)
+
+    # one rung's pool: the device memory the top rung's captured graph
+    # holds (its private pool and its static tensors)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_reserved()
+    top = DispatchCore(ep.index, H3, RES, probe="adaptive",
+                       ladder=BucketLadder(SERVE_LADDER[1], SERVE_LADDER[1]))
+    top.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rung_pool = torch.cuda.memory_reserved() - m0
+    top.release_graphs()
+    del top
+    want = [answers(ep.index)]
+    router = ServeRouter(H3, max_resident=1, engine_defaults=dict(ekw, probe="adaptive"))
+    router.add_tenant("epochs", ep.index, RES)
+    b0 = backend_compiles()
+    subs, stop = [], threading.Event()
+    # the clients pause while memory is read, so no batch's own tensors
+    # are counted: {"paused": bool, "inflight": requests in flight}
+    cv, state = threading.Condition(), {"paused": False, "inflight": 0}
+    sinks = telemetry.current_sinks()
+
+    def client(c):
+        telemetry.adopt_sinks(sinks)
+        i = c
+        while not stop.is_set():
+            with cv:
+                while state["paused"]:
+                    cv.wait()
+                state["inflight"] += 1
+            t0 = time.perf_counter()
+            try:
+                a, err = router.submit("epochs", pool[i % EPOCH_POOL]).result(), None
+            except Exception as e:  # lint: broad-except-ok (every failure is listed and gated)
+                a, err = None, repr(e)[:200]
+            with cv:
+                subs.append((i % EPOCH_POOL, t0, time.perf_counter(), a, err))
+                state["inflight"] -= 1
+                cv.notify_all()
+            i += SERVE_CLIENTS
+
+    def quiet_memory():
+        """(``memory_allocated``, ``memory_reserved`` less the allocator's
+        free cache) with no request in flight."""
+        with cv:
+            state["paused"] = True
+            while state["inflight"]:
+                cv.wait()
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_allocated()
+        torch.cuda.empty_cache()
+        res = torch.cuda.memory_reserved()
+        with cv:
+            state["paused"] = False
+            cv.notify_all()
+        return mem, res
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(SERVE_CLIENTS)]
+    K.pip_heavy_tiled.launches = 0
+    epochs, pub = [], [(0.0, 0.0)]
+    torn_raised = False
+
+    def held_index_bytes():
+        """Bytes of the distinct indexes still referenced: the epochal
+        index's and the router's record (which keeps the last epoch it
+        advanced to when a publish dies)."""
+        held = {id(x): x for x in (ep.index, router._tenants["epochs"].index)}
+        return sum(index_bytes(x) for x in held.values())
+
+    with telemetry.capture() as events, GcPauses() as gcp:
+        t_loop = time.perf_counter()
+        for th in threads:
+            th.start()
+        time.sleep(0.2)
+        for e, (col, ids, gone) in enumerate(edits, start=1):
+            st_a = ep.apply(upsert=col, ids=ids, remove=gone)
+            replaced = weakref.ref(router._tenants["epochs"].engine.core)
+            t0 = time.perf_counter()
+            if e < EPOCHS:
+                st_p = router.advance_epoch("epochs", ep)
+            else:  # a kill between the index swap and the epoch bump
+                st_p = None
+                with faults.transient_errors(
+                    1, sites=("epoch.publish",), skip_first=1,
+                    exc_factory=lambda site: RuntimeError("simulated kill"),
+                ):
+                    try:
+                        router.advance_epoch("epochs", ep)
+                    except RuntimeError:
+                        torn_raised = True
+            t1 = time.perf_counter()
+            pub.append((t0, t1))
+            want.append(answers(ep.index))
+            mem, res = quiet_memory()
+            old = replaced()
+            m = router.metrics()["tenants"]["epochs"]
+            epochs.append({
+                "epoch": e, "apply_s": st_a["seconds"], "chip_rows": st_a["chip_rows"],
+                "publish_wall_s": t1 - t0,
+                "publish_s": st_p["seconds"] if st_p else "killed at the torn boundary",
+                "chips": st_p["chips"] if st_p else None,
+                "memory_allocated": mem, "memory_reserved_in_use": res,
+                "replaced_core_graphs": None if old is None else len(old._graphs),
+                "held_index_bytes": held_index_bytes(),
+                "nvcc_builds": backend_compiles() - b0,
+                "cold_compiles": m["cold_compiles"],
+            })
+        time.sleep(0.2)
+        stop.set()
+        for th in threads:
+            th.join()
+        loop_s = time.perf_counter() - t_loop
+    launches = K.pip_heavy_tiled.launches
+    m = router.metrics()["tenants"]["epochs"]
+    router.close()
+    # every answer is one of the epochs live while it was in flight; one
+    # submitted after a publish returned is that epoch's or a later one's
+    torn, stale, n_after, errors = 0, 0, 0, []
+    for i, t0, t1, a, err in subs:
+        if a is None:
+            errors.append(err)
+            continue
+        live = [e for e in range(EPOCHS + 1)
+                if (e == 0 or pub[e][0] <= t1) and (e == EPOCHS or pub[e + 1][1] >= t0)]
+        ok = [e for e in live if np.array_equal(a, want[e][i])]
+        torn += not ok
+        done = [e for e in range(1, EPOCHS + 1) if pub[e][1] <= t0]
+        if done:
+            n_after += 1
+            stale += not any(e >= done[-1] for e in ok)
+    lat = [t1 - t0 for _, t0, t1, _, _ in subs]
+    outlier = latency_outlier(lat, [t0 for _, t0, _, _, _ in subs], t_loop,
+                              [len(pool[i]) for i, *_ in subs], events, gcp)
+    # the last epoch against a rebuild, and the log replayed on the card
+    final, col = final_column(prep.base, edits), ep.column()
+    col_equal = all(
+        np.asarray(getattr(col, f)).tobytes() == np.asarray(getattr(final, f)).tobytes()
+        for f in ("xy", "ring_offsets", "part_offsets", "geom_offsets", "geom_type"))
+    t0 = time.perf_counter()
+    r = EpochalIndex.replay(prep.log_dir, H3, device=dev)
+    replay_s = time.perf_counter() - t0
+    growth = [b["memory_allocated"] - a["memory_allocated"]
+              - (b["held_index_bytes"] - a["held_index_bytes"])
+              for a, b in zip(epochs, epochs[1:])]
+    gates = {
+        "untorn": torn == 0 and not errors and len(subs) > 0,
+        "new_epoch_after_publish": stale == 0 and n_after > 0,
+        "epochs_observable": all(any(not np.array_equal(x, y) for x, y in zip(a, b))
+                                 for a, b in zip(want, want[1:])),
+        "no_compiles_after_publishes": all(x["nvcc_builds"] == 0 and x["cold_compiles"] == 0
+                                           for x in epochs) and m["cold_compiles"] == 0,
+        "no_shed_or_degraded": m["shed"] == 0 and m["degraded"] == 0,
+        "equals_a_rebuild": col_equal and chip_index_equal(ep.index, prep.rebuilt),
+        "replay_equals_live": r.applied_epoch == r.epoch == EPOCHS
+        and chip_index_equal(r.index, ep.index)
+        and r.epoch_token() == ep.index.epoch_token,
+        "torn_publish_replays_clean": torn_raised and ep.epoch == EPOCHS - 1
+        and ep.applied_epoch == EPOCHS and m["epoch"] == EPOCHS - 1
+        and m["epoch_advances"] == EPOCHS - 1,
+        "memory_flat": all(g <= rung_pool for g in growth),
+        "replaced_cores_hold_no_graphs": all(not x["replaced_core_graphs"] for x in epochs),
+        "launched_pip_heavy_tiled": launches > 0,
+    }
+    emit({
+        "phase": "epochs", "epochs": EPOCHS, "zones": len(prep.base),
+        "upserts": EPOCH_UPSERTS, "inserts": EPOCH_INSERTS, "removes": EPOCH_REMOVES,
+        "requests": len(subs), "requests_after_a_publish": n_after, "pool": EPOCH_POOL,
+        "clients": SERVE_CLIENTS, "loop_s": loop_s, "per_epoch": epochs,
+        "rung_pool_bytes": rung_pool, "memory_growth_less_index_bytes": growth,
+        "replay_s": replay_s, "pip_heavy_tiled_launches": launches,
+        "latency_max_request": outlier, "gc_during_loop": gcp.summary(),
+        "torn": torn, "stale": stale, "errors": errors[:3],
+        "epoch_s": time.perf_counter() - t_phase, "gates": gates,
+    })
+    bad = [g for g, v in gates.items() if not v]
+    return (f"epochs gates failed: {bad}" if bad else None), launches
+
+
+def serve_prep(ix_path, dev, runs_dir):
+    """What the serving process builds before its phases, while the main
+    process runs its own (host work, beside them on other cores): phase
+    3's index from disk; 8k's epochal index over the swap box, published
+    at epoch 0 (8e swaps it in), its deltas and the card's rebuild of
+    their final column; 8j's KNN index. Returns them with their seconds."""
+    import numpy as np
+    import torch
+
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+    from mosaic_tpu_torch.core.tessellate import tessellate
+    from mosaic_tpu_torch.datasets import NYC_BBOX, synthetic_zones
+    from mosaic_tpu_torch.index import EpochalIndex
+    from mosaic_tpu_torch.knn import build_knn_index
+    from mosaic_tpu_torch.sql import join as J
+
+    H3 = H3IndexSystem()
+    with np.load(ix_path) as z:
+        ix = J.ChipIndex.from_arrays(dict(z), device=dev)
+    box = swap_box()
+    zones2 = synthetic_zones(*ZONES, bbox=box, verts=256, seed=SWAP_SEED)
+    log_dir = os.path.join(runs_dir, "epoch_log")
+    t0 = time.perf_counter()
+    ep = EpochalIndex(zones2, H3, RES, keep_core_geoms=False, device=dev,
+                      log_dir=log_dir)
+    publish0 = ep.publish()
+    torch.cuda.synchronize()
+    ep_s = time.perf_counter() - t0
+    edits = epoch_edits(zones2, box)
+    t0 = time.perf_counter()
+    rebuilt = J.build_chip_index(
+        tessellate(final_column(zones2, edits), H3, RES, keep_core_geoms=False), device=dev)
+    torch.cuda.synchronize()
+    rebuild_s = time.perf_counter() - t0
+    cand = knn_candidates(H3, NYC_BBOX, KNN_CANDIDATES, KNN_SEED)
+    t0 = time.perf_counter()
+    kx = build_knn_index(cand, H3, KNN_RES, device=dev)
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+    return types.SimpleNamespace(
+        H3=H3, ix=ix, ep=ep, base=zones2, edits=edits, rebuilt=rebuilt, kx=kx,
+        log_dir=log_dir,
+        seconds={"epoch0_index_s": ep_s, "epoch0_publish_s": publish0["seconds"],
+                 "rebuild_s": rebuild_s, "knn_index_s": knn_s})
+
+
 def serve_child(index_path: str, result_path: str) -> int:
-    """Phases 8d-8f and 8j in a process of their own (``chip_smoke.py
-    --serve-child INDEX RESULT``): phase 3's index from ``INDEX`` (npz),
+    """The serving process (``chip_smoke.py --serve-child INDEX RESULT``):
+    builds what its phases need (:func:`serve_prep`), waits for ``go`` on
+    its standard input (the main process's phases are done), then runs
+    8d-8f, 8j and 8k over phase 3's index from ``INDEX`` (npz) and writes
     the outcome to ``RESULT`` (JSON: error and the phase it came in,
     launches, the nvcc builds this process started). The profiled windows
-    of 8d and 8j run after both."""
-    import numpy as np
+    of 8d and 8j run after all of them."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
-    from mosaic_tpu_torch.dispatch import backend_compiles
-    from mosaic_tpu_torch.sql import join as J
+    from mosaic_tpu_torch.dispatch import BucketLadder, backend_compiles
+    from mosaic_tpu_torch.datasets import NYC_BBOX
 
     dev = torch.device(DEVICE)
-    H3 = H3IndexSystem()
-    with np.load(index_path) as z:
-        ix = J.ChipIndex.from_arrays(dict(z), device=dev)
-    err, launches, serve_profile = serve_phases(ix, H3, dev)
+    t0 = time.perf_counter()
+    prep = serve_prep(index_path, dev, os.path.dirname(result_path))
+    prep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if sys.stdin.readline().strip() != "go":
+        return 2  # the main process failed before the serving phases
+    emit({"phase": "serve_prep", "prep_s": prep_s,
+          "waited_for_main_s": time.perf_counter() - t0, **prep.seconds})
+    H3, ix = prep.H3, prep.ix
+    err, launches, serve_profile = serve_phases(
+        ix, H3, dev, prep.ep.index,
+        prep.seconds["epoch0_index_s"])
     if not err:
-        err, knn_launches, knn_profile = knn_phase(ix, H3, dev)
+        err, knn_launches, knn_profile = knn_phase(
+            ix, H3, dev, prep.kx, prep.seconds["knn_index_s"])
         if not err:
             launches["knn_serve"] = knn_launches
-            serve_profile()
-            knn_profile()
+            ekw = dict(
+                ladder=BucketLadder(*SERVE_LADDER), max_batch_rows=SERVE_MAX_BATCH,
+                max_wait_s=SERVE_WINDOW_S, queue_capacity=SERVE_QUEUE,
+                default_deadline_s=SERVE_DEADLINE_S, bounds=NYC_BBOX,
+            )
+            err, launches["epochs"] = epoch_phase(prep, H3, dev, ekw)
+            if not err:
+                serve_profile()
+                knn_profile()
     with open(result_path, "w") as fh:
         json.dump({"error": err, "in": LAST_PHASE, "launches": launches,
                    "nvcc_builds": backend_compiles()}, fh)
     return 1 if err else 0
 
 
-def run_child(args, timeout_s: float) -> tuple:
-    """Run this script as a child with ``args``, its lines passed through
-    to stdout as they come. Returns (exit code, the phase of its last
-    line); a child past ``timeout_s`` is killed and gives (None, phase)."""
-    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), *args],
-                            stdout=subprocess.PIPE, text=True, bufsize=1)
-    last = ["none"]
+class ServeProcess:
+    """The serving process, started as soon as phase 3's index exists so
+    that its set-up overlaps the main process's phases; its lines pass
+    through to stdout as they come."""
 
-    def pump():
-        for line in proc.stdout:
+    def __init__(self, ix, serve_dir: str):
+        import numpy as np
+
+        shutil.rmtree(serve_dir, ignore_errors=True)
+        os.makedirs(serve_dir)
+        self.dir = serve_dir
+        index_path = os.path.join(serve_dir, "serve_index.npz")
+        self.result_path = os.path.join(serve_dir, "serve_result.json")
+        np.savez(index_path, **ix.to_arrays())
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve-child", index_path,
+             self.result_path],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, bufsize=1)
+        self.last = "none"
+        self.pump = threading.Thread(target=self._pump, daemon=True)
+        self.pump.start()
+
+    def _pump(self):
+        for line in self.proc.stdout:
             print(line, end="", flush=True)
             try:
-                last[0] = json.loads(line).get("phase", last[0])
+                self.last = json.loads(line).get("phase", self.last)
             except (ValueError, AttributeError):
                 pass
 
-    th = threading.Thread(target=pump, daemon=True)
-    th.start()
-    try:
-        rc = proc.wait(timeout=timeout_s)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
-        rc = None
-    th.join(timeout=10)
-    return rc, last[0]
+    def finish(self, timeout_s: float) -> tuple:
+        """Send ``go`` and wait: (exit code or None if killed at
+        ``timeout_s``, the phase of its last line, its result or None)."""
+        try:
+            self.proc.stdin.write("go\n")
+            self.proc.stdin.close()
+        except OSError:
+            pass  # it has already exited: its code says why
+        try:
+            rc = self.proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            rc = None
+        self.stop()
+        try:
+            with open(self.result_path) as fh:
+                result = json.load(fh)
+        except (OSError, ValueError) as exc:
+            result = {"error": f"no result from the serving process: {exc!r}",
+                      "in": self.last}
+        shutil.rmtree(self.dir, ignore_errors=True)
+        return rc, self.last, result
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.pump.join(timeout=10)
 
 
-def serve_process(ix, H3, runs_dir: str):
-    """Run phases 8d-8f and 8j in the serving child over ``ix``; print its
+#: the serving process, stopped however main() ends
+SERVING = []
+
+
+def serve_process(serving, ix, H3):
+    """Let the serving process run 8d-8f, 8j and 8k; print the
     ``serve_process`` line. Returns the child's result (its ``launches``),
     or the exit code of a failure."""
-    import numpy as np
-
     from mosaic_tpu_torch.datasets import NYC_BBOX, random_points
     from mosaic_tpu_torch.dispatch import BucketLadder, DispatchCore
 
-    os.makedirs(runs_dir, exist_ok=True)
-    index_path = os.path.join(runs_dir, "serve_index.npz")
-    result_path = os.path.join(runs_dir, "serve_result.json")
-    np.savez(index_path, **ix.to_arrays())
     core1024 = DispatchCore(ix, H3, RES, probe="adaptive", ladder=BucketLadder(64, 1024))
     core1024.warmup()
     parent_ms = dispatch_ms(core1024, random_points(1024, NYC_BBOX, seed=SERVE_SEED))
+    core1024.release_graphs()
     t0 = time.perf_counter()
-    child_rc, child_last = run_child(["--serve-child", index_path, result_path],
-                                     CHILD_TIMEOUT_S)
+    child_rc, child_last, served = serving.finish(CHILD_TIMEOUT_S)
     child_s = time.perf_counter() - t0
     if child_rc is None:
-        shutil.rmtree(runs_dir, ignore_errors=True)
         return fail(f"the serving process passed its {CHILD_TIMEOUT_S:.0f} s limit "
                     f"and was killed", where=child_last)
-    try:
-        with open(result_path) as fh:
-            served = json.load(fh)
-    except (OSError, ValueError) as exc:
-        served = {"error": f"no result from the serving process: {exc!r}",
-                  "in": child_last}
-    shutil.rmtree(runs_dir, ignore_errors=True)
-    emit({"phase": "serve_process", "child_rc": child_rc, "child_s": child_s,
+    emit({"phase": "serve_process", "child_rc": child_rc, "child_s_after_go": child_s,
           "parent_dispatch_ms_1024_rows": parent_ms,
           "child_nvcc_builds": served.get("nvcc_builds")})
     if child_rc or served.get("error"):
@@ -1840,6 +2256,8 @@ def main() -> int:
     })
     if ix.num_heavy_cells == 0:
         return fail("the index has no heavy cells: the heavy lane is not exercised")
+    # the serving process builds its indexes now, beside the phases below
+    SERVING.append(ServeProcess(ix, os.path.join(HERE, SERVE_DIR)))
 
     raw = random_points(N_POINTS, NYC_BBOX, seed=SEED)
     shift = ix.host.shift
@@ -1895,13 +2313,8 @@ def main() -> int:
     # the whole raster's ~10**6 device ops takes minutes
     raster = synthetic_raster(*RASTER, NYC_BBOX, nodata=NODATA, seed=SEED)
     probe_eng = ZonalEngine(H3, RES, chip_index=ix, lane="tiled")
-    r0 = (raster.height - CROP) // 2
-    c0 = (raster.width - CROP) // 2
-    wx, wy = raster.raster_to_world(c0, r0)
-    gt = raster.gt
-    crop = Raster(data=raster.data[:, r0:r0 + CROP, c0:c0 + CROP].copy(),
-                  gt=(float(wx), gt[1], gt[2], float(wy), gt[4], gt[5]),
-                  srid=raster.srid, nodata=raster.nodata)
+    crop = middle(raster, CROP)
+    pcrop = middle(raster, PROFILE_CROP)
 
     def wrapper_device_ms(fn, reps=20):
         """(device ms per call, {device op: ms per call}) of ``fn`` alone
@@ -2524,7 +2937,7 @@ def main() -> int:
     }
     n_tiles = plan_tiles(raster).ntiles
     real_pixels = raster.height * raster.width
-    crop_tiles = plan_tiles(crop).ntiles
+    pcrop_tiles = plan_tiles(pcrop).ntiles
     launches = {}
     results = {}
     crop_kernels = {}
@@ -2541,12 +2954,10 @@ def main() -> int:
             t0 = time.perf_counter()
             call(raster)
             warm_s.append(time.perf_counter() - t0)
-        crop_warm_s = []
-        for _ in range(2):
-            t0 = time.perf_counter()
-            call(crop)
-            crop_warm_s.append(time.perf_counter() - t0)
-        busy, rows_r, prof_ms = profile_device(lambda: call(crop))
+        t0 = time.perf_counter()
+        call(pcrop)
+        crop_warm_s = time.perf_counter() - t0
+        busy, rows_r, prof_ms = profile_device(lambda: call(pcrop))
         crop_kernels[name] = kernel_times(rows_r)
         out_r = results[name]
         warm_by_path[name] = warm_s
@@ -2556,10 +2967,10 @@ def main() -> int:
             "keys": int(out_r.keys.size), "pixels_folded": int(out_r.pixels),
             "cold_s": cold_s, "warm_s": warm_s,
             "pixels_per_s": real_pixels / min(warm_s),
-            "profiled_on": f"{CROP}x{CROP} crop, {crop_tiles} tiles",
+            "profiled_on": f"{PROFILE_CROP}x{PROFILE_CROP} crop, {pcrop_tiles} tiles",
             "crop_warm_s": crop_warm_s, "profiled_wall_ms": prof_ms,
-            **idle_share(busy, rows_r, min(crop_warm_s) * 1e3),
-            "device_ops_per_tile": sum(c for _, _, c in rows_r) / crop_tiles,
+            **idle_share(busy, rows_r, crop_warm_s * 1e3),
+            "device_ops_per_tile": sum(c for _, _, c in rows_r) / pcrop_tiles,
             "crop_kernels": crop_kernels[name],
             "top_device_ops": [
                 {"op": k[:80], "ms": ms, "calls": c} for ms, k, c in rows_r[:6]
@@ -2693,15 +3104,12 @@ def main() -> int:
     stream_run = sj.run(ring, STREAM_BATCHES)
     stream_launches = K.pip_heavy_tiled.launches
     stream_zone_launches = K.pip_zone.launches
-    stream_walls = [stream_run.wall_s] + [sj.run(ring, STREAM_BATCHES).wall_s
-                                          for _ in range(2)]
+    stream_walls = [stream_run.wall_s]
     batched = sj.run_batched(ring, STREAM_BATCHES)
     one_cycle = sj.run(ring, STREAM_RING, collect=True)
-    step_s = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        sj.step_stats(ring[0]).cpu()
-        step_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    sj.step_stats(ring[0]).cpu()
+    step_s = [time.perf_counter() - t0]
 
     def stats3(r):
         return (r.checksum, r.matches, r.overflow)
@@ -2773,7 +3181,7 @@ def main() -> int:
     stream_exhaust_degraded = "degraded" in [e["event"] for e in ev_x]
     peak, peak_src = S.hbm_peak(dev, fallback_arrays=[ring])
     # device busy time and idle share over 3 batches under the profiler
-    warm3 = min(sj.run(ring, 3).wall_s for _ in range(2))
+    warm3 = sj.run(ring, 3).wall_s
     busy_s, rows_s, prof_s_ms = profile_device(lambda: sj.run(ring, 3))
     stream_kernels = kernel_times(rows_s)
     stream_ok = {
@@ -2911,12 +3319,12 @@ def main() -> int:
     o_fold_equal, o_fold_ms, o_segments = (
         x_out["o_fold_equal"], x_out["o_fold_ms"], x_out["o_segments"])
 
-    # 8d-8f, 8j. serving and KNN over phase 3's index in a process of
-    # its own, as a server runs: the profiler the phases above attached to
-    # this process slows every later eager op, and a dispatch is ~930 of
-    # them. The child loads the index from disk and the kernel libraries
-    # nvcc built here.
-    served = serve_process(ix, H3, runs_dir)
+    # 8d-8f, 8j, 8k. serving, KNN and epochs in a process of its own, as a
+    # server runs: the profiler the phases above attached to this process
+    # slows every later eager op. The child, started after phase 3, loaded
+    # the index from disk and the kernel libraries nvcc built here and
+    # built its own indexes meanwhile; it runs its phases now.
+    served = serve_process(SERVING[0], ix, H3)
     if isinstance(served, int):
         return served
     serve_launches = served["launches"]
@@ -2937,9 +3345,10 @@ def main() -> int:
          "launches": heavy_launches + recheck_launches + stream_launches
          + rs_launches["pip_heavy_tiled"] + rs_fold_launches["pip_heavy_tiled"]
          + serve_launches["serve"] + serve_launches["router"]
-         + serve_launches["knn_serve"]
+         + serve_launches["knn_serve"] + serve_launches["epochs"]
          + x_launches["pip_heavy_tiled"] + xs_launches["pip_heavy_tiled"],
          "launches_knn_serve": serve_launches["knn_serve"],
+         "launches_epochs": serve_launches["epochs"],
          "launches_expr": x_launches["pip_heavy_tiled"],
          "launches_expr_scan": xs_launches["pip_heavy_tiled"],
          "launches_join": heavy_launches, "launches_exact_join": recheck_launches,
@@ -3019,4 +3428,10 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve-child"]:
         sys.exit(serve_child(*sys.argv[2:4]))
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for p in SERVING:
+            p.stop()
+            shutil.rmtree(p.dir, ignore_errors=True)
+    sys.exit(code)

@@ -828,3 +828,49 @@ def tessellate(
         chips=builder.build(),
         has_geom=np.asarray(hasgeom, dtype=bool),
     )
+
+
+def tessellate_subset(
+    col: PackedGeometry,
+    subset,
+    index: IndexSystem,
+    resolution: int,
+    keep_core_geoms: bool = True,
+    *,
+    geom_ids=None,
+) -> ChipTable:
+    """Delta tessellation: chips for ``col[subset]`` only.
+
+    The contract the epoch layer (`index/epoch.py`) builds on:
+    :func:`tessellate` is per-geometry independent — the batched
+    pre-passes (`polyfill_candidates_batch`, the fused boundary dedupe,
+    the concatenated `point_to_cell`) partition per geometry, and every
+    ``_*_chips`` emitter walks one geometry at a time — so the rows this
+    returns are bit-identical to the matching geometry blocks of a full
+    ``tessellate(col, ...)``, in the same within-block order
+    (`tests/test_torch_epoch.py::TestDeltaTessellation` pins it).
+
+    ``geom_ids`` relabels the emitted ``geom_id`` column (default: the
+    ``subset`` positions themselves), so callers tessellating a
+    standalone delta column can stamp rows with their stable ids.
+    """
+    subset = np.asarray(subset, dtype=np.int64).reshape(-1)
+    labels = (
+        subset
+        if geom_ids is None
+        else np.asarray(geom_ids, dtype=np.int64).reshape(-1)
+    )
+    if labels.shape != subset.shape:
+        raise ValueError(
+            f"geom_ids has {labels.shape[0]} labels for "
+            f"{subset.shape[0]} subset geometries"
+        )
+    sub = col.take([int(p) for p in subset])
+    t = tessellate(sub, index, resolution, keep_core_geoms)
+    return ChipTable(
+        geom_id=labels[t.geom_id],
+        cell_id=t.cell_id,
+        is_core=t.is_core,
+        chips=t.chips,
+        has_geom=t.has_geom,
+    )

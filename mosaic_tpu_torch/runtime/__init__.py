@@ -5,7 +5,7 @@ watchdog and telemetry, checkpoints and quarantine (port of
 
 - :mod:`errors`     — the typed taxonomy (`CapacityOverflow`,
   `TransientDeviceError`, `RetryExhausted`, `DegradedResult`,
-  `Overloaded`) and
+  `Overloaded`, `EpochLogCorrupt`, `EpochFingerprintMismatch`) and
   :func:`is_transient`, which never retries the port's device errors;
 - :mod:`escalate`   — the bounded geometric cap-growth loop;
 - :mod:`retry`      — bounded transient retry with backoff and an
@@ -24,6 +24,7 @@ from .errors import (
     CapacityOverflow,
     DegradedResult,
     EpochFingerprintMismatch,
+    EpochLogCorrupt,
     KernelCompileError,
     KernelLaunchError,
     MosaicRuntimeError,
@@ -41,6 +42,7 @@ __all__ = [
     "CapacityOverflow",
     "DegradedResult",
     "EpochFingerprintMismatch",
+    "EpochLogCorrupt",
     "EscalationPolicy",
     "KernelCompileError",
     "KernelLaunchError",

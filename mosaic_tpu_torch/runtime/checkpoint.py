@@ -178,9 +178,9 @@ def index_identity(index) -> str:
     """Restart-stable identity of one device join index.
 
     The fingerprint of the index's cells array, with its
-    ``epoch_token`` attribute folded in when it has one (an epochal
-    index, whose epochs can share a cell set while their edge tables
-    differ, carries one; the port has no epochal index yet). A build-once
+    ``epoch_token`` attribute folded in when it has one (an index that
+    `index/epoch.py EpochalIndex.publish` built carries one: its epochs
+    can share a cell set while their edge tables differ). A build-once
     index keeps the bare cells fingerprint, the same in both packages.
     """
     fp = fingerprint(index.cells)

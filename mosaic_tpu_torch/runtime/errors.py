@@ -118,12 +118,31 @@ class Overloaded(MosaicRuntimeError):
         self.elapsed_s = elapsed_s
 
 
+class EpochLogCorrupt(MosaicRuntimeError):
+    """A delta-log record INSIDE the valid prefix failed validation
+    (unreadable sidecar, payload checksum mismatch, missing epoch in the
+    sequence) while LATER records are intact (`index/epoch.py`).
+
+    A corrupt *tail* is the expected kill-mid-write residue and is
+    truncated (``epoch_log_truncated`` telemetry); corruption with valid
+    successors means the bytes rotted or the directory was spliced —
+    replay refuses rather than reconstruct a wrong index.
+    """
+
+    def __init__(self, message: str, *, log_dir: str = "", epoch: int = -1):
+        super().__init__(message)
+        self.log_dir = log_dir
+        self.epoch = epoch
+
+
 class EpochFingerprintMismatch(MosaicRuntimeError):
-    """An index identity failed to line up: a durable-stream resume
-    presented an index other than the one its snapshot was taken under
-    (`sql/stream.py StreamJoin.resume`). A refusal — continuing would mix
-    results joined against two indexes into one answer. (The reference
-    also raises it for its epoch delta log, which the port has not yet.)
+    """An epoch identity failed to line up: a delta record's ``prev``
+    hash does not chain from its predecessor, a log was written for
+    another index system (`index/epoch.py EpochalIndex.replay`), or a
+    durable-stream resume presented an index from another epoch than the
+    one its snapshot was taken under (`sql/stream.py StreamJoin.resume`).
+    A refusal — continuing would mix results joined against two indexes
+    into one answer.
     """
 
     def __init__(

@@ -141,6 +141,9 @@ class ServeEngine:
         # only guards the rebind and the dispatch-side snapshot of the
         # pair, never the dispatch itself
         self._swap_lock = threading.Lock()
+        # batches in flight on each core (the batcher's snapshots): a core
+        # a hot_swap replaced frees its CUDA graphs when its last one ends
+        self._holds: dict = {}
         self.core = DispatchCore(
             index, index_system, resolution, ladder=self.ladder,
             writeback=self.writeback, lookup=knobs["lookup"],
@@ -302,7 +305,10 @@ class ServeEngine:
         signature set frozen (`DispatchCore.warmup`), and only then is
         ``(ladder, core, index)`` rebound as one unit — requests in
         flight finish on the old core, requests after the swap run on the
-        warmed new one. Any post-swap dispatch that still introduces a
+        warmed new one. The old core's CUDA graphs are freed once no
+        batch is in flight on it: here when none is, else by the batch
+        that ends last (:meth:`_dispatch`), never later by a garbage
+        collection. Any post-swap dispatch that still introduces a
         signature counts in ``metrics()["cold_compiles"]``. Unset knobs
         keep the engine's current settings. A new ``knn=`` swaps the same
         way: its frontend is built and warmed off to the side and rebound
@@ -334,6 +340,7 @@ class ServeEngine:
                 new_knn = self._build_knn(knn, knn_lane or self.knn_lane)
                 stats["knn"] = new_knn.warmup()
             with self._swap_lock:
+                old = self.core
                 self.index = index
                 self.resolution = new_resolution
                 self.ladder = ladder
@@ -346,6 +353,9 @@ class ServeEngine:
                 self.batcher.max_batch_rows = min(
                     self.batcher.max_batch_rows, ladder.max_bucket
                 )
+                busy = old in self._holds
+            if not busy:
+                old.release_graphs()
         _telemetry.record("serve_swap", **stats)
         return stats
 
@@ -369,11 +379,15 @@ class ServeEngine:
     def close(self, timeout: float = 5.0) -> None:
         """Stop the batcher; queued requests are shed
         (``reason="shutdown"``); the core's CUDA graphs are freed at once
-        (`DispatchCore.release_graphs`)."""
+        (`DispatchCore.release_graphs`), or by a batch still in flight
+        when it ends."""
         if not self._closed:
             self._closed = True
             self.batcher.stop(timeout)
-            self.core.release_graphs()
+            with self._swap_lock:
+                busy = self.core in self._holds
+            if not busy:
+                self.core.release_graphs()
 
     def __enter__(self):
         return self
@@ -408,22 +422,40 @@ class ServeEngine:
         uniform point-in-polygon batch, a :class:`_MixedOut` segment view
         when the batch carries KNN requests."""
         # snapshot the swap unit so a concurrent hot_swap can never pad
-        # with one ladder and execute on the other core
+        # with one ladder and execute on the other core; the hold keeps
+        # the core's graphs until this batch is done with them
         with self._swap_lock:
             ladder, core, knn = self.ladder, self.core, self.knn
-        if reqs is not None and any(r.kind == "knn" for r in reqs):
-            return self._dispatch_mixed(
-                ladder, core, knn, points, deadline_hint, reqs
-            )
-        padded, n = ladder.pad(points)
-        bucket = padded.shape[0]
-        with _trace.span(
-            "serve.dispatch", bucket=bucket, rows=n,
-        ), _telemetry.timed(
-            "serve_stage", stage="dispatch", bucket=bucket, rows=n,
-        ):
-            out = self._dispatch_resilient(core, padded, deadline_hint)
-        return out[:n], n / bucket
+            self._holds[core] = self._holds.get(core, 0) + 1
+        try:
+            if reqs is not None and any(r.kind == "knn" for r in reqs):
+                return self._dispatch_mixed(
+                    ladder, core, knn, points, deadline_hint, reqs
+                )
+            padded, n = ladder.pad(points)
+            bucket = padded.shape[0]
+            with _trace.span(
+                "serve.dispatch", bucket=bucket, rows=n,
+            ), _telemetry.timed(
+                "serve_stage", stage="dispatch", bucket=bucket, rows=n,
+            ):
+                out = self._dispatch_resilient(core, padded, deadline_hint)
+            return out[:n], n / bucket
+        finally:
+            self._unhold(core)
+
+    def _unhold(self, core) -> None:
+        """A batch on ``core`` is done: the last one in flight on a core
+        that a hot_swap replaced, or on a closed engine's, frees its CUDA
+        graphs."""
+        with self._swap_lock:
+            n = self._holds.pop(core) - 1
+            if n:
+                self._holds[core] = n
+                return
+            retired = core is not self.core or self._closed
+        if retired:
+            core.release_graphs()
 
     def _dispatch_mixed(self, ladder, core, knn, points, deadline_hint, reqs):
         """Split a mixed batch by request kind: ALL point-in-polygon rows

@@ -24,11 +24,16 @@ Fault sites: ``router.admit`` (submit path), ``router.evict``,
 (`dispatch.guarded_call` for the two slow ops, `faults.maybe_fail` at
 admission).
 
+:meth:`ServeRouter.advance_epoch` publishes an epochal index's newest
+epoch (`index/epoch.py`) into one tenant's engine through the
+``router.swap`` site; the tenant's metrics carry its ``epoch`` and
+``epoch_advances``.
+
 What differs from the reference: there is no program store
-(`dispatch/programs.py`: ``program_store=`` raises), no tuning profile
-(``add_tenant(profile=/profile_root=)`` raises, ROADMAP queue 1 item
-13) and no epochal index (``advance_epoch`` raises, item 11). A tenant
-whose engine serves KNN (``add_tenant(..., knn=...)``) takes
+(`dispatch/programs.py`: ``program_store=`` raises) and no tuning
+profile (``add_tenant(profile=/profile_root=)`` and
+``advance_epoch(reprofile=True)`` raise, ROADMAP queue 1 item 13). A
+tenant whose engine serves KNN (``add_tenant(..., knn=...)``) takes
 :meth:`ServeRouter.submit_knn`.
 """
 
@@ -80,7 +85,7 @@ class _Tenant:
     __slots__ = (
         "name", "index", "resolution", "engine_kw",
         "engine", "last_used", "submitted", "shed_admit", "revivals",
-        "last_metrics",
+        "last_metrics", "epoch", "epoch_advances",
     )
 
     def __init__(self, name, index, resolution, engine_kw):
@@ -94,6 +99,8 @@ class _Tenant:
         self.shed_admit = 0
         self.revivals = 0
         self.last_metrics: dict = {}
+        self.epoch = getattr(index, "epoch", None)
+        self.epoch_advances = 0
 
 
 class ServeRouter:
@@ -335,12 +342,50 @@ class ServeRouter:
         _telemetry.record("router_swapped", tenant=tenant, **stats)
         return stats
 
-    def advance_epoch(self, tenant: str, epochal, **kw) -> dict:
-        """Epochal indexes are ROADMAP queue 1 item 11."""
-        raise NotImplementedError(
-            "ServeRouter.advance_epoch is not ported yet (ROADMAP queue 1, "
-            "item 11: epochal indexes)"
+    def advance_epoch(
+        self, tenant: str, epochal, *, reprofile: bool = False,
+        **hot_swap_kw,
+    ) -> dict:
+        """Publish an :class:`~mosaic_tpu_torch.index.epoch.EpochalIndex`'s
+        newest applied epoch into one tenant's engine, through the
+        ``router.swap`` guarded site.
+
+        The old-snapshot-keeps-serving contract: the new epoch's core is
+        built and warmed ASIDE (``hot_swap``'s discipline) — if the swap
+        fails, the guarded site raises, the tenant's engine keeps
+        answering from its current snapshot, the tenant's accounting is
+        untouched, AND the epochal index stays on its previous published
+        epoch (the delta log is already durable, so a later retry
+        publishes the same epoch). ``reprofile=True`` raises (ROADMAP
+        queue 1 item 13)."""
+        with self._lock:
+            t = self._require(tenant)
+            if t.engine is None:
+                self._revive(t)
+            engine = t.engine
+
+        class _Guarded:
+            """hot_swap proxied through the router's fault site."""
+
+            @staticmethod
+            def hot_swap(index, **kw):
+                return guarded_call(
+                    "router.swap", engine.hot_swap, index,
+                    retry=False, **kw,
+                )
+
+        stats = epochal.publish(
+            _Guarded, reprofile=reprofile, **hot_swap_kw
         )
+        with self._lock:
+            t.index = epochal.index
+            t.epoch = epochal.epoch
+            t.epoch_advances += 1
+        _telemetry.record(
+            "router_epoch_advanced", tenant=tenant,
+            epoch=int(epochal.epoch), chips=stats.get("chips", 0),
+        )
+        return stats
 
     # ------------------------------------------------------- accounting
 
@@ -371,6 +416,8 @@ class ServeRouter:
                     submitted_router=t.submitted,
                     shed_admit_router=t.shed_admit,
                     revivals=t.revivals,
+                    epoch=t.epoch,
+                    epoch_advances=t.epoch_advances,
                     health=self.health_monitor.tenant_state(name),
                 )
                 per[name] = m

@@ -794,8 +794,9 @@ class StreamJoin:
                 f"snapshot under {run_dir!r} was taken against index "
                 f"{want_idx[:24]}…, but this stream is bound to "
                 f"{have_idx[:24]}… — rebuild the stream on the "
-                "snapshot's index to finish this run, or start a fresh "
-                "run on the new one",
+                "snapshot's epoch (EpochalIndex.replay of the matching "
+                "epoch) to finish this run, or start a fresh run on "
+                "the new epoch",
                 expected=want_idx, actual=have_idx,
             )
         cells0 = (

@@ -16,7 +16,10 @@ does. The knobs carried are the ones the port reads:
 - ``stream_pipeline`` (``MOSAIC_STREAM_PIPELINE``, "" and "0" are
   false) and ``stream_window`` (``MOSAIC_STREAM_WINDOW``, an int);
 - ``knn_lane`` (``MOSAIC_TUNE_KNN_LANE``, ``ring`` or ``voronoi``), the
-  KNN frontend's lane that `ServeEngine` builds.
+  KNN frontend's lane that `ServeEngine` builds;
+- ``epoch_log_max`` (``MOSAIC_EPOCH_LOG_MAX``, an int; 0 or unset: no
+  bound), the delta records `index/epoch.py EpochalIndex.apply` lets
+  pile up before it compacts.
 
 Each entry-point call records ONE ``tune_resolve`` telemetry event naming
 every resolved knob's value and source.
@@ -50,6 +53,7 @@ _ENV = {
     "lookup": (lambda: os.environ.get("MOSAIC_TUNE_LOOKUP"), str),
     "knn_lane": (lambda: os.environ.get("MOSAIC_TUNE_KNN_LANE"), _parse_lane),
     "stream_window": (lambda: os.environ.get("MOSAIC_STREAM_WINDOW"), int),
+    "epoch_log_max": (lambda: os.environ.get("MOSAIC_EPOCH_LOG_MAX"), int),
     "stream_pipeline": (
         lambda: os.environ.get("MOSAIC_STREAM_PIPELINE"), _parse_bool,
     ),

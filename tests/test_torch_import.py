@@ -71,6 +71,8 @@ MODULES = [
     "mosaic_tpu_torch.knn.oracle",
     "mosaic_tpu_torch.models",
     "mosaic_tpu_torch.models.knn",
+    "mosaic_tpu_torch.index",
+    "mosaic_tpu_torch.index.epoch",
 ]
 
 

@@ -784,6 +784,53 @@ def test_serve_on_card_raises_when_retries_exhausted(cuda):
     assert m["failed"] == 1 and m["degraded"] == 0
 
 
+def test_hot_swap_frees_the_replaced_cores_graphs_on_card(cuda):
+    """A hot_swap frees the replaced core's rung graphs at once (no batch
+    is in flight), not at a later garbage collection: the old core holds
+    no graph, and `memory_allocated` is back within one rung's pool of its
+    level before the swap (the new core's graphs replace the old ones
+    instead of adding to them). Served answers still equal `pip_join`."""
+    import gc
+
+    from mosaic_tpu_torch.dispatch import DispatchCore
+    from mosaic_tpu_torch.serve import BucketLadder, ServeEngine
+
+    h3, ix = _serve_index(cuda)
+    # one rung's pool: what a core's top rung holds once captured
+    top = DispatchCore(ix, h3, 9, probe="adaptive", ladder=BucketLadder(1024, 1024))
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    top.warmup()
+    torch.cuda.synchronize()
+    rung = torch.cuda.memory_allocated() - m0
+    top.release_graphs()
+    del top
+    assert rung > 0
+    reqs = _requests(43, [700, 33, 1000])
+    want = _pip_join_split(reqs, h3, ix)
+    with ServeEngine(ix, h3, 9, probe="adaptive", ladder=BucketLadder(64, 1024),
+                     bounds=BBOX) as eng:
+        eng.warmup()
+        gc_was_enabled = gc.isenabled()
+        gc.disable()  # nothing but the swap may free the old graphs
+        try:
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            old = eng.core
+            assert sorted(old._graphs) == list(eng.ladder.buckets)
+            eng.hot_swap()
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+        finally:
+            if gc_was_enabled:
+                gc.enable()
+        assert old._graphs == {} and eng.core is not old
+        assert sorted(eng.core._graphs) == list(eng.ladder.buckets)
+        assert after - before <= rung, (before, after, rung)
+        for r, w in zip(reqs, want):
+            np.testing.assert_array_equal(eng.join(r, deadline_s=30.0), w)
+        assert eng.metrics()["cold_compiles"] == 0
+
 def test_two_tenant_engines_warming_at_once_agree_with_pip_join(cuda):
     """Two engines warm on two threads at once with H3's device constant
     tables emptied first, so both fill them concurrently; both then equal

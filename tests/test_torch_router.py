@@ -374,10 +374,15 @@ class TestNotPorted:
             assert router.tenants() == []
 
     def test_epochs_and_knn_name_their_items(self, grid, index_a):
+        from mosaic_tpu_torch.index import EpochalIndex
+
         with make_router(grid) as router:
             router.add_tenant("a", index_a, RES, warm=False)
-            with pytest.raises(NotImplementedError, match="item 11"):
-                router.advance_epoch("a", object())
+            # epochs are ported (tests/test_torch_epoch.py); re-profiling
+            # an epoch is item 13
+            ep = EpochalIndex(None, grid, RES, device="cpu")
+            with pytest.raises(NotImplementedError, match="item 13"):
+                router.advance_epoch("a", ep, reprofile=True)
             # KNN is ported: a tenant whose engine has no KNN frontend
             # refuses KNN requests (tests/test_torch_knn_serve.py serves them)
             with pytest.raises(RuntimeError, match="no KNN frontend"):

@@ -406,6 +406,71 @@ class TestClose:
                 gc.enable()
 
 
+    def test_hot_swap_releases_the_replaced_core_after_its_batch(self, index, grid):
+        """A hot_swap frees the replaced core's graphs, but only once the
+        batch in flight on it has returned: the batch that took the old
+        core before the swap dispatches on it after the rebind, and a
+        release before then would make it capture its rung again."""
+        import threading
+
+        eng = make_engine(index, grid, ladder=BucketLadder(64, 256))
+        try:
+            eng.warmup()
+            old = eng.core
+            entered, go, calls = threading.Event(), threading.Event(), []
+            real_exec, real_release = old.execute_resilient, old.release_graphs
+
+            def held(*a, **k):
+                entered.set()
+                assert go.wait(30)
+                return real_exec(*a, **k)
+
+            def spy():
+                calls.append(time.monotonic())
+                real_release()
+
+            old.execute_resilient, old.release_graphs = held, spy
+            pts = rand_points(np.random.default_rng(4), 50)
+            fut = eng.submit(pts, deadline_s=30.0)
+            assert entered.wait(30)
+            eng.hot_swap()
+            assert eng.core is not old and calls == []  # the batch holds it
+            t_go = time.monotonic()
+            go.set()
+            np.testing.assert_array_equal(fut.result(timeout=30),
+                                          ref_join(pts, grid, index))
+            deadline = time.monotonic() + 10
+            while not calls and time.monotonic() < deadline:
+                time.sleep(0.005)
+            assert len(calls) == 1 and calls[0] >= t_go
+            # with no batch in flight the swap releases at once
+            mid = eng.core
+            mid_calls = []
+            mid.release_graphs = lambda: mid_calls.append(1)
+            eng.hot_swap()
+            assert mid_calls == [1]
+            np.testing.assert_array_equal(eng.join(pts, deadline_s=30.0),
+                                          ref_join(pts, grid, index))
+            assert len(calls) == 1 and eng.metrics()["cold_compiles"] == 0
+        finally:
+            eng.close()
+
+    def test_router_swap_releases_the_replaced_core(self, index, grid):
+        from mosaic_tpu_torch.serve import ServeRouter
+
+        router = ServeRouter(grid, engine_defaults={
+            "ladder": BucketLadder(64, 256), "bounds": BBOX, "max_wait_s": 0.01})
+        try:
+            router.add_tenant("a", index, RES)
+            old = router._tenants["a"].engine.core
+            calls = []
+            old.release_graphs = lambda: calls.append(1)
+            router.swap("a", index)
+            assert calls == [1]
+        finally:
+            router.close()
+
+
 class TestJoinCacheHatch:
     def test_stats_and_clear(self):
         with telemetry.capture() as events:
