@@ -128,6 +128,29 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    nvcc build and no cold compile in the warm runs; the fold at the
    overlay's shapes equals the CPU lane. Prints pairs/s of both lanes
    and the host-overridden pairs;
+8l. tuning profiles (``mosaic_tpu_torch/tune``) on phase 3's index,
+   points and the 1024 crop, for two point workloads: the uniform 4M
+   points, and the ones along the zone boundaries (each of them in a
+   heavy cell, and as many in light cells). ``profile_points`` against
+   the card index (a capped 4,096-point host sample) equals the same
+   call on a CPU copy of the index; ``recommend`` (the port's priors,
+   ``tune/priors/``) picks the probe by the dense share, the boundary
+   workload ``probe="adaptive"``; ``pip_join(profile=)`` on up to 1M of
+   each workload's points equals, bit for bit, ``pip_join`` with the
+   same knobs passed explicitly, and the boundary workload's launches
+   ``pip_heavy_tiled``;
+   ``ZonalEngine(profile=TuningProfile(zonal_lane="tiled", raster_tile=
+   (128, 128)))`` on the crop's 64 tiles launches ``zonal_tiled`` and
+   ``pip_heavy_tiled`` at 128x128 and its zones equal the fold lane on
+   the values-mod-113 twin; ``zonal_tiled`` at 128x128 equals its plain
+   version, and one 128x128 tile's zone rows equal the CPU index's;
+   ``profile_polygons`` of phase 3's zones merged with the boundary
+   workload's recommendation round-trips through a ``ProfileStore`` bound to the
+   card index's fingerprint (which equals the CPU copy's), and another
+   index's fingerprint raises ``ProfileFingerprintMismatch``;
+   ``profile_raster`` of the crop. Prints each profile, the
+   recommendation and its rationale, and each step's seconds; the store
+   goes to the serving process for 8e;
 8d-8f, 8j and 8k run in a process of their own (``--serve-child``; its
    lines' ``t_s`` count from its own start, the parent passes them
    through), started right after phase 3: it loads phase 3's index from
@@ -163,7 +186,14 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    8k's ``EpochalIndex``), in the middle of a stream of requests: every
    answer equals one of the two indexes' ``pip_join``, every request
    submitted after the swap returned equals the new index's, and the
-   swap makes no cold compile and no nvcc build;
+   swap makes no cold compile and no nvcc build; then
+   ``hot_swap(profile=)`` with 8l's stored profile (loaded against phase
+   3's fingerprint; ``resolution=`` passed, as the new index's is not
+   the profile's) builds the profile's ladder: every answer, a request
+   on the top rung's included, equals ``pip_join``, no nvcc build and no
+   cold compile follow the swap's warmup, and the replaced core's graphs
+   are freed. Prints each rung's capture seconds and the
+   ``memory_reserved`` after it;
 8f. the router (``serve/router.py ServeRouter``): 3 tenants over the
    index, ``SERVE_TENANT_r16.json``'s open-loop traffic (the aggressor at
    15x a victim's 150 requests/s, a quota of 64 each); the victims shed
@@ -198,8 +228,11 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    4 epochs, each upserting 8 live zones with grown or moved versions,
    inserting 4 and removing 4, each published into a router tenant's
    engine through ``advance_epoch`` while 8 closed-loop clients submit
-   pip requests of 1-1,024 rows; the last publish is killed at its torn
-   boundary (index swapped, epoch counter not bumped). Gates: every
+   pip requests of 1-1,024 rows; the second goes through
+   ``advance_epoch(reprofile=True)`` (the engine keeps the index's
+   resolution whatever the analyzer picks, a gate); the last publish is
+   killed at its torn boundary (index swapped, epoch counter not
+   bumped). Gates: every
    answer equals ``pip_join`` of an epoch live while it was in flight,
    bit for bit; every request submitted after a publish returned equals
    that epoch's (or a later one's); no nvcc build and no cold compile
@@ -320,6 +353,13 @@ EPOCH_INSERTS = 4           # new ids an epoch
 EPOCH_REMOVES = 4           # live ids removed an epoch
 EPOCH_SEED = 13
 EPOCH_POOL = 400            # requests of 1-1,024 rows the clients cycle through
+EPOCH_REPROFILED = 2        # the epoch published through advance_epoch(reprofile=True)
+
+# tuning profiles (8l) and the profiled swap (8e)
+TUNE_JOIN_POINTS = 1_000_000  # points of the profiled join and its explicit twin
+TUNE_TILE = (128, 128)      # the tile recommend gives a sparse raster
+TUNE_TOP_ROWS = 50_000      # rows of 8e's request on the profile's top rung
+PROFILE_STORE = "profile"   # 8l's store under the serving process's directory
 
 #: H100 SXM rates: HBM3 bytes/s (NVIDIA data sheet); single f32 and f64
 #: operations per second outside the tensor cores. The data sheet's 67 and
@@ -915,6 +955,190 @@ def expr_overlay_phases(ix, H3, dev, n_zones, counted, cuda_ms, runs_dir, fold_e
     }
 
 
+def tune_phase(ix, H3, dev, zones, raw, crop, counted, timers, store_dir):
+    """Phase 8l, tuning profiles on phase 3's index ``ix``, its points
+    ``raw`` and the 1024 crop. ``timers`` holds main's ``cuda_ms``,
+    ``device_ms`` and ``bound``; the merged profile is saved under
+    ``store_dir`` for 8e. Returns the launches and the 128x128
+    ``zonal_tiled`` measurement the kernels line reads, or a non-zero
+    exit code."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mosaic_tpu_torch import tune as T
+    from mosaic_tpu_torch.core.tessellate import tessellate
+    from mosaic_tpu_torch.kernels import zonal as Z
+    from mosaic_tpu_torch.raster import Raster, ZonalEngine, plan_tiles, stack_tiles
+    from mosaic_tpu_torch.raster.zonal import host_tile_centers
+    from mosaic_tpu_torch.sql import join as J
+    from mosaic_tpu_torch.tune.recommend import ADAPTIVE_DENSE_SHARE
+
+    secs = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    def counted_run(fn):
+        for f in counted.values():
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: f.launches for k, f in counted.items()}
+
+    ix_cpu = step("cpu_copy", lambda: J.ChipIndex.from_arrays(ix.to_arrays(), device="cpu"))
+
+    def in_heavy(cells):
+        u = torch.searchsorted(ix.cells, cells).clamp(max=ix.num_cells - 1)
+        return (ix.cells[u] == cells) & (ix.cell_heavy[u] >= 0)
+
+    # two point workloads: the uniform 4M points, and the ones along the
+    # zone boundaries (each of them in a heavy cell, and as many in light
+    # cells), whose dense share routes the probe to the adaptive lane
+    hv = in_heavy(H3.point_to_cell(torch.from_numpy(raw).to(dev), RES)).cpu().numpy()
+    n_hv = int(hv.sum())
+    workloads = {"uniform": raw, "border": np.concatenate([raw[hv], raw[~hv][:n_hv]])}
+    priors = T.load_priors()
+    profs, recs, j_launches, joins_equal, cpu_equal = {}, {}, {}, {}, {}
+    for name, wpts in workloads.items():
+        # the profile against the card index and against its CPU copy
+        profs[name] = step(f"profile_points_{name}", lambda: T.profile_points(wpts, ix, H3, RES))
+        cpu_equal[name] = profs[name].as_dict() == step(
+            f"profile_points_{name}_cpu", lambda: T.profile_points(wpts, ix_cpu, H3, RES)
+        ).as_dict()
+        rec = recs[name] = step(f"recommend_{name}", lambda: T.recommend(profs[name], priors))
+        # the profile's join against the same knobs passed explicitly
+        pts = wpts[:TUNE_JOIN_POINTS]
+        joined, j_launches[name] = counted_run(lambda: step(
+            f"pip_join_profile_{name}", lambda: J.pip_join(
+                pts, None, H3, RES, chip_index=ix, profile=rec)))
+        explicit = step(f"pip_join_explicit_{name}", lambda: J.pip_join(
+            pts, None, H3, RES, chip_index=ix, probe=rec.probe, writeback=rec.writeback,
+            lookup=rec.lookup, batch_size=rec.batch_size))
+        joins_equal[name] = bool(np.array_equal(joined, explicit))
+
+    def dense(p):
+        return p.class_shares["heavy"] + p.class_shares["convex"]
+    # zones through a profile's lane and tile on the crop's 64 tiles
+    zprof = T.TuningProfile(zonal_lane="tiled", raster_tile=TUNE_TILE)
+    zeng = ZonalEngine(H3, RES, chip_index=ix, profile=zprof)
+    feng = ZonalEngine(H3, RES, chip_index=ix, lane="fold")
+    ntiles = plan_tiles(crop, TUNE_TILE).ntiles
+    _, z_launches = counted_run(lambda: step("zones_profile_crop", lambda: zeng.zones(crop)))
+    twin = Raster(
+        data=np.where(crop.data == NODATA, NODATA, crop.data % 113).astype(np.int16),
+        gt=crop.gt, srid=crop.srid, nodata=crop.nodata,
+    )
+    twin_tiled = step("zones_profile_twin", lambda: zeng.zones(twin))
+    twin_fold = step("zones_fold_twin", lambda: feng.zones(twin, tile=TUNE_TILE))
+    # the kernels at 128x128: one crop tile's zone rows (the probe, its
+    # pip_heavy_tiled launch) against the CPU index's plain versions, and
+    # zonal_tiled on that tile's segments against zonal_tiled_plain
+    plan = plan_tiles(crop, TUNE_TILE)
+    vals, mask = stack_tiles(crop, plan, 1, dtype=np.float32)
+    best, best_n = 0, -1
+    for t in range(plan.ntiles):  # the tile with the most valid heavy-cell pixels
+        c = H3.point_to_cell(torch.from_numpy(host_tile_centers(plan, t)).to(dev), RES)
+        n = int((in_heavy(c).cpu().numpy() & mask[t].reshape(-1)).sum())
+        if n > best_n:
+            best, best_n = t, n
+    maskf = mask[best].reshape(-1)
+    one = dataclasses.replace(plan, origins=plan.origins[[best]])
+    ceng = ZonalEngine(H3, RES, chip_index=ix_cpu, lane="tiled", device="cpu")
+    rows_card = zeng._tile_zone_rows(one, 0, maskf)
+    rows_cpu = ceng._tile_zone_rows(one, 0, maskf)
+    n_seg = zeng.num_zones
+    seg = np.where(maskf & (rows_card >= 0), rows_card, -1).astype(np.int32)
+    s_d = torch.from_numpy(seg).to(dev)
+    live = s_d >= 0
+    rng = np.random.default_rng(SEED)
+    k_ok, k_err = True, 0.0
+    for kind, v in (("integer", vals[best].reshape(-1) % 113),
+                    ("float", rng.uniform(0, 32000, seg.size).astype(np.float32))):
+        v_d = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        got, want = Z.zonal_tiled(v_d, s_d, n_seg), Z.zonal_tiled_plain(v_d, s_d, n_seg)
+        torch.cuda.synchronize()
+        exact3 = all(torch.equal(got[i], want[i]) for i in (0, 2, 3))
+        abs_sum = torch.zeros(n_seg, dtype=torch.float64, device=dev)
+        abs_sum.index_add_(0, s_d[live].long(), v_d[live].abs().double())
+        sum_err = (got[1].double() - want[1].double()).abs()
+        k_ok = k_ok and exact3 and (torch.equal(got[1], want[1]) if kind == "integer"
+                                    else bool((sum_err <= ZONAL_SUM_RTOL * abs_sum).all()))
+        k_err = max(k_err, float(sum_err.max()))
+    cuda_ms, device_ms, bound = timers["cuda_ms"], timers["device_ms"], timers["bound"]
+    b_ms, b_by = bound(seg.size * (4 + 4) + 4 * n_seg * 4, 4 * seg.size)
+    k128 = {
+        "pixels": int(seg.size), "live_pixels": int(live.sum()), "heavy_pixels": best_n,
+        "match": k_ok, "max_abs_err": k_err,
+        "ms": device_ms(lambda: Z.zonal_tiled(v_d, s_d, n_seg), "zonal_tiled"),
+        "wrapper_ms": cuda_ms(lambda: Z.zonal_tiled(v_d, s_d, n_seg)),
+        "plain_ms": cuda_ms(lambda: Z.zonal_tiled_plain(v_d, s_d, n_seg), reps=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+    # the polygons' profile, merged, through a store bound to the index
+    pprof = step("profile_polygons", lambda: T.profile_polygons(zones, H3))
+    prec = T.recommend(pprof, priors)
+    merged = T.TuningProfile.merged(prec, recs["border"])
+    fp = T.index_fingerprint(ix)
+    store = T.ProfileStore(store_dir)
+    step("store_save", lambda: store.save(merged, fingerprint=fp))
+    loaded, payload = step("store_load", lambda: store.load_latest(expect_fingerprint=fp))
+    other = J.build_chip_index(
+        tessellate(zones.take(range(4)), H3, RES, keep_core_geoms=False), device=dev)
+    try:
+        store.load_latest(expect_fingerprint=T.index_fingerprint(other))
+        refused = False
+    except T.ProfileFingerprintMismatch:
+        refused = True
+    rprof = step("profile_raster", lambda: T.profile_raster(crop))
+    gates = {
+        "points_profiles_equal_cpu_copy": all(cpu_equal.values()),
+        "probe_follows_the_dense_share": all(
+            recs[n].probe == ("adaptive" if dense(profs[n]) > ADAPTIVE_DENSE_SHARE
+                              else "scatter") for n in workloads),
+        "border_workload_recommends_adaptive": recs["border"].probe == "adaptive",
+        "profile_joins_equal_explicit": all(joins_equal.values()),
+        "border_profile_join_launched_pip_heavy_tiled":
+            j_launches["border"]["pip_heavy_tiled"] > 0,
+        "profile_zones_lane_and_tile": zeng.lane == "tiled" and ntiles == 64,
+        "profile_zones_launched_zonal_tiled": z_launches["zonal_tiled"] > 0,
+        "profile_zones_launched_pip_heavy_tiled": z_launches["pip_heavy_tiled"] > 0,
+        "tiled_equals_fold_on_twin": agreement(twin_tiled, twin_fold) == 1.0
+        and float(twin_fold.sum.max()) < 2 ** 24,
+        "zonal_tiled_128_equals_plain": k_ok,
+        "tile_128_zone_rows_equal_cpu": bool(np.array_equal(rows_card, rows_cpu))
+        and best_n > 0,
+        "store_round_trip": loaded.as_dict() == merged.as_dict()
+        and payload["fingerprint"] == fp,
+        "fingerprint_equals_cpu_copy": T.index_fingerprint(ix_cpu) == fp,
+        "other_index_refused": refused,
+    }
+    emit({
+        "phase": "tuning", "points": {n: int(w.shape[0]) for n, w in workloads.items()},
+        "join_points": TUNE_JOIN_POINTS,
+        "points_profiles": {n: p.as_dict() for n, p in profs.items()},
+        "probes": {n: r.probe for n, r in recs.items()},
+        "recommendation": {
+            k: v for k, v in merged.as_dict().items() if k not in ("rationale", "source")},
+        "rationale": merged.rationale,
+        "uniform_rationale": recs["uniform"].rationale, "priors": sorted(priors["artifacts"]),
+        "polygons_profile": pprof.as_dict(), "raster_profile": rprof.as_dict(),
+        "crop_tiles": ntiles, "tile": list(TUNE_TILE),
+        "launches_join": j_launches, "launches_zones": z_launches,
+        "zonal_tiled_128": k128, "seconds": secs, "gates": gates,
+    })
+    bad = [k for k, v in gates.items() if not v]
+    if bad:
+        return fail(f"tuning gates failed: {bad}")
+    return {"join": j_launches["border"], "zones": z_launches, "k128": k128}
+
+
 class GcPauses:
     """Garbage-collection pauses while active (``gc.callbacks``): their
     count and seconds by generation, and each pause's (start, seconds) on
@@ -979,16 +1203,19 @@ def latency_outlier(lat, t_start, t0, rows, events, gcp) -> dict:
             "gc_pauses_in_flight": gc_in}
 
 
-def serve_phases(ix, H3, dev, ix2, ix2_s):
+def serve_phases(ix, H3, dev, ix2, ix2_s, profile_root):
     """Phases 8d-8f, serving over phase 3's index; 8e swaps in ``ix2``,
     epoch 0 of phase 8k's epochal index, which the serving process built
-    and published in ``ix2_s`` seconds before its phases. Returns
-    (failure message or None, {"serve": launches, "router": launches} of
-    ``pip_heavy_tiled``, each counted from 0 just before its run, and the
-    function that runs the profiled window, to be called last)."""
+    and published in ``ix2_s`` seconds before its phases, then swaps
+    again to the tuning profile 8l stored under ``profile_root``. Returns
+    (failure message or None, {"serve": launches, "serve_tuned":
+    launches, "router": launches} of ``pip_heavy_tiled``, each counted
+    from 0 just before its run, and the function that runs the profiled
+    window, to be called last)."""
     import numpy as np
     import torch
 
+    from mosaic_tpu_torch import tune as T
     from mosaic_tpu_torch.datasets import NYC_BBOX
     from mosaic_tpu_torch.dispatch import BucketLadder, backend_compiles
     from mosaic_tpu_torch.kernels import pip as K
@@ -1198,7 +1425,6 @@ def serve_phases(ix, H3, dev, ix2, ix2_s):
             n_after += 1
             stale += not new_ok
     m2 = eng.metrics()
-    eng.close()
     res_ok = {
         "retry_equal": np.array_equal(got, want[1]) and retried == 1
         and not isinstance(got, DegradedResult),
@@ -1223,7 +1449,68 @@ def serve_phases(ix, H3, dev, ix2, ix2_s):
     })
     bad = [k for k, v in res_ok.items() if not v]
     if bad:
+        eng.close()
         return f"serve_resilience gates failed: {bad}", None, None
+
+    # 8e (cont.). hot_swap to 8l's stored profile: its ladder, its probe,
+    # at the new index's resolution; each rung's capture and the memory
+    # the allocator holds after it
+    tuned, _ = T.ProfileStore(profile_root).load_latest(
+        expect_fingerprint=T.index_fingerprint(ix))
+    rungs = []
+
+    def on_rung(e):
+        if e.get("event") == "dispatch_stage" and e.get("stage") == "warmup":
+            rungs.append({"bucket": e["bucket"], "capture_s": e["seconds"],
+                          "memory_reserved": torch.cuda.memory_reserved()})
+
+    replaced = eng.core
+    mem0 = torch.cuda.memory_reserved()
+    b0 = backend_compiles()
+    telemetry.add_observer(on_rung)
+    try:
+        t0 = time.perf_counter()
+        tswap = eng.hot_swap(ix2, profile=tuned, resolution=RES)
+        tswap_s = time.perf_counter() - t0
+    finally:
+        telemetry.remove_observer(on_rung)
+    treqs_e = reqs[:SERVE_REQUESTS // 4]
+    big = np.random.default_rng(SERVE_SEED + 3).uniform(
+        bbox[:2], bbox[2:], (TUNE_TOP_ROWS, 2))
+    K.pip_heavy_tiled.launches = 0
+    answers_t, errors_t, wall_t = closed_loop(eng, treqs_e)
+    big_got = eng.submit(big).result()
+    tuned_launches = K.pip_heavy_tiled.launches
+    big_want = J.pip_join(big, None, H3, RES, chip_index=ix2, probe="scatter",
+                          recheck=False)
+    m3 = eng.metrics()
+    tuned_ladder = BucketLadder(tuned.bucket_min or 64, tuned.bucket_max or 65536)
+    eng.close()
+    tuned_ok = {
+        "equal_to_pip_join": not errors_t and exact(answers_t, want2)
+        and bool(np.array_equal(big_got, big_want)),
+        "profile_ladder_and_probe": eng.ladder.buckets == tuned_ladder.buckets
+        and eng.probe == tuned.probe and eng.resolution == RES,
+        "top_rung_served": eng.ladder.max_bucket >= TUNE_TOP_ROWS,
+        "no_nvcc_build_or_cold_compile": tswap["backend_compiles"] == 0
+        and backend_compiles() == b0 and m3["cold_compiles"] == 0,
+        "replaced_core_graphs_freed": not replaced._graphs,
+        "never_degraded": m3["degraded"] == 0,
+        "launched_pip_heavy_tiled": tuned.probe != "adaptive" or tuned_launches > 0,
+    }
+    emit({
+        "phase": "serve_tuned", "profile": {
+            k: v for k, v in tuned.as_dict().items() if k not in ("rationale", "source")},
+        "ladder": list(eng.ladder.buckets), "hot_swap_s": tswap_s,
+        "swap_warmup": tswap, "rungs": rungs, "memory_reserved_before": mem0,
+        "requests": len(treqs_e), "wall_s": wall_t,
+        "requests_per_s": len(treqs_e) / wall_t, "top_rung_request_rows": TUNE_TOP_ROWS,
+        "pip_heavy_tiled_launches": tuned_launches, "errors": errors_t[:3],
+        "first_mismatch": first_mismatch(answers_t, want2), "gates": tuned_ok,
+    })
+    bad = [k for k, v in tuned_ok.items() if not v]
+    if bad:
+        return f"serve_tuned gates failed: {bad}", None, None
 
     # 8f. the router: an aggressor at 15x a victim's rate, open loop
     rkw = dict(ekw, probe="adaptive")
@@ -1378,7 +1665,8 @@ def serve_phases(ix, H3, dev, ix2, ix2_s):
                                for ms_, k, c in rows[:6]],
         })
 
-    return None, {"serve": serve_launches, "router": router_launches}, profile_window
+    return None, {"serve": serve_launches, "serve_tuned": tuned_launches,
+                  "router": router_launches}, profile_window
 
 
 def knn_candidates(H3, bbox, n, seed):
@@ -1883,7 +2171,9 @@ def epoch_phase(prep, H3, dev, ekw):
             st_a = ep.apply(upsert=col, ids=ids, remove=gone)
             replaced = weakref.ref(router._tenants["epochs"].engine.core)
             t0 = time.perf_counter()
-            if e < EPOCHS:
+            if e == EPOCH_REPROFILED:
+                st_p = router.advance_epoch("epochs", ep, reprofile=True)
+            elif e < EPOCHS:
                 st_p = router.advance_epoch("epochs", ep)
             else:  # a kill between the index swap and the epoch bump
                 st_p = None
@@ -1902,7 +2192,9 @@ def epoch_phase(prep, H3, dev, ekw):
             old = replaced()
             m = router.metrics()["tenants"]["epochs"]
             epochs.append({
-                "epoch": e, "apply_s": st_a["seconds"], "chip_rows": st_a["chip_rows"],
+                "epoch": e, "reprofiled": bool(st_p and st_p.get("reprofiled")),
+                "engine_resolution": router._tenants["epochs"].engine.resolution,
+                "apply_s": st_a["seconds"], "chip_rows": st_a["chip_rows"],
                 "publish_wall_s": t1 - t0,
                 "publish_s": st_p["seconds"] if st_p else "killed at the torn boundary",
                 "chips": st_p["chips"] if st_p else None,
@@ -1920,6 +2212,12 @@ def epoch_phase(prep, H3, dev, ekw):
     launches = K.pip_heavy_tiled.launches
     m = router.metrics()["tenants"]["epochs"]
     router.close()
+    # the reprofiled publish: the analyzer's resolution for the column
+    # against the one the swap served
+    picked = [ev["optimal_resolution"] for ev in events
+              if ev.get("event") == "tune_profile" and ev.get("kind") == "polygons"]
+    swaps = [ev for ev in events if ev.get("event") == "tune_resolve"
+             and ev.get("entry") == "serve_engine.hot_swap" and ev.get("profiled")]
     # every answer is one of the epochs live while it was in flight; one
     # submitted after a publish returned is that epoch's or a later one's
     torn, stale, n_after, errors = 0, 0, 0, []
@@ -1967,9 +2265,16 @@ def epoch_phase(prep, H3, dev, ekw):
         "memory_flat": all(g <= rung_pool for g in growth),
         "replaced_cores_hold_no_graphs": all(not x["replaced_core_graphs"] for x in epochs),
         "launched_pip_heavy_tiled": launches > 0,
+        "reprofiled_at_index_resolution": len(picked) == len(swaps) == 1
+        and swaps[0]["resolution"] == RES and swaps[0]["resolution_source"] == "explicit"
+        and all(x["engine_resolution"] == RES for x in epochs)
+        and [x["epoch"] for x in epochs if x["reprofiled"]] == [EPOCH_REPROFILED],
     }
     emit({
         "phase": "epochs", "epochs": EPOCHS, "zones": len(prep.base),
+        "reprofiled_epoch": EPOCH_REPROFILED, "analyzer_resolution": picked,
+        "reprofiled_swap": [{k: v for k, v in ev.items() if k.startswith(("resolution", "probe"))}
+                            for ev in swaps],
         "upserts": EPOCH_UPSERTS, "inserts": EPOCH_INSERTS, "removes": EPOCH_REMOVES,
         "requests": len(subs), "requests_after_a_publish": n_after, "pool": EPOCH_POOL,
         "clients": SERVE_CLIENTS, "loop_s": loop_s, "per_epoch": epochs,
@@ -2057,8 +2362,8 @@ def serve_child(index_path: str, result_path: str) -> int:
           "waited_for_main_s": time.perf_counter() - t0, **prep.seconds})
     H3, ix = prep.H3, prep.ix
     err, launches, serve_profile = serve_phases(
-        ix, H3, dev, prep.ep.index,
-        prep.seconds["epoch0_index_s"])
+        ix, H3, dev, prep.ep.index, prep.seconds["epoch0_index_s"],
+        os.path.join(os.path.dirname(result_path), PROFILE_STORE))
     if not err:
         err, knn_launches, knn_profile = knn_phase(
             ix, H3, dev, prep.kx, prep.seconds["knn_index_s"])
@@ -3319,6 +3624,14 @@ def main() -> int:
     o_fold_equal, o_fold_ms, o_segments = (
         x_out["o_fold_equal"], x_out["o_fold_ms"], x_out["o_segments"])
 
+    # 8l. tuning profiles; the store goes to the serving process for 8e
+    t_out = tune_phase(ix, H3, dev, zones, raw, crop, counted,
+                       {"cuda_ms": cuda_ms, "device_ms": device_ms, "bound": bound},
+                       os.path.join(SERVING[0].dir, PROFILE_STORE))
+    if isinstance(t_out, int):
+        return t_out
+    tj, tz, k128 = t_out["join"], t_out["zones"], t_out["k128"]
+
     # 8d-8f, 8j, 8k. serving, KNN and epochs in a process of its own, as a
     # server runs: the profiler the phases above attached to this process
     # slows every later eager op. The child, started after phase 3, loaded
@@ -3346,7 +3659,11 @@ def main() -> int:
          + rs_launches["pip_heavy_tiled"] + rs_fold_launches["pip_heavy_tiled"]
          + serve_launches["serve"] + serve_launches["router"]
          + serve_launches["knn_serve"] + serve_launches["epochs"]
-         + x_launches["pip_heavy_tiled"] + xs_launches["pip_heavy_tiled"],
+         + x_launches["pip_heavy_tiled"] + xs_launches["pip_heavy_tiled"]
+         + tj["pip_heavy_tiled"] + tz["pip_heavy_tiled"] + serve_launches["serve_tuned"],
+         "launches_tune_join": tj["pip_heavy_tiled"],
+         "launches_tune_zones_128": tz["pip_heavy_tiled"],
+         "launches_serve_tuned": serve_launches["serve_tuned"],
          "launches_knn_serve": serve_launches["knn_serve"],
          "launches_epochs": serve_launches["epochs"],
          "launches_expr": x_launches["pip_heavy_tiled"],
@@ -3374,12 +3691,18 @@ def main() -> int:
          "bound_ms": zone_bound, "bound_by": zone_by, "library_ms": None},
         {"name": "zonal_tiled", "route": "cuda", "source": zsrc,
          "replaces": "mosaic_tpu/kernels/zonal.py:196",
-         "launches": zl["zonal_tiled"] + rs_launches["zonal_tiled"],
+         "launches": zl["zonal_tiled"] + rs_launches["zonal_tiled"] + tz["zonal_tiled"],
          "launches_raster_zones_tiled": zl["zonal_tiled"],
+         "launches_tune_zones_128": tz["zonal_tiled"],
+         "match_128": k128["match"], "max_abs_err_128": k128["max_abs_err"],
+         "ms_128": k128["ms"], "wrapper_ms_128": k128["wrapper_ms"],
+         "plain_ms_128": k128["plain_ms"], "bound_ms_128": k128["bound_ms"],
+         "bound_by_128": k128["bound_by"],
          "launches_raster_stream": rs_launches["zonal_tiled"],
          "crop_ms_per_launch_zones_tiled": crop_ms("zones_tiled", "zonal_tiled"),
-         "match": small["match"] and tiled[2048]["match"],
-         "max_abs_err": max(small["max_abs_err"], tiled[2048]["max_abs_err"]),
+         "match": small["match"] and tiled[2048]["match"] and k128["match"],
+         "max_abs_err": max(small["max_abs_err"], tiled[2048]["max_abs_err"],
+                            k128["max_abs_err"]),
          "ms": small["ms"], "wrapper_ms": small["wrapper_ms"], "plain_ms": small["plain_ms"],
          "bound_ms": small["bound_ms"], "bound_by": small["bound_by"],
          "library_ms": small["composite_ms"], "library": small["composite"],

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..types import GeometryType, PackedGeometry
+from ..types import GeometryType, PackedGeometry, ring_signed_area
 
 
 def _rings(col: PackedGeometry, g: int):
@@ -23,6 +23,60 @@ def _rings(col: PackedGeometry, g: int):
     for p in col.geom_parts(g):
         for k, r in enumerate(col.part_rings(p)):
             yield k, col.ring_xy(r)
+
+
+def _oriented(xy: np.ndarray, hole: bool) -> np.ndarray:
+    if xy.shape[0] >= 3:
+        sa = ring_signed_area(xy)
+        if (sa < 0) != hole:
+            return xy[::-1]
+    return xy
+
+
+def area(col: PackedGeometry) -> np.ndarray:
+    """(G,) f64 area of each polygon (holes subtracted); 0 for points and
+    lines."""
+    out = np.zeros(len(col))
+    for g in range(len(col)):
+        if col.geometry_type(g).base != GeometryType.POLYGON:
+            continue
+        tot = 0.0
+        for k, xy in _rings(col, g):
+            a = abs(ring_signed_area(xy))
+            tot += -a if k > 0 else a
+        out[g] = tot
+    return out
+
+
+def centroid(col: PackedGeometry) -> np.ndarray:
+    """(G, 2) f64 centroid: the area-weighted one of a polygon, the
+    length-weighted one of a line, the mean vertex otherwise."""
+    out = np.zeros((len(col), 2))
+    for g in range(len(col)):
+        base = col.geometry_type(g).base
+        if base == GeometryType.POLYGON:
+            a6 = 0.0
+            c = np.zeros(2)
+            for k, xy in _rings(col, g):
+                xy = _oriented(xy, k > 0)
+                xyc = np.vstack([xy, xy[:1]])
+                p, q = xyc[:-1], xyc[1:]
+                cross = p[:, 0] * q[:, 1] - q[:, 0] * p[:, 1]
+                c += np.sum((p + q) * cross[:, None], axis=0)
+                a6 += 3.0 * np.sum(cross)
+            out[g] = c / a6 if a6 != 0 else np.mean(col.geom_xy(g), axis=0)
+        elif base == GeometryType.LINESTRING:
+            num = np.zeros(2)
+            den = 0.0
+            for _, xy in _rings(col, g):
+                seg = np.linalg.norm(np.diff(xy, axis=0), axis=1)
+                mid = 0.5 * (xy[:-1] + xy[1:])
+                num += np.sum(mid * seg[:, None], axis=0)
+                den += float(np.sum(seg))
+            out[g] = num / den if den else np.mean(col.geom_xy(g), axis=0)
+        else:
+            out[g] = np.mean(col.geom_xy(g), axis=0)
+    return out
 
 
 def _rings_of(col: PackedGeometry, g: int) -> list:

@@ -2,5 +2,8 @@
 
 Only the pair programs the KNN slice runs are ported
 (`geometry.py`): the row-pair distance and containment of two device
-columns. The SQL-style function surface is ROADMAP queue 1 item 14.
+columns, and the input coercion `_coerce.py to_packed` that the
+resolution analyzer reads (a PackedGeometry only: the WKT, WKB and
+GeoJSON readers come later). The SQL-style function surface is ROADMAP
+queue 1 item 14.
 """

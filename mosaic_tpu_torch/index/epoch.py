@@ -52,10 +52,13 @@ Knob: ``MOSAIC_EPOCH_LOG_MAX`` (read by `tune/resolve.py`) — when the log
 holds at least this many delta records since the last compaction,
 ``apply`` compacts and truncates (an explicit ``log_max=`` beats the env).
 
-What differs from the reference: ``publish(reprofile=True)`` and
-:meth:`EpochalIndex.reprofile` raise (ROADMAP queue 1 item 13: tuning
-profiles), and there is no program store whose entries an epoch could
-key (`dispatch/programs.py`).
+What differs from the reference: ``publish(reprofile=True)`` hands the
+engine's ``hot_swap`` the refreshed profile AND the epochal index's own
+resolution, so the explicit layer wins over the profile's
+``resolution``. The reference passes the profile alone, and its engine
+then serves at the resolution the analyzer picked, which the index was
+not built at (ROADMAP queue 3). There is no program store whose entries
+an epoch could key (`dispatch/programs.py`).
 """
 
 from __future__ import annotations
@@ -82,11 +85,6 @@ from ..tune.resolve import resolve_knob
 
 LOG_VERSION = 1
 _REC_RE = re.compile(r"^(base|delta|compact)-(\d{8})\.json$")
-
-_REPROFILE_TODO = (
-    "is not ported yet (ROADMAP queue 1, item 13: tuning profiles)"
-)
-
 
 # ------------------------------------------------------------ column codec
 
@@ -595,13 +593,13 @@ class EpochalIndex:
         while in-flight batches keep finishing on the old one; a failed
         swap leaves BOTH the engine and this index on the old epoch. An
         index on the card that fails to build raises: nothing moves to
-        the CPU. ``reprofile=True`` raises (ROADMAP queue 1 item 13)."""
+        the CPU. ``reprofile=True`` re-profiles the mutated workload
+        through `tune` and hands the refreshed profile to ``hot_swap`` so
+        knobs re-resolve live on the epoch boundary; the swap keeps this
+        index's resolution (an explicit ``resolution=`` beats the
+        profile's), since the new epoch is built at it."""
         from ..sql.join import build_chip_index
 
-        if reprofile:
-            raise NotImplementedError(
-                f"EpochalIndex.publish(reprofile=True) {_REPROFILE_TODO}"
-            )
         epoch = self._applied
         stats = {"epoch": epoch, "seconds": {}}
         with _trace.span("epoch.publish", epoch=epoch):
@@ -624,9 +622,14 @@ class EpochalIndex:
                 idx.epoch_series = self._series
                 idx.epoch_token = self.epoch_token(epoch)
             stats["seconds"]["build"] = round(time.perf_counter() - t0, 6)
+            profile = None
+            if reprofile:
+                profile = self.reprofile()
+                stats["reprofiled"] = True
+                hot_swap_kw.setdefault("resolution", self.resolution)
             if engine is not None:
                 t0 = time.perf_counter()
-                swap = engine.hot_swap(idx, profile=None, **hot_swap_kw)
+                swap = engine.hot_swap(idx, profile=profile, **hot_swap_kw)
                 stats["seconds"]["swap"] = round(
                     time.perf_counter() - t0, 6
                 )
@@ -649,9 +652,19 @@ class EpochalIndex:
         return stats
 
     def reprofile(self):
-        """Re-profiling the current column through `tune` is ROADMAP
-        queue 1 item 13."""
-        raise NotImplementedError(f"EpochalIndex.reprofile {_REPROFILE_TODO}")
+        """Re-profile the CURRENT column through `tune` (re-adapt knobs
+        as the data mutates, on epoch boundaries). The profile's
+        ``resolution`` is the analyzer's pick for the column, which need
+        not be this index's."""
+        from ..tune import profile_polygons, recommend
+
+        prof = profile_polygons(self.column(), self.system)
+        tuning = recommend(prof)
+        _telemetry.record(
+            "epoch_reprofile", epoch=self._applied,
+            geoms=len(self._order),
+        )
+        return tuning
 
     # ---------------------------------------------------------- compact
 

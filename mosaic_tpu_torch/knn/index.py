@@ -181,16 +181,22 @@ def build_knn_index(
     device=None,
 ) -> KNNIndex:
     """Tessellate + pack + twin the candidate column into a
-    :class:`KNNIndex` a frontend can hold resident."""
-    if index_system is None or resolution is None:
+    :class:`KNNIndex` a frontend can hold resident. Without a
+    ``resolution`` the resolution analyzer picks one for the candidates
+    (`sql/analyzer.py`), as the reference's does."""
+    if index_system is None:
         raise NotImplementedError(
-            "build_knn_index needs index_system= and resolution=: the "
-            "context's index system and the resolution analyzer are not "
-            "ported yet (ROADMAP queue 1, item 14)"
+            "build_knn_index needs index_system=: the context's index "
+            "system is not ported yet (ROADMAP queue 1, item 14)"
         )
     dev = resolve_device(device)
     cand = candidates
-    res = index_system.resolution_arg(resolution)
+    if resolution is not None:
+        res = index_system.resolution_arg(resolution)
+    else:
+        from ..sql.analyzer import MosaicAnalyzer
+
+        res = MosaicAnalyzer(index_system).get_optimal_resolution(cand)
 
     table = tessellate(cand, index_system, res, keep_core_geoms=False)
     order = np.argsort(table.cell_id, kind="stable")

@@ -148,11 +148,10 @@ class SpatialKNN:
         *,
         device=None,
     ):
-        if index is None or resolution is None:
+        if index is None:
             raise NotImplementedError(
-                "SpatialKNN needs index= and resolution=: the context's "
-                "index system and the resolution analyzer are not ported "
-                "yet (ROADMAP queue 1, item 14)"
+                "SpatialKNN needs index=: the context's index system is "
+                "not ported yet (ROADMAP queue 1, item 14)"
             )
         mesh_key(mesh)
         self.index = index
@@ -184,7 +183,11 @@ class SpatialKNN:
     # ----------------------------------------------------------- transform
     def transform(self, landmarks: PackedGeometry, candidates: PackedGeometry) -> KNNResult:
         land, cand = landmarks, candidates
-        res = self.index.resolution_arg(self.resolution)
+        res = (
+            self.index.resolution_arg(self.resolution)
+            if self.resolution is not None
+            else _default_resolution(self.index, cand)
+        )
         L = len(land)
 
         # right side: chip cells -> candidate rows (tessellate once)
@@ -356,3 +359,9 @@ def _resilient_distances(ring, dl, dc, li, ci, land, cand):
     return _dispatch.guarded_call(
         "knn.pair_distances", device_eval, fallback=fallback
     )
+
+
+def _default_resolution(index, col) -> int:
+    from ..sql.analyzer import MosaicAnalyzer
+
+    return MosaicAnalyzer(index).get_optimal_resolution(col)

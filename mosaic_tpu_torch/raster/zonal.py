@@ -30,9 +30,15 @@ device (the card unless ``device="cpu"``); there is no jit, so nothing is
 compiled per tile shape; a tile with no pixel to fold skips its device
 fold (its partial is empty either way). :meth:`ZonalEngine.map` and
 :meth:`ZonalEngine.warmup_expr` run fused expression trees
-(`mosaic_tpu_torch/expr`). ``mesh=``, ``profile=`` and
-``zonal_grid(index_system=None)`` raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+(`mosaic_tpu_torch/expr`). ``mesh=`` and ``zonal_grid(index_system=None)``
+raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+``profile=`` resolves ``probe``, ``lookup`` and ``zonal_lane`` at
+construction, as the reference's does (one ``tune_resolve`` event,
+``zonal_engine``); the port also reads the profile's ``raster_tile`` as
+the tile of a :meth:`ZonalEngine.grid`, :meth:`ZonalEngine.zones` or
+:meth:`ZonalEngine.map` call that passes none (explicit > env >
+profile > the default tile; no event), where the reference's engine
+ignores it.
 
 Runtime hooks, as the reference's: every tile of :meth:`ZonalEngine.grid`
 and :meth:`ZonalEngine.zones` first passes the ``raster.zonal`` fault
@@ -55,6 +61,7 @@ from ..kernels.zonal import zonal_fold, zonal_tiled
 from ..obs import trace as _trace
 from ..runtime import faults as _faults, telemetry as _telemetry
 from ..runtime.errors import CapacityOverflow
+from ..tune import resolve as _tune_resolve
 from ..sql.join import (
     EDGE_BAND_K,
     OVERFLOW,
@@ -152,8 +159,22 @@ class ZonalEngine:
     ):
         if mesh is not None:
             raise _not_ported("ZonalEngine(mesh=...)", 12, "multi-device")
-        if profile is not None:
-            raise _not_ported("ZonalEngine(profile=...)", 13, "tune")
+        # profile-consumed knobs fold at this host entry point: explicit
+        # arg > env knob > profile > built-in default (tune/resolve.py).
+        # lane="auto" is the legacy spelling of "not passed".
+        knobs = _tune_resolve.resolve_knobs(
+            "zonal_engine", profile,
+            explicit={
+                "probe": probe, "lookup": lookup,
+                "zonal_lane": None if lane in (None, "auto") else lane,
+            },
+            defaults={
+                "probe": "adaptive", "lookup": "gather", "zonal_lane": "fold",
+            },
+        )
+        probe, lookup = knobs["probe"], knobs["lookup"]
+        #: the profile whose raster_tile a call without a tile takes
+        self._profile = profile
         dev = resolve_device(device)
         if chip_index is not None:
             if chip_index.device.type != dev.type:
@@ -166,16 +187,15 @@ class ZonalEngine:
         self.index_system = index_system
         self.resolution = int(resolution)
         self.chip_index = chip_index
-        self.lane = resolve_zonal_lane("auto" if lane in (None, "auto") else lane)
+        self.lane = resolve_zonal_lane(knobs["zonal_lane"])
         self.num_zones = (
             0 if chip_index is None else int(chip_index.chip_geom.max()) + 1
         )
-        probe = probe or "adaptive"
         self.probe = resolve_probe_mode(probe) if chip_index is not None else probe
         self.acc_dtype = torch.float64
         self._probe_kw = {
             "found_cap": found_cap, "heavy_cap": heavy_cap,
-            "convex_cap": convex_cap, "lookup": lookup or "gather",
+            "convex_cap": convex_cap, "lookup": lookup,
             "compaction": compaction, "probe": self.probe,
         }
         self._host = None
@@ -196,6 +216,13 @@ class ZonalEngine:
                     (EDGE_BAND_K * eps * self._host.coord_scale) ** 2,
                     dtype=dtype,
                 ).item()
+
+    def _tile(self, tile):
+        """The tile shape of one call: explicit > ``MOSAIC_RASTER_TILE`` >
+        the profile's ``raster_tile`` > None (`plan_tiles`' default)."""
+        return _tune_resolve.resolve_knob(
+            "raster_tile", tile, self._profile, None
+        )[0]
 
     # ------------------------------------------------------------ device
     def _assign(self, gt6, origin, th: int, tw: int) -> torch.Tensor:
@@ -286,7 +313,7 @@ class ZonalEngine:
     ) -> ZonalResult:
         """Fold one band into grid cells: per-key (count, sum, min, max)
         merged across tiles in row-major tile order."""
-        plan = plan_tiles(raster, tile)
+        plan = plan_tiles(raster, self._tile(tile))
         th, tw = plan.shape
         vals, mask = stack_tiles(raster, plan, band, dtype=np.float64)
         gt6 = np.asarray(plan.gt, np.float64)
@@ -354,7 +381,7 @@ class ZonalEngine:
                 "folds need the vector side"
             )
         fold = self.lane == "fold"
-        plan = plan_tiles(raster, tile)
+        plan = plan_tiles(raster, self._tile(tile))
         vals, mask = stack_tiles(
             raster, plan, band, dtype=np.float64 if fold else np.float32
         )
@@ -413,6 +440,7 @@ class ZonalEngine:
         (zone, value, valid) planes."""
         from .. import expr as _expr  # local: expr imports this module
 
+        tile = self._tile(tile)
         _value, kind, _by, _stats = _expr.terminal_of(expr)
         if kind == "join":
             return _expr.eval.map_join(self, expr, raster, tile=tile)
@@ -432,7 +460,9 @@ class ZonalEngine:
         `expr.freeze` bookkeeping."""
         from .. import expr as _expr  # local: expr imports this module
 
-        return _expr.warmup_expr(self, expr, raster, tile=tile, by=by)
+        return _expr.warmup_expr(
+            self, expr, raster, tile=self._tile(tile), by=by
+        )
 
 
 def _result_from_dict(merged: dict, band: int) -> ZonalResult:

@@ -34,8 +34,10 @@ What differs from the reference, and why:
   host oracle (`DegradedResult`); on the card the batch's futures raise
   `RetryExhausted` and no work moves to the CPU — KNN batches included
   (`knn/frontend.py`);
-- ``profile=`` raises (ROADMAP queue 1 item 13), ``mesh=`` (item 12) and
-  ``program_store=`` (`dispatch/programs.py`) too.
+- ``mesh=`` raises (ROADMAP queue 1 item 12), and ``program_store=``
+  (`dispatch/programs.py`) too. ``profile=`` and ``hot_swap(profile=)``
+  resolve as the reference's; ``hot_swap`` frees the replaced core's
+  CUDA graphs (see :meth:`ServeEngine.hot_swap`).
 
 KNN requests (``knn=`` a :class:`~mosaic_tpu_torch.knn.KNNIndex` or a
 ready :class:`~mosaic_tpu_torch.knn.KNNFrontend`, ``submit_knn``) ride
@@ -61,6 +63,18 @@ from ..runtime.errors import DegradedResult
 from ..tune.resolve import resolve_knobs
 from .admission import AdmissionController
 from .batcher import MicroBatcher
+
+
+def _profile_ladder(knobs: dict) -> "BucketLadder | None":
+    """The ladder a resolved ``bucket_min``/``bucket_max`` pair asks for
+    (an unset end keeps the built-in 64 or 65,536), or None when neither
+    is set."""
+    if not (knobs["bucket_min"] or knobs["bucket_max"]):
+        return None
+    return BucketLadder(
+        min_bucket=int(knobs["bucket_min"] or 64),
+        max_bucket=int(knobs["bucket_max"] or 65536),
+    )
 
 
 class _MixedOut:
@@ -126,15 +140,24 @@ class ServeEngine:
         self.index = index
         self.index_system = index_system
         self.resolution = index_system.resolution_arg(resolution)
-        # explicit arg > env knob > built-in default, resolved once at
-        # the host entry point (a profile raises: item 13)
+        # profile-consumed knobs resolve HERE, at the host entry point,
+        # with the one documented precedence: explicit arg > env knob >
+        # TuningProfile > built-in default (tune/resolve.py)
         knobs = resolve_knobs(
             "serve_engine", profile,
-            explicit={"probe": probe, "lookup": lookup, "knn_lane": knn_lane},
-            defaults={"probe": "scatter", "lookup": None, "knn_lane": None},
+            explicit={
+                "probe": probe, "writeback": writeback, "lookup": lookup,
+                "bucket_min": None, "bucket_max": None,
+                "knn_lane": knn_lane,
+            },
+            defaults={
+                "probe": "scatter", "writeback": "scatter", "lookup": None,
+                "bucket_min": None, "bucket_max": None,
+                "knn_lane": None,
+            },
         )
-        self.ladder = ladder or BucketLadder()
-        self.writeback = writeback or "scatter"
+        self.ladder = ladder or _profile_ladder(knobs) or BucketLadder()
+        self.writeback = knobs["writeback"]
         self.cell_dtype = cell_dtype
         self.watchdog_grace_s = float(watchdog_grace_s)
         # a hot_swap rebinds (ladder, core, index) as one unit; the lock
@@ -300,33 +323,47 @@ class ServeEngine:
         knn=None,
         knn_lane: str | None = None,
     ) -> dict:
-        """Swap in a new index without dropping the engine: a NEW dispatch
-        core is built off to the side, its ladder rungs run and its
-        signature set frozen (`DispatchCore.warmup`), and only then is
-        ``(ladder, core, index)`` rebound as one unit — requests in
-        flight finish on the old core, requests after the swap run on the
-        warmed new one. The old core's CUDA graphs are freed once no
-        batch is in flight on it: here when none is, else by the batch
-        that ends last (:meth:`_dispatch`), never later by a garbage
-        collection. Any post-swap dispatch that still introduces a
-        signature counts in ``metrics()["cold_compiles"]``. Unset knobs
-        keep the engine's current settings. A new ``knn=`` swaps the same
-        way: its frontend is built and warmed off to the side and rebound
-        with the core (a batch in flight holds its snapshot). Returns the
-        new core's warmup stats (``"knn"``: the new frontend's)."""
+        """Swap in a new index and/or `TuningProfile` without dropping the
+        engine: a NEW dispatch core is built off to the side, its ladder
+        rungs run and its signature set frozen (`DispatchCore.warmup`),
+        and only then is ``(ladder, core, index)`` rebound as one unit —
+        requests in flight finish on the old core, requests after the
+        swap run on the warmed new one. The old core's CUDA graphs are
+        freed once no batch is in flight on it: here when none is, else by
+        the batch that ends last (:meth:`_dispatch`), never later by a
+        garbage collection. Any post-swap dispatch that still introduces
+        a signature counts in ``metrics()["cold_compiles"]``. Knob
+        precedence matches the constructor (explicit > env > profile >
+        default), with the engine's CURRENT settings as the defaults: a
+        profile-less ``hot_swap(index)`` swaps the index and keeps the
+        tuning. A profile's ``resolution`` becomes the engine's, so a
+        caller swapping in an index built at another resolution passes
+        ``resolution=`` (`EpochalIndex.publish` does). A new ``knn=``
+        swaps the same way: its frontend is built and warmed off to the
+        side and rebound with the core (a batch in flight holds its
+        snapshot). Returns the new core's warmup stats (``"knn"``: the
+        new frontend's)."""
         index = self.index if index is None else index
         knobs = resolve_knobs(
             "serve_engine.hot_swap", profile,
-            explicit={"probe": probe, "lookup": lookup},
-            defaults={"probe": self.core.probe, "lookup": self.core.lookup},
+            explicit={
+                "resolution": resolution,
+                "probe": probe, "writeback": writeback, "lookup": lookup,
+                "bucket_min": None, "bucket_max": None,
+            },
+            defaults={
+                "resolution": self.resolution,
+                "probe": self.core.probe, "writeback": self.writeback,
+                "lookup": self.core.lookup,
+                "bucket_min": None, "bucket_max": None,
+            },
         )
-        new_resolution = self.index_system.resolution_arg(
-            self.resolution if resolution is None else resolution
-        )
-        ladder = ladder or self.ladder
-        new_writeback = writeback or self.writeback
+        new_resolution = self.index_system.resolution_arg(knobs["resolution"])
+        ladder = ladder or _profile_ladder(knobs) or self.ladder
+        new_writeback = knobs["writeback"]
         with _trace.span(
-            "serve.hot_swap", buckets=len(ladder.buckets), profiled=False,
+            "serve.hot_swap", buckets=len(ladder.buckets),
+            profiled=profile is not None,
         ), _telemetry.timed("serve_stage", stage="hot_swap"):
             core = DispatchCore(
                 index, self.index_system, new_resolution, ladder=ladder,

@@ -29,12 +29,17 @@ epoch (`index/epoch.py`) into one tenant's engine through the
 ``router.swap`` site; the tenant's metrics carry its ``epoch`` and
 ``epoch_advances``.
 
+Each tenant may carry a `TuningProfile` (``add_tenant(profile=)``) or
+load one from a profile store (``profile_root=``); a corrupt or
+mismatched store records ``router_profile_fallback`` and the tenant
+serves untuned, as the reference's does.
+
 What differs from the reference: there is no program store
-(`dispatch/programs.py`: ``program_store=`` raises) and no tuning
-profile (``add_tenant(profile=/profile_root=)`` and
-``advance_epoch(reprofile=True)`` raise, ROADMAP queue 1 item 13). A
-tenant whose engine serves KNN (``add_tenant(..., knn=...)``) takes
-:meth:`ServeRouter.submit_knn`.
+(`dispatch/programs.py`: ``program_store=`` raises), and
+``advance_epoch(reprofile=True)`` keeps the engine at the epochal
+index's resolution whatever the profile recommends
+(`index/epoch.py EpochalIndex.publish`). A tenant whose engine serves
+KNN (``add_tenant(..., knn=...)``) takes :meth:`ServeRouter.submit_knn`.
 """
 
 from __future__ import annotations
@@ -57,8 +62,6 @@ from .engine import ServeEngine
 #: says otherwise; a real fleet sets MOSAIC_SERVE_TENANTS to its memory
 #: budget
 DEFAULT_MAX_RESIDENT = 4
-
-_PROFILE_TODO = "is not ported yet (ROADMAP queue 1, item 13: tuning profiles)"
 
 # the router's eviction order reads the process health monitor
 _health.install()
@@ -83,15 +86,16 @@ class _Tenant:
     accounting that survives eviction."""
 
     __slots__ = (
-        "name", "index", "resolution", "engine_kw",
+        "name", "index", "resolution", "profile", "engine_kw",
         "engine", "last_used", "submitted", "shed_admit", "revivals",
         "last_metrics", "epoch", "epoch_advances",
     )
 
-    def __init__(self, name, index, resolution, engine_kw):
+    def __init__(self, name, index, resolution, profile, engine_kw):
         self.name = name
         self.index = index
         self.resolution = resolution
+        self.profile = profile
         self.engine_kw = engine_kw
         self.engine: "ServeEngine | None" = None
         self.last_used = 0.0
@@ -157,15 +161,13 @@ class ServeRouter:
         """Register ``tenant`` and (by default) bring its engine
         resident and warmed. ``deadline_s`` / ``queue_capacity`` are
         the tenant's deadline budget and admission quota; unset values
-        inherit the router defaults."""
-        if profile is not None:
-            raise NotImplementedError(f"add_tenant(profile=...) {_PROFILE_TODO}")
-        if profile_root is not None:
-            raise NotImplementedError(
-                f"add_tenant(profile_root=...) {_PROFILE_TODO}"
-            )
+        inherit the router defaults. ``profile_root`` loads the
+        tenant's newest valid `TuningProfile` bound to this index's
+        tessellation — store refusals degrade to serving untuned."""
         if tenant in self._tenants:
             raise ValueError(f"tenant {tenant!r} already registered")
+        if profile is None and profile_root is not None:
+            profile = self._load_profile(tenant, index, profile_root)
         kw = dict(self.engine_defaults)
         kw.update(engine_kw)
         kw.setdefault("queue_capacity", queue_capacity or self.queue_capacity)
@@ -173,14 +175,37 @@ class ServeRouter:
             "default_deadline_s",
             self.default_deadline_s if deadline_s is None else deadline_s,
         )
-        t = _Tenant(tenant, index, resolution, kw)
+        t = _Tenant(tenant, index, resolution, profile, kw)
         with self._lock:
             self._tenants[tenant] = t
             stats = self._revive(t) if warm else {}
         _telemetry.record(
-            "router_tenant_added", tenant=tenant, warm=warm, profiled=False,
+            "router_tenant_added", tenant=tenant, warm=warm,
+            profiled=profile is not None,
         )
         return stats
+
+    def _load_profile(self, tenant: str, index, profile_root: str):
+        from ..tune import (
+            ProfileFingerprintMismatch,
+            ProfileStore,
+            ProfileStoreCorrupt,
+            index_fingerprint,
+        )
+
+        try:
+            profile, _ = ProfileStore(profile_root).load_latest(
+                expect_fingerprint=index_fingerprint(index)
+            )
+            return profile
+        except (ProfileStoreCorrupt, ProfileFingerprintMismatch) as e:
+            # the store already recorded its typed telemetry; the router
+            # adds the tenant-scoped view and serves untuned
+            _telemetry.record(
+                "router_profile_fallback", tenant=tenant,
+                error=repr(e)[:200],
+            )
+            return None
 
     def _revive(self, t: _Tenant) -> dict:
         """Build + warm ``t``'s engine (caller holds the lock), evicting
@@ -194,7 +219,8 @@ class ServeRouter:
             "router_stage", stage="revive", tenant=t.name
         ):
             t.engine = ServeEngine(
-                t.index, self.index_system, t.resolution, **t.engine_kw,
+                t.index, self.index_system, t.resolution,
+                profile=t.profile, **t.engine_kw,
             )
             stats = t.engine.warmup()
         t.revivals += 1
@@ -356,8 +382,9 @@ class ServeRouter:
         answering from its current snapshot, the tenant's accounting is
         untouched, AND the epochal index stays on its previous published
         epoch (the delta log is already durable, so a later retry
-        publishes the same epoch). ``reprofile=True`` raises (ROADMAP
-        queue 1 item 13)."""
+        publishes the same epoch). ``reprofile=True`` re-profiles the
+        epoch's column and hands the refreshed profile to the swap, at
+        the epochal index's own resolution."""
         with self._lock:
             t = self._require(tenant)
             if t.engine is None:

@@ -31,9 +31,9 @@ What differs from the reference, and why:
   the plain gather and scatter lanes: they are matmul workarounds for the
   TPU, and their results are the same;
 - ``pip_join`` runs with and without the epsilon-band recheck, with the
-  reference's escalation, retry, watchdog and degradation; ``mesh=`` and
-  ``profile=`` raise ``NotImplementedError`` (ROADMAP queue 1, items 12
-  and 13). Besides the probe attempts, the cell assignment with its
+  reference's escalation, retry, watchdog and degradation, and takes a
+  tuning profile (``profile=``); ``mesh=`` raises
+  ``NotImplementedError`` (ROADMAP queue 1, item 12). Besides the probe attempts, the cell assignment with its
   count read-back and the recheck's narrow re-join also run under
   ``guarded_call("pip_join.device", ...)``, so every wait on the card
   has a watchdog. Degradation to the host oracle follows only a
@@ -103,10 +103,6 @@ CONVEX_EDGE_CAP = 16
 _MESH_TODO = (
     "is not ported yet (ROADMAP queue 1, item 12: the multi-device "
     "lanes)"
-)
-_PROFILE_TODO = (
-    "is not ported yet (ROADMAP queue 1, item 13: the tune knobs of "
-    "tune/resolve.py)"
 )
 
 
@@ -1318,29 +1314,44 @@ def pip_join(
     can then correct an f32 cell, so its cells are computed in float64,
     as the reference computes them from its f64 input. With margins (H3,
     BNG) the recheck makes f32 cells exact. ``writeback``/``lookup``/
-    ``probe`` are the knobs of :func:`pip_join_points`; ``probe`` and
-    ``lookup`` left None read ``MOSAIC_TUNE_PROBE``/``MOSAIC_TUNE_LOOKUP``
-    (`tune/resolve.py`). ``mesh`` and ``profile`` raise
-    ``NotImplementedError``.
+    ``probe`` are the knobs of :func:`pip_join_points`.
+
+    ``profile`` takes a `tune.TuningProfile`; its knobs apply with the
+    one documented precedence — explicit argument > env knob > profile >
+    built-in default (`tune/resolve.py`). Profile-consumed knobs here:
+    ``resolution``, ``probe``, ``writeback``, ``lookup``, ``batch_size``
+    (pass ``batch_size=0`` to force the unbatched path past a profile's
+    recommendation). ``mesh`` raises ``NotImplementedError``.
     """
     if mesh is not None:
         raise NotImplementedError(f"pip_join(mesh=...) {_MESH_TODO}")
-    if profile is not None:
-        raise NotImplementedError(f"pip_join(profile=...) {_PROFILE_TODO}")
+    # profile-consumed knobs fold HERE, at the host entry point: explicit
+    # argument > env knob > profile > built-in default (tune/resolve.py).
+    # lookup's default is None, as the reference's, so the tune_resolve
+    # event names the same value; every device runs the gather lane.
+    knobs = _tune_resolve.resolve_knobs(
+        "pip_join", profile,
+        explicit={
+            "resolution": resolution, "probe": probe,
+            "writeback": writeback, "lookup": lookup,
+            "batch_size": batch_size,
+        },
+        defaults={
+            "resolution": None, "probe": "scatter", "writeback": "scatter",
+            "lookup": None, "batch_size": None,
+        },
+    )
+    resolution, writeback = knobs["resolution"], knobs["writeback"]
+    lookup = knobs["lookup"] or "gather"
+    batch_size = knobs["batch_size"] or None  # 0 = explicitly unbatched
     if resolution is None:
-        raise ValueError("pip_join needs a resolution")
+        raise ValueError(
+            "pip_join needs a resolution — pass it explicitly or via a "
+            "profile that recommends one"
+        )
     dev = resolve_device(device)
     resolution = index_system.resolution_arg(resolution)
-    # explicit argument > MOSAIC_TUNE_PROBE / MOSAIC_TUNE_LOOKUP > default,
-    # resolved here as `StreamJoin` and `RasterStream` resolve them
-    knobs = _tune_resolve.resolve_knobs(
-        "pip_join", None,
-        explicit={"probe": probe, "lookup": lookup},
-        defaults={"probe": "scatter", "lookup": "gather"},
-    )
     probe = resolve_probe_mode(knobs["probe"])
-    writeback = writeback or "scatter"
-    lookup = knobs["lookup"]
     if probe != "scatter" and writeback == "direct":
         raise ValueError(
             "probe='adaptive' requires writeback scatter|gather"

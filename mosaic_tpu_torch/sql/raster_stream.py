@@ -31,8 +31,10 @@ tiled `zones` call bit for bit); ``scan(expr=...)`` folds a fused
 expression tree (`mosaic_tpu_torch/expr`) through the f64 fold lane
 whatever the stream's lane, and its snapshots carry the tree's
 ``expr_sha256`` as the reference's do, so either package resumes the
-other's expression scans; ``mesh=`` and ``profile=`` raise
-``NotImplementedError`` (ROADMAP queue 1, items 12 and 13).
+other's expression scans; ``mesh=`` raises ``NotImplementedError``
+(ROADMAP queue 1, item 12). ``profile=`` takes a `tune.TuningProfile`
+as the reference's does: ``probe``/``lookup`` resolve here, the tile
+shape and window per scan.
 """
 
 from __future__ import annotations
@@ -106,6 +108,10 @@ class RasterStream:
     ):
         if mesh is not None:
             raise _not_ported("RasterStream(mesh=...)", 12, "multi-device")
+        # profile-consumed knobs fold at this host entry point: explicit
+        # arg > env knob > profile > built-in default (tune/resolve.py);
+        # the tile/window knobs resolve per scan, where they apply
+        self._profile = profile
         knobs = _tune_resolve.resolve_knobs(
             "raster_stream", profile,
             explicit={"probe": probe, "lookup": lookup},
@@ -242,14 +248,15 @@ class RasterStream:
         retry_policy, trace_parent, window=None,
     ) -> RasterScanResult:
         tiles, _zn = _zonal()
-        # the window knob: explicit > MOSAIC_STREAM_WINDOW > default; the
-        # tile shape (explicit, or the resume's snapshot tile) falls back
-        # to MOSAIC_RASTER_TILE inside plan_tiles
-        window = _tune_resolve.resolve_knobs(
-            "raster_stream.scan", None,
-            explicit={"stream_window": window},
-            defaults={"stream_window": None},
-        )["stream_window"]
+        # per-scan knobs: an explicit tile (or a resume's snapshot tile)
+        # wins, then MOSAIC_RASTER_TILE / MOSAIC_STREAM_WINDOW, then the
+        # constructor's TuningProfile, then the built-in defaults
+        knobs = _tune_resolve.resolve_knobs(
+            "raster_stream.scan", self._profile,
+            explicit={"raster_tile": tile, "stream_window": window},
+            defaults={"raster_tile": None, "stream_window": None},
+        )
+        tile, window = knobs["raster_tile"], knobs["stream_window"]
         plan = tiles.plan_tiles(raster, tile)
         th, tw = plan.shape
         root = _trace.start_span(

@@ -62,9 +62,9 @@ What differs from the reference, and why:
   first segment, so a first build is never booked to a segment;
 - ``donate_ring`` is accepted and changes nothing: the port never frees
   the caller's tensor (``metrics["ring_donated"]`` is False);
-- ``mesh=`` and ``profile=`` raise ``NotImplementedError`` (items 12 and
-  13); ``lookup`` and ``compaction`` default to the lanes
-  `pip_join_points` runs (``gather``, ``scatter``) on every device;
+- ``mesh=`` raises ``NotImplementedError`` (item 12); ``lookup`` and
+  ``compaction`` default to the lanes `pip_join_points` runs
+  (``gather``, ``scatter``) on every device;
 - `ring_from_generator` takes seeds for ``torch.Generator`` (one a
   slot): its points cannot equal ``jax.random``'s.
 """
@@ -406,6 +406,11 @@ class StreamJoin:
     ):
         if mesh is not None:
             raise NotImplementedError(f"StreamJoin(mesh=...) {_MESH_TODO}")
+        #: the TuningProfile consulted again at run_durable/resume time
+        #: for the pipeline/window knobs (same precedence as here)
+        self._profile = profile
+        # profile-consumed knobs fold at this host entry point: explicit
+        # arg > env knob > profile > built-in default (tune/resolve.py)
         knobs = _tune_resolve.resolve_knobs(
             "stream_join", profile,
             explicit={"probe": probe, "lookup": lookup},
@@ -830,9 +835,9 @@ class StreamJoin:
         k, batch = self._check_ring(ring)
         snapshot_every = max(1, snapshot_every)
         # mode knobs resolved at call time:
-        # explicit arg > MOSAIC_STREAM_PIPELINE/_WINDOW > default
+        # explicit arg > MOSAIC_STREAM_PIPELINE/_WINDOW > profile > default
         knobs = _tune_resolve.resolve_knobs(
-            "stream_join.run_durable", None,
+            "stream_join.run_durable", self._profile,
             explicit={"stream_pipeline": pipeline, "stream_window": window},
             defaults={"stream_pipeline": False, "stream_window": None},
         )

@@ -302,13 +302,30 @@ class TestEpochBitIdentity:
         for ix, rix in zip(port_ix, ref_ix):
             assert checkpoint.index_identity(ix) == ref_checkpoint.index_identity(rix)
 
-    def test_reprofile_names_item_13(self):
-        ep = mk()
-        with pytest.raises(NotImplementedError, match="item 13"):
-            ep.publish(reprofile=True)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            ep.reprofile()
-        assert ep.epoch == -1
+    def test_reprofile_equals_reference(self, monkeypatch):
+        """`EpochalIndex.reprofile` recommends what the reference's does
+        for the same column (both read the port's priors here)."""
+        import importlib
+
+        from mosaic_tpu_torch.tune import load_priors
+
+        ref_recommend = importlib.import_module("mosaic_tpu.tune.recommend")
+        monkeypatch.setattr(ref_recommend, "load_priors", lambda: load_priors())
+        ep, ref = mk(), mk_ref()
+        for e in (edit_replace, edit_insert):
+            e(ep)
+            e(ref, conv=wkt.from_wkt)
+        assert ep.reprofile().as_dict() == ref.reprofile().as_dict()
+
+    def test_publish_reprofile_builds_the_same_index(self):
+        """``publish(reprofile=True)`` without an engine publishes the
+        same epoch as a plain publish, flagged ``reprofiled``."""
+        ep, plain = mk(), mk()
+        stats = ep.publish(reprofile=True)
+        assert stats["reprofiled"] is True and ep.epoch == 0
+        plain.publish()
+        assert chip_index_equal(ep.index, plain.index)
+        assert chip_index_equal(ep.index, scratch(ep))
 
     def test_log_meta_keeps_the_reference_values(self, both_logs):
         pd, _rd, _pi, _ri, _ep, _rp = both_logs
@@ -858,13 +875,39 @@ class TestRouterEpochAdvance:
             stats = router.advance_epoch("a", ep)
             assert stats["epoch"] == 1 and ep.epoch == 1
 
-    def test_reprofile_names_item_13(self):
+    def test_advance_epoch_reprofile_serves_the_live_epoch(self, pts):
+        """``advance_epoch(reprofile=True)``: every answer after each
+        reprofiled advance equals `pip_join` of the live epoch, at the
+        epochal index's resolution."""
         ep = mk()
         ep.publish()
         with make_router() as router:
+            router.add_tenant("a", ep.index, RES)
+            for e in EDITS:
+                e(ep)
+                stats = router.advance_epoch("a", ep, reprofile=True)
+                assert stats["reprofiled"] is True
+                assert router._tenants["a"].engine.resolution == RES
+                got = np.asarray(router.join("a", pts))
+                want = pip_join(pts, None, CUSTOM, RES, chip_index=ep.index,
+                                recheck=False, device="cpu")
+                np.testing.assert_array_equal(got.astype(np.int64),
+                                              want.astype(np.int64))
+            m = router.metrics()["tenants"]["a"]
+            assert m["epoch_advances"] == 3 and m["epoch"] == 3
+
+    def test_failed_reprofiled_advance_keeps_the_old_epoch(self, pts):
+        ep = mk()
+        ep.publish()
+        old_oracle = host_join(pts, ep.index.host, CUSTOM, RES)
+        with make_router() as router:
             router.add_tenant("a", ep.index, RES, warm=False)
             edit_replace(ep)
-            with pytest.raises(NotImplementedError, match="item 13"):
-                router.advance_epoch("a", ep, reprofile=True)
+            with faults.transient_errors(1, sites=("router.swap",)):
+                with pytest.raises(TransientDeviceError):
+                    router.advance_epoch("a", ep, reprofile=True)
             assert router.metrics()["tenants"]["a"]["epoch_advances"] == 0
             assert ep.epoch == 0
+            np.testing.assert_array_equal(
+                np.asarray(router.join("a", pts)), old_oracle
+            )

@@ -73,6 +73,13 @@ MODULES = [
     "mosaic_tpu_torch.models.knn",
     "mosaic_tpu_torch.index",
     "mosaic_tpu_torch.index.epoch",
+    "mosaic_tpu_torch.tune",
+    "mosaic_tpu_torch.tune.profiler",
+    "mosaic_tpu_torch.tune.recommend",
+    "mosaic_tpu_torch.tune.store",
+    "mosaic_tpu_torch.sql.analyzer",
+    "mosaic_tpu_torch.functions._coerce",
+    "mosaic_tpu_torch.tools.card_priors",
 ]
 
 

@@ -207,13 +207,31 @@ def test_host_join_equals_reference(own_indexes, batches):
 
 
 @pytest.mark.parametrize(
-    "kw", [{"mesh": 2}, {"profile": object()}],
-    ids=["mesh", "profile"],
+    "kw", [{"mesh": 2}],
+    ids=["mesh"],
 )
 def test_later_slices_raise_typed(port_index, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TJ.pip_join(np.zeros((4, 2)), None, H3IndexSystem(), RES,
                     chip_index=port_index, device="cpu", **kw)
+
+
+def test_profile_resolution_and_probe_equal_reference(own_indexes, batches):
+    """``profile=`` (ported with the tune slice): a profile's resolution
+    and adaptive probe give the reference's answer on H3 bit for bit."""
+    from mosaic_tpu.tune import TuningProfile as RefProfile
+    from mosaic_tpu_torch.tune import TuningProfile
+
+    ref, port = own_indexes
+    pts = batches["mixed"][0]
+    want = np.asarray(RJ.pip_join(pts, None, RefH3(), None, chip_index=ref,
+                                  recheck=False, cell_dtype=jnp.float64,
+                                  profile=RefProfile(resolution=RES, probe="adaptive")))
+    got = TJ.pip_join(pts, None, H3IndexSystem(), None, chip_index=port,
+                      cell_dtype=torch.float64,
+                      profile=TuningProfile(resolution=RES, probe="adaptive"),
+                      device="cpu")
+    np.testing.assert_array_equal(got, want)
 
 
 def test_resolve_probe_mode(monkeypatch):

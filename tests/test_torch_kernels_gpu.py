@@ -1132,3 +1132,80 @@ def test_spatial_knn_on_card_equals_cpu(cuda):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     np.testing.assert_array_equal(_f64_bits(got.distance), _f64_bits(want.distance))
     assert not got.metrics["degraded"]
+
+
+# ---- tuning profiles on the card
+
+
+@pytest.mark.parametrize("integer", [True, False], ids=["integer", "float"])
+def test_zonal_tiled_at_a_128_tile_equals_plain(cuda, integer):
+    """`zonal_tiled` at the 128x128 tile a sparse raster's profile
+    recommends (16,384 pixels, 256 zones) equals its plain version."""
+    vals, seg = _zonal_inputs(128 * 128, 256, integer, seed=128)
+    v, s = torch.from_numpy(vals).to(cuda), torch.from_numpy(seg).to(cuda)
+    got, want = TZ.zonal_tiled(v, s, 256), TZ.zonal_tiled_plain(v, s, 256)
+    for i in (0, 2, 3):
+        assert torch.equal(got[i], want[i])
+    if integer:
+        assert torch.equal(got[1], want[1])
+    else:
+        abs_sum = torch.zeros(256, dtype=torch.float64, device=cuda)
+        live = s >= 0
+        abs_sum.index_add_(0, s[live].long(), v[live].abs().double())
+        assert bool(((got[1].double() - want[1].double()).abs()
+                     <= ZONAL_SUM_RTOL * abs_sum).all())
+
+
+def test_profiled_128_tile_zones_on_card_equal_cpu(cuda):
+    """A `ZonalEngine` whose profile asks for the tiled lane at 128x128
+    launches `zonal_tiled` and `pip_heavy_tiled` at that tile and equals
+    the CPU engine's zones bit for bit on integer-valued data."""
+    from mosaic_tpu_torch.raster import ZonalEngine
+    from mosaic_tpu_torch.tune import TuningProfile
+
+    grid, ixs = _custom_indexes(cuda)
+    r = _custom_raster(integer=True)
+    prof = TuningProfile(zonal_lane="tiled", raster_tile=(128, 128))
+    z0, h0 = TZ.zonal_tiled.launches, TP.pip_heavy_tiled.launches
+    got = ZonalEngine(grid, 3, chip_index=ixs["cuda"], profile=prof).zones(r)
+    assert TZ.zonal_tiled.launches > z0 and TP.pip_heavy_tiled.launches > h0
+    want = ZonalEngine(grid, 3, chip_index=ixs["cpu"], profile=prof, device="cpu").zones(r)
+    assert got.keys.size > 0
+    for f in ("keys", "count"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    for f in ("sum", "min", "max"):
+        np.testing.assert_array_equal(getattr(got, f).view(np.int64),
+                                      getattr(want, f).view(np.int64))
+
+
+def test_profiled_engine_with_a_65536_rung_equals_pip_join(cuda):
+    """A `ServeEngine(profile=)` whose ladder reaches 65,536 captures every
+    rung, serves a request on the top rung and small ones co-batched,
+    each equal to `pip_join`; a reprofiled swap keeps the resolution
+    passed and frees the replaced core's graphs."""
+    from mosaic_tpu_torch.dispatch import backend_compiles
+    from mosaic_tpu_torch.serve import ServeEngine
+    from mosaic_tpu_torch.tune import TuningProfile
+
+    h3, ix = _serve_index(cuda)
+    prof = TuningProfile(probe="adaptive", bucket_min=4096, bucket_max=65536)
+    reqs = _requests(33, [50_000] + list(np.random.default_rng(32).integers(1, 1024, 30)))
+    want = _pip_join_split(reqs, h3, ix)
+    with ServeEngine(ix, h3, 9, profile=prof, bounds=BBOX, max_wait_s=0.02) as eng:
+        assert eng.ladder.buckets == (4096, 8192, 16384, 32768, 65536)
+        eng.warmup()
+        c0, l0 = backend_compiles(), TP.pip_heavy_tiled.launches
+        got = [eng.submit(r, deadline_s=30.0).result(timeout=60) for r in reqs[:1]]
+        futs = [eng.submit(r, deadline_s=30.0) for r in reqs[1:]]
+        got += [f.result(timeout=60) for f in futs]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert eng.metrics()["cold_compiles"] == 0 and backend_compiles() == c0
+        assert TP.pip_heavy_tiled.launches > l0
+        old = eng.core
+        eng.hot_swap(ix, profile=TuningProfile(resolution=8, bucket_min=256,
+                                               bucket_max=1024), resolution=9)
+        assert eng.resolution == 9 and eng.ladder.buckets == (256, 512, 1024)
+        assert not old._graphs
+        np.testing.assert_array_equal(
+            eng.submit(reqs[1], deadline_s=30.0).result(timeout=60), want[1])

@@ -302,12 +302,20 @@ def test_convert_carries_a_reference_knn_index(problem, grids):
         convert.knn_index_from_reference(bad, grids[1], device="cpu")
 
 
-def test_build_needs_system_and_resolution(problem):
+def test_build_needs_system_and_resolution(grids, problem):
+    """An index system is still needed (the context's is item 14); a
+    missing resolution is the resolution analyzer's pick, as the
+    reference's."""
+    rg, pg = grids
     cand = port(problem[0])
     with pytest.raises(NotImplementedError, match="item 14"):
         build_knn_index(cand, None, RES, device="cpu")
     with pytest.raises(NotImplementedError, match="item 14"):
         SpatialKNN(None, RES, device="cpu")
+    rkx = ref_build(problem[0], index_system=rg)
+    kx = build_knn_index(cand, pg, device="cpu")
+    assert kx.resolution == rkx.resolution
+    assert kx.fingerprint == rkx.fingerprint
 
 
 # ------------------------------------------------------------- lanes

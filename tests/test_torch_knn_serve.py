@@ -304,8 +304,8 @@ class TestSwapAndKnobs:
             assert eng.metrics()["cold_compiles"] == 0
 
     def test_knn_lane_knob_precedence(self, pip_index, grid, knn_problem, monkeypatch):
-        """``knn_lane`` resolves explicit > env > default; a malformed env
-        value raises (no tuning profiles: ROADMAP queue 1 item 13)."""
+        """``knn_lane`` resolves explicit > env > profile > default; a
+        malformed env value raises."""
         _, kx, _ = knn_problem
 
         def mk(**kw):
@@ -324,8 +324,12 @@ class TestSwapAndKnobs:
         monkeypatch.setenv("MOSAIC_TUNE_KNN_LANE", "grid")
         with pytest.raises(ValueError, match="knn_lane"):
             mk()
-        with pytest.raises(NotImplementedError, match="item 13"):
-            mk(profile=object())
+        monkeypatch.delenv("MOSAIC_TUNE_KNN_LANE")
+        from mosaic_tpu_torch.tune import TuningProfile
+
+        assert mk(profile=TuningProfile(knn_lane="voronoi")) == "voronoi"
+        monkeypatch.setenv("MOSAIC_TUNE_KNN_LANE", "ring")
+        assert mk(profile=TuningProfile(knn_lane="voronoi")) == "ring"  # env beats profile
 
     def test_engine_without_knn_rejects_knn_requests(self, pip_index, grid):
         with ServeEngine(pip_index, grid, RES, ladder=BucketLadder(64, 256),

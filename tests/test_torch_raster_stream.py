@@ -355,8 +355,6 @@ def test_unported_arguments_raise(index, raster):
         st.scan(raster, expr=E.band(9).zonal())
     with pytest.raises(NotImplementedError, match="item 12"):
         RasterStream(index, PORT, RES, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        RasterStream(index, PORT, RES, profile=object())
 
 
 def test_zonal_emits_stage_telemetry_and_spans(index, raster):

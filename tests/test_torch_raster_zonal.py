@@ -236,7 +236,6 @@ def test_unported_options_raise_typed(ixs):
         eng.map(E.band(1).zonal(by="zones"), r)
     for call, item in (
         (lambda: TZ.ZonalEngine(PORT, RES, mesh=object(), device="cpu"), "item 12"),
-        (lambda: TZ.ZonalEngine(PORT, RES, profile=object(), device="cpu"), "item 13"),
         (lambda: TZ.zonal_grid(r, RES, device="cpu"), "item 14"),
     ):
         with pytest.raises(NotImplementedError, match=item):

@@ -366,23 +366,39 @@ class TestNotPorted:
         with pytest.raises(NotImplementedError, match="queue 3"):
             ServeRouter(grid, program_store=str(tmp_path))
 
-    @pytest.mark.parametrize("kw", [dict(profile=object()), dict(profile_root="/p")])
-    def test_profiles_name_item_13(self, grid, index_a, kw):
+    @pytest.mark.parametrize("kw", [dict(probe="adaptive"), dict(root=True)],
+                             ids=["profile", "profile_root"])
+    def test_tenant_profiles_tune_the_engine(self, grid, index_a, tmp_path, kw):
+        """``add_tenant(profile=)`` and ``(profile_root=)`` (ported with
+        the tune slice; tests/test_torch_tune.py holds the store's
+        refusals): the tenant's engine takes the profile's probe and its
+        answers stay equal to `pip_join`."""
+        from mosaic_tpu_torch.tune import ProfileStore, TuningProfile, index_fingerprint
+
+        prof = TuningProfile(probe="adaptive")
+        if kw.pop("root", False):
+            ProfileStore(str(tmp_path)).save(prof, fingerprint=index_fingerprint(index_a))
+            kw = {"profile_root": str(tmp_path)}
+        else:
+            kw = {"profile": prof}
+        pts = np.random.default_rng(4).uniform(BBOX[:2], BBOX[2:], (200, 2))
         with make_router(grid) as router:
-            with pytest.raises(NotImplementedError, match="item 13"):
-                router.add_tenant("a", index_a, RES, **kw)
-            assert router.tenants() == []
+            router.add_tenant("a", index_a, RES, **kw)
+            assert router.tenants() == ["a"]
+            assert router._tenants["a"].engine.probe == "adaptive"
+            got = np.asarray(router.join("a", pts))
+        want = pip_join(pts, None, grid, RES, chip_index=index_a,
+                        recheck=False, device="cpu")
+        np.testing.assert_array_equal(got.astype(np.int64), want.astype(np.int64))
 
     def test_epochs_and_knn_name_their_items(self, grid, index_a):
         from mosaic_tpu_torch.index import EpochalIndex
 
         with make_router(grid) as router:
             router.add_tenant("a", index_a, RES, warm=False)
-            # epochs are ported (tests/test_torch_epoch.py); re-profiling
-            # an epoch is item 13
-            ep = EpochalIndex(None, grid, RES, device="cpu")
-            with pytest.raises(NotImplementedError, match="item 13"):
-                router.advance_epoch("a", ep, reprofile=True)
+            # epochs and their re-profiling are ported
+            # (tests/test_torch_epoch.py, tests/test_torch_tune.py)
+            assert callable(EpochalIndex.reprofile)
             # KNN is ported: a tenant whose engine has no KNN frontend
             # refuses KNN requests (tests/test_torch_knn_serve.py serves them)
             with pytest.raises(RuntimeError, match="no KNN frontend"):

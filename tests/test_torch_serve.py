@@ -594,7 +594,6 @@ class TestNotPorted:
     # KNN serving is ported (tests/test_torch_knn_serve.py): the cases of
     # its two refusals went with them; the ids keep the other cases' names
     @pytest.mark.parametrize("kw,item", [
-        pytest.param(dict(profile=object()), "item 13", id="kw2-item 13"),
         pytest.param(dict(mesh=2), "item 12", id="kw3-item 12"),
         pytest.param(dict(program_store="/nonexistent"), "queue 3", id="kw4-queue 3"),
     ])
@@ -608,7 +607,5 @@ class TestNotPorted:
                 eng.submit_knn(np.zeros((2, 2)), 3)
             with pytest.raises(TypeError, match="KNNIndex or a KNNFrontend"):
                 eng.hot_swap(knn=object())
-            with pytest.raises(NotImplementedError, match="item 13"):
-                eng.hot_swap(profile=object())
         with pytest.raises(TypeError, match="KNNIndex or a KNNFrontend"):
             make_engine(index, grid, knn=object())

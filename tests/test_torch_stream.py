@@ -313,8 +313,6 @@ def test_ring_from_generator_seeds_each_slot():
 def test_unported_arguments_raise(ixs):
     with pytest.raises(NotImplementedError, match="item 12"):
         StreamJoin(ixs[1], PORT, RES, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        StreamJoin(ixs[1], PORT, RES, profile=object())
 
 
 def test_donate_ring_keeps_the_ring(ixs, ring, sj):
@@ -359,13 +357,11 @@ def test_knob_precedence_explicit_env_default(monkeypatch, knob, env, raw, parse
     assert evt["entry"] == "unit" and evt[f"{knob}_source"] == "env"
 
 
-def test_knob_resolution_refuses_profiles_and_bad_values(monkeypatch):
+def test_knob_resolution_refuses_bad_values(monkeypatch):
     from mosaic_tpu_torch.tune import resolve
 
-    with pytest.raises(NotImplementedError, match="item 13"):
-        resolve.resolve_knobs("unit", object(), explicit={}, defaults={"probe": None})
     with pytest.raises(KeyError):
-        resolve.resolve_knob("resolution", None, None, 9)
+        resolve.resolve_knob("warp_factor", None, None, 9)
     monkeypatch.setenv("MOSAIC_STREAM_WINDOW", "many")
     with pytest.raises(ValueError, match="MOSAIC_STREAM_WINDOW|stream_window"):
         resolve.resolve_knob("stream_window", None, None, None)
