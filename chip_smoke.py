@@ -247,6 +247,36 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    publish seconds (tessellate, append; materialize, build, swap), its
    ``memory_allocated``, the replay's seconds, ``pip_heavy_tiled``
    launches, the loop's GC pauses and its slowest request;
+8m. observability (``mosaic_tpu_torch/obs``: importing it installs the
+   ops plane, on in both processes): in the serving process an
+   ``OpsServer(0)`` on loopback around 8d's loop, ``/metrics`` and ``/``
+   scraped before it, every ``OBS_SCRAPE_S`` during it and after it.
+   Gates (line ``observability_serve``): the four observers are
+   installed; the Prometheus text parses; the deltas of
+   ``serve.requests_completed`` and of ``serve.request_seconds``'s count
+   equal the requests the loop completed; no ``obs.compile_count{kind=
+   "serve_cold"}``; ``/health`` healthy in every scope; the port refuses
+   once the server stopped; 8e's exhausted retries leave a flight-recorder
+   dump (``MOSAIC_RECORDER_DIR``, the process's run directory) whose
+   trigger is the failing ``serve.dispatch`` span's ``retry_exhausted``
+   and whose file the port's ``read_trail`` reads back equal; the
+   timeline of 8d's trail sums to its wall within 1e-6; its Chrome trace
+   re-reads with every ``dur >= 0`` and a queue_wait track. In this
+   process, after the serving process returned, over 8b's synchronous
+   durable run's trail and 8d's (line ``observability``): the stream
+   trail's timeline sums to its wall, ``fleet_report`` stitches the two
+   into 2 incarnations in wall-clock order, ``doctor``'s cold_compiles
+   check is green, and ``perf_gate`` with a 10x slowdown of the committed
+   card golden's largest required stage is red. Findings, not gates:
+   ``perf_gate``'s verdict against the golden
+   (``mosaic_tpu_torch/tools/goldens/perf_gate.json``), the doctor's other
+   checks, ``trace_report``'s top stages, ``stall_report``'s classes, and
+   the host µs of a ``telemetry.record`` with and without the observers
+   beside 8d's events a request and requests/s. The ``stream`` (8b) and
+   ``serve_profile`` (8d) lines give the timeline's class shares of their
+   profiled windows beside the profiler's idle share.
+   ``python3 chip_smoke.py --keep-trails DIR`` copies the two trails to
+   ``DIR``, the input of ``perf_gate --update``;
 9. a ``kernels`` line with each kernel's launches (their sum over the
    paths above, and each path's own count), times and bound, and each
    raster kernel's device time per launch in the crop profile.
@@ -360,6 +390,12 @@ TUNE_JOIN_POINTS = 1_000_000  # points of the profiled join and its explicit twi
 TUNE_TILE = (128, 128)      # the tile recommend gives a sparse raster
 TUNE_TOP_ROWS = 50_000      # rows of 8e's request on the profile's top rung
 PROFILE_STORE = "profile"   # 8l's store under the serving process's directory
+OBS_DIR = ".chip_smoke_obs"  # 8m's two trails: the durable stream's and 8d's (removed)
+OBS_SCRAPE_S = 0.2          # the ops server's scrape period during 8d's loop
+OBS_PROBE_N = 10_000        # telemetry.record calls a round of the cost probe
+OBS_PROBE_ROUNDS = 5        # interleaved rounds, with and without the observers
+#: where ``--keep-trails DIR`` copies 8m's trails (the card golden's input)
+KEEP_TRAILS = None
 
 #: H100 SXM rates: HBM3 bytes/s (NVIDIA data sheet); single f32 and f64
 #: operations per second outside the tensor cores. The data sheet's 67 and
@@ -579,6 +615,19 @@ def idle_share(busy_ms, rows, warm_ms) -> dict:
         return {"device_busy_ms": "not measured", "device_idle_share": "not measured"}
     return {"device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / warm_ms)}
+
+
+def timeline_shares(events) -> dict | None:
+    """The timeline's class shares of a window's trail (``obs/timeline.py``:
+    the host's view, beside the profiler's device idle share of the same
+    window), with the window it picked."""
+    from mosaic_tpu_torch.obs import timeline
+
+    attr = timeline.attribute(events)
+    if attr is None:
+        return None
+    return {"window": attr["window"]["source"], "wall_s": attr["wall_s"],
+            **{c: v["share"] for c, v in attr["classes"].items()}}
 
 
 def count_syncs(fn) -> tuple:
@@ -1203,6 +1252,288 @@ def latency_outlier(lat, t_start, t0, rows, events, gcp) -> dict:
             "gc_pauses_in_flight": gc_in}
 
 
+def plane_installed() -> dict:
+    """Which of the ops plane's observers the port's telemetry spine holds
+    (importing ``mosaic_tpu_torch.obs`` installs all four)."""
+    from mosaic_tpu_torch.obs import health, metrics, recorder, slo
+    from mosaic_tpu_torch.runtime import telemetry
+
+    on = telemetry._OBSERVERS
+    return {"bridge": metrics._on_event in on,
+            "recorder": recorder.RECORDER.observer in on,
+            "slo_monitor": slo.MONITOR.observer in on,
+            "health_monitor": health.MONITOR.observer in on}
+
+
+def parse_prometheus(text: str) -> dict:
+    """{(name, sorted label pairs): value} of a Prometheus text exposition;
+    raises ValueError on a line that is neither a comment nor a sample."""
+    import re
+
+    sample = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$")
+    label = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    out = {}
+    for ln in text.splitlines():
+        if not ln or ln.startswith("#"):
+            continue
+        m = sample.match(ln)
+        if m is None:
+            raise ValueError(f"not a sample line: {ln!r}")
+        out[(m.group(1), tuple(sorted(label.findall(m.group(2) or ""))))] = float(m.group(3))
+    return out
+
+
+class OpsScraper:
+    """8m's ops server around 8d's loop: ``OpsServer(0)`` on loopback,
+    ``/metrics`` and ``/`` scraped once before the loop, every
+    ``OBS_SCRAPE_S`` during it (a thread that sleeps between scrapes) and
+    once after it; :meth:`finish` reads ``/health``, stops the server and
+    tries its port again."""
+
+    def __init__(self):
+        from mosaic_tpu_torch.obs import OpsServer
+
+        self.srv = OpsServer(0).start()
+        self.port = self.srv.port
+        self.scrapes, self.errors = [], []  # (perf_counter, label, metrics)
+        self._stop, self._thread = threading.Event(), None
+        self.scrape("before")
+
+    def _get(self, path):
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=5)
+        try:
+            conn.request("GET", path)
+            r = conn.getresponse()
+            return r.status, r.read().decode()
+        finally:
+            conn.close()
+
+    def scrape(self, label):
+        try:
+            st, text = self._get("/metrics")
+            st_root, root = self._get("/")
+            if (st, st_root) != (200, 200) or "incarnation" not in json.loads(root):
+                raise ValueError(f"status {st}, {st_root}")
+            self.scrapes.append((time.perf_counter(), label, parse_prometheus(text)))
+        except (OSError, ValueError) as e:
+            self.errors.append(f"{label}: {e!r}"[:200])
+
+    def during(self):
+        def loop():
+            while not self._stop.wait(OBS_SCRAPE_S):
+                self.scrape("during")
+
+        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread.start()
+
+    def finish(self) -> None:
+        """The scrape after the loop; keeps the ``/health`` document and
+        whether the port refuses connections once the server stopped."""
+        self._stop.set()
+        self._thread.join()
+        self.scrape("after")
+        self.health = json.loads(self._get("/health")[1])
+        self.srv.stop()
+        try:
+            self._get("/metrics")
+            self.refused = False
+        except OSError:
+            self.refused = True
+
+    def delta(self, name, **labels) -> float:
+        key = (name, tuple(sorted(labels.items())))
+        return self.scrapes[-1][2].get(key, 0.0) - self.scrapes[0][2].get(key, 0.0)
+
+
+def serve_obs_gates(scr, t_loop, completed, events, ev2, run_dir) -> dict:
+    """Phase 8m in the serving process: the ops server's scrapes around
+    8d's loop (``t_loop``, its perf_counter window; ``completed`` requests),
+    the flight recorder's dump of 8e's exhausted retries (``ev2``, their
+    events) and the timeline of 8d's trail (``events``)."""
+    from mosaic_tpu_torch.obs import RECORDER, export, timeline
+
+    health, refused = scr.health, scr.refused
+    during = [s for s in scr.scrapes if s[1] == "during" and t_loop[0] <= s[0] <= t_loop[1]]
+    after = scr.scrapes[-1][2] if scr.scrapes and scr.scrapes[-1][1] == "after" else {}
+    cold = after.get(("obs_compile_count", (("kind", "serve_cold"),)), 0.0)
+    states = {k: v.get("state") for k, v in health.get("scopes", {}).items()}
+    # the dump 8e's exhausted retries left: its trigger is the failing
+    # serve.dispatch span's retry_exhausted
+    dump = RECORDER.last_dump or []
+    trig = next((e for e in reversed(dump) if e.get("event") == "retry_exhausted"), {})
+    failed = [(e["trace_id"], e["span_id"]) for e in ev2 if e.get("event") == "span"
+              and e.get("name") == "serve.dispatch" and e.get("error") == "RetryExhausted"]
+    path = RECORDER.last_dump_path
+    rows = export.read_trail(path) if path and os.path.exists(path) else []
+    first_diff = next((i for i, (a, b) in enumerate(zip(rows[1:], dump)) if a != b), None)
+    attr = timeline.attribute(events)
+    trace_path = os.path.join(run_dir, "serve_trace.json")
+    export.write_chrome_trace(events, trace_path)
+    with open(trace_path) as fh:
+        doc = json.load(fh)
+    os.remove(trace_path)
+    tracks = {e["args"]["name"] for e in doc["traceEvents"] if e.get("ph") == "M"}
+    gates = {
+        "plane_installed": all(plane_installed().values()),
+        "ops_scrapes_parse": not scr.errors and len(during) >= 2 and bool(after),
+        "ops_requests_completed_delta": scr.delta("serve_requests_completed") == completed,
+        "ops_request_seconds_count_delta": scr.delta("serve_request_seconds_count") == completed,
+        "ops_no_serve_cold_compile": cold == 0,
+        "ops_health_all_healthy": bool(states) and all(v == "healthy" for v in states.values()),
+        "ops_refused_after_stop": refused,
+        "recorder_dumped_retry_exhausted": trig.get("label") == "serve.dispatch"
+        and (trig.get("trace_id"), trig.get("span_id")) in failed,
+        "recorder_file_reads_back_equal": bool(rows) and rows[0].get("event") == "incarnation"
+        and rows[1:] == dump,
+        "timeline_serve_sums_to_wall": attr is not None
+        and abs(attr["sum_s"] - attr["wall_s"]) <= 1e-6 * attr["wall_s"],
+        "chrome_trace_valid": all(e.get("dur", 0) >= 0 for e in doc["traceEvents"])
+        and {"mosaic:queue_wait"} <= tracks,
+    }
+    return {
+        "scrapes": {"before": 1, "during_loop": len(during), "after": int(bool(after)),
+                    "errors": scr.errors[:3]},
+        "requests_completed": completed,
+        "requests_completed_delta": scr.delta("serve_requests_completed"),
+        "request_seconds_count_delta": scr.delta("serve_request_seconds_count"),
+        "serve_cold_compiles": cold, "health": states,
+        "recorder": {"auto_dumps": RECORDER.auto_dumps, "dump_events": len(dump),
+                     "trigger_seq": trig.get("seq"), "file": os.path.basename(path or ""),
+                     "file_rows": len(rows), "first_difference": first_diff},
+        "timeline_serve": None if attr is None else {
+            "wall_s": attr["wall_s"], "sum_s": attr["sum_s"],
+            "shares": {c: v["share"] for c, v in attr["classes"].items()}},
+        "chrome_trace": {"events": len(doc["traceEvents"]), "class_tracks": sorted(tracks)},
+        "gates": gates,
+    }
+
+
+def record_cost_us() -> dict:
+    """Host µs per ``telemetry.record`` with the ops plane's observers on the
+    spine and with them removed: interleaved rounds of ``OBS_PROBE_N``
+    calls, the best round of each, for an event no observer folds and for
+    ``serve_request`` (counted, observed into a histogram, and read by the
+    SLO and health monitors)."""
+    from mosaic_tpu_torch.runtime import telemetry
+
+    installed = list(telemetry._OBSERVERS)
+
+    def once(event):
+        t0 = time.perf_counter()
+        for _ in range(OBS_PROBE_N):
+            telemetry.record(event, seconds=0.001)
+        return (time.perf_counter() - t0) / OBS_PROBE_N * 1e6
+
+    out = {}
+    for event in ("obs_cost_probe", "serve_request"):
+        bare = on = float("inf")
+        try:
+            for _ in range(OBS_PROBE_ROUNDS):
+                for fn in installed:
+                    telemetry.remove_observer(fn)
+                bare = min(bare, once(event))
+                for fn in installed:
+                    telemetry.add_observer(fn)
+                on = min(on, once(event))
+        finally:
+            for fn in installed:
+                telemetry.add_observer(fn)
+        out[event] = {"installed_us": on, "removed_us": bare, "ratio": on / bare}
+    return out
+
+
+def obs_phase(obs_dir: str, serve_obs: dict):
+    """Phase 8m in the main process, after the serving process returned:
+    the tools over the durable stream's trail (this process) and 8d's
+    (the serving process). Returns the failure's exit code, or None."""
+    import contextlib
+    import io
+
+    from mosaic_tpu_torch.obs import export, timeline
+    from mosaic_tpu_torch.tools import doctor, fleet_report, perf_gate, stall_report
+    from mosaic_tpu_torch.tools import trace_report
+
+    t0 = time.perf_counter()
+    paths = {k: os.path.join(obs_dir, f"{k}.jsonl") for k in ("stream", "serve")}
+    if KEEP_TRAILS:
+        os.makedirs(KEEP_TRAILS, exist_ok=True)
+        for p in paths.values():
+            shutil.copy(p, KEEP_TRAILS)
+    trails = {k: export.read_trail(p) for k, p in paths.items()}
+    attr = timeline.attribute(trails["stream"])
+
+    def tool(mod, argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+            rc = mod.main(argv)
+        lines = out.getvalue().strip().splitlines()
+        return rc, json.loads(lines[-1]) if lines else None
+
+    merged, fleet = fleet_report.stitch(list(paths.values()))
+    walls = [e["ts_wall"] for e in merged if "ts_wall" in e]
+    diag = doctor.diagnose(list(paths.values()))
+    checks = {c["check"]: c for c in diag["checks"]}
+    pool_args = ["--trail", paths["stream"], "--trail", paths["serve"]]
+    verdict, red, top = None, (None, None), None
+    if os.path.exists(perf_gate.DEFAULT_GOLDEN):
+        rc, line = tool(perf_gate, pool_args)
+        verdict = {"exit": rc, "pass": (line or {}).get("pass"),
+                   "not_ok": {k: v for k, v in (line or {}).get("stages", {}).items()
+                              if not v["ok"]}}
+        with open(perf_gate.DEFAULT_GOLDEN) as fh:
+            golden = json.load(fh)["stages"]
+        fresh = perf_gate.merge_pools(perf_gate.stage_odds(t) for t in trails.values())
+        required = [k for k, g in golden.items() if g.get("require") and k in fresh]
+        top = max(required, key=lambda k: golden[k]["odds"], default=None)
+        if top is not None:
+            red = tool(perf_gate, pool_args + ["--inject-slowdown", f"{top}:10"])
+    stages = {k: dict(sorted(trace_report.stage_breakdown(t).items(),
+                             key=lambda kv: -kv[1]["total_s"])[:6])
+              for k, t in trails.items()}
+    stalls = {}
+    for k, t in trails.items():
+        rep = stall_report.build_report(t)
+        stalls[k] = None if rep is None else {
+            "window": rep["window"]["source"], "wall_s": rep["wall_s"],
+            "shares": {c: v["share"] for c, v in rep["classes"].items()},
+            "top_stall": rep["top_stall"], "sum_ok": rep["sum_ok"]}
+    tools_s = time.perf_counter() - t0
+    cost = record_cost_us()
+    gates = {
+        "plane_installed": all(plane_installed().values()),
+        "timeline_stream_sums_to_wall": attr is not None
+        and abs(attr["sum_s"] - attr["wall_s"]) <= 1e-6 * attr["wall_s"],
+        "fleet_two_incarnations_monotone": len(fleet["incarnations"]) == 2
+        and walls == sorted(walls),
+        "doctor_cold_compiles_green": checks["cold_compiles"]["status"] == "green",
+        "perf_gate_red_on_10x": red[0] == 1 and (red[1] or {}).get("pass") is False,
+    }
+    emit({
+        "phase": "observability", "trails": {k: len(t) for k, t in trails.items()},
+        "timeline_stream": None if attr is None else {
+            "window": attr["window"]["source"], "wall_s": attr["wall_s"],
+            "sum_s": attr["sum_s"],
+            "shares": {c: v["share"] for c, v in attr["classes"].items()}},
+        "fleet": {"incarnations": len(fleet["incarnations"]), "chain": fleet["chain"]},
+        "doctor": {k: {"status": c["status"], "findings": len(c["findings"])}
+                   for k, c in checks.items()},
+        "perf_gate_verdict": verdict, "perf_gate_injected": {
+            "stage": top, "exit": red[0], "pass": (red[1] or {}).get("pass")},
+        "trace_report_top_stages": stages, "stall_report": stalls,
+        "record_cost_us": cost,
+        "events_per_served_request": serve_obs.get("events_per_request"),
+        "serve_requests_per_s": serve_obs.get("requests_per_s"),
+        "tools_s": tools_s, "phase_s": time.perf_counter() - t0, "gates": gates,
+    })
+    shutil.rmtree(obs_dir, ignore_errors=True)
+    bad = [k for k, v in gates.items() if not v]
+    if bad:
+        return fail(f"observability gates failed: {bad}")
+    return None
+
+
 def serve_phases(ix, H3, dev, ix2, ix2_s, profile_root):
     """Phases 8d-8f, serving over phase 3's index; 8e swaps in ``ix2``,
     epoch 0 of phase 8k's epochal index, which the serving process built
@@ -1308,10 +1639,15 @@ def serve_phases(ix, H3, dev, ix2, ix2_s, profile_root):
     for b in eng.ladder.buckets:
         staged = eng.core.stage(rng.uniform(bbox[:2], bbox[2:], (b, 2)))
         syncs[b] = count_syncs(lambda: eng.core.probe_staged(*staged))[0]
+    # 8m: the ops server, scraped before, during and after the loop
+    scr = OpsScraper()
     K.pip_heavy_tiled.launches = 0
     timing = {}
     with telemetry.capture() as events, GcPauses() as gcp:
+        scr.during()
         answers, errors, wall = closed_loop(eng, reqs, timing)
+    t_loop = (timing["t0"], timing["t0"] + wall)
+    scr.finish()
     serve_launches = K.pip_heavy_tiled.launches
     outlier = latency_outlier(timing["lat"], timing["t_start"], timing["t0"],
                               [len(r) for r in reqs], events, gcp)
@@ -1451,6 +1787,24 @@ def serve_phases(ix, H3, dev, ix2, ix2_s, profile_root):
     if bad:
         eng.close()
         return f"serve_resilience gates failed: {bad}", None, None
+
+    # 8m in this process: the ops server's scrapes of 8d's loop, the
+    # flight recorder's dump of 8e's exhausted retries, the timeline and
+    # the Chrome trace of 8d's trail, which goes to the main process's tools
+    completed = sum(a is not None for a in answers)
+    obs_line = serve_obs_gates(scr, t_loop, completed, events, ev2,
+                               os.path.dirname(profile_root))
+    OBS_SERVE.update(events_per_request=len(events) / SERVE_REQUESTS,
+                     requests_per_s=SERVE_REQUESTS / wall)
+    emit({"phase": "observability_serve", "events": len(events), **OBS_SERVE, **obs_line})
+    from mosaic_tpu_torch.obs import write_jsonl
+
+    os.makedirs(os.path.join(HERE, OBS_DIR), exist_ok=True)
+    write_jsonl(events, os.path.join(HERE, OBS_DIR, "serve.jsonl"))
+    bad = [k for k, v in obs_line["gates"].items() if not v]
+    if bad:
+        eng.close()
+        return f"observability_serve gates failed: {bad}", None, None
 
     # 8e (cont.). hot_swap to 8l's stored profile: its ladder, its probe,
     # at the new index's resolution; each rung's capture and the memory
@@ -1652,7 +2006,8 @@ def serve_phases(ix, H3, dev, ix2, ix2_s, profile_root):
             eng_p.warmup()
             sub_wall = closed_loop(eng_p, sub)[2]
             b0 = eng_p.metrics()["batches"]
-            busy, rows, prof_ms = profile_device(lambda: closed_loop(eng_p, sub))
+            with telemetry.capture() as pev:
+                busy, rows, prof_ms = profile_device(lambda: closed_loop(eng_p, sub))
             prof_batches = eng_p.metrics()["batches"] - b0
         emit({
             "phase": "serve_profile", "requests": SERVE_PROFILED, "probe": "adaptive",
@@ -1660,6 +2015,7 @@ def serve_phases(ix, H3, dev, ix2, ix2_s, profile_root):
             "batches": prof_batches,
             "device_ops_per_batch": sum(c for _, _, c in rows) / max(prof_batches, 1),
             **idle_share(busy, rows, sub_wall * 1e3),
+            "timeline_shares": timeline_shares(pev),
             "kernels_profiled": kernel_times(rows),
             "top_device_ops": [{"op": k[:80], "ms": ms_, "calls": c}
                                for ms_, k, c in rows[:6]],
@@ -2352,6 +2708,8 @@ def serve_child(index_path: str, result_path: str) -> int:
     from mosaic_tpu_torch.datasets import NYC_BBOX
 
     dev = torch.device(DEVICE)
+    # 8m: the flight recorder dumps into this process's run directory
+    os.environ["MOSAIC_RECORDER_DIR"] = os.path.dirname(result_path)
     t0 = time.perf_counter()
     prep = serve_prep(index_path, dev, os.path.dirname(result_path))
     prep_s = time.perf_counter() - t0
@@ -2380,7 +2738,7 @@ def serve_child(index_path: str, result_path: str) -> int:
                 knn_profile()
     with open(result_path, "w") as fh:
         json.dump({"error": err, "in": LAST_PHASE, "launches": launches,
-                   "nvcc_builds": backend_compiles()}, fh)
+                   "nvcc_builds": backend_compiles(), "obs": OBS_SERVE}, fh)
     return 1 if err else 0
 
 
@@ -2445,6 +2803,8 @@ class ServeProcess:
 
 #: the serving process, stopped however main() ends
 SERVING = []
+#: 8d's events per served request and requests/s, for 8m's line
+OBS_SERVE = {}
 
 
 def serve_process(serving, ix, H3):
@@ -3379,6 +3739,7 @@ def main() -> int:
 
     # 8b. the durable stream at full width (the reference's stream bench:
     # a ring of 8 batches of 4M points, 25 batches, snapshots every 8)
+    from mosaic_tpu_torch.obs import write_jsonl
     from mosaic_tpu_torch.runtime import checkpoint as CK
     from mosaic_tpu_torch.sql import RasterStream
     from mosaic_tpu_torch.sql import stream as S
@@ -3428,6 +3789,9 @@ def main() -> int:
         d = os.path.join(runs_dir, name)
         with telemetry.capture() as ev:
             r = sj.run_durable(ring, STREAM_BATCHES, run_dir=d, snapshot_every=8, **kw)
+        if name == "sync":  # 8m's stream trail
+            os.makedirs(os.path.join(HERE, OBS_DIR), exist_ok=True)
+            write_jsonl(ev, os.path.join(HERE, OBS_DIR, "stream.jsonl"))
         snaps = [e["seconds"] for e in ev if e["event"] == "snapshot_saved"]
         # a fatal device loss after 2 segments, then resume
         dk = os.path.join(runs_dir, f"{name}_kill")
@@ -3487,7 +3851,8 @@ def main() -> int:
     peak, peak_src = S.hbm_peak(dev, fallback_arrays=[ring])
     # device busy time and idle share over 3 batches under the profiler
     warm3 = sj.run(ring, 3).wall_s
-    busy_s, rows_s, prof_s_ms = profile_device(lambda: sj.run(ring, 3))
+    with telemetry.capture() as sev:
+        busy_s, rows_s, prof_s_ms = profile_device(lambda: sj.run(ring, 3))
     stream_kernels = kernel_times(rows_s)
     stream_ok = {
         "overflow_zero": stream_run.overflow == 0,
@@ -3527,6 +3892,7 @@ def main() -> int:
         "hbm_peak_bytes": peak, "hbm_peak_source": peak_src,
         "profiled_batches": 3, "warm_wall_ms_3": warm3 * 1e3,
         "profiled_wall_ms": prof_s_ms, **idle_share(busy_s, rows_s, warm3 * 1e3),
+        "timeline_shares": timeline_shares(sev),
         "kernels_3_batches": stream_kernels,
         "top_device_ops": [{"op": k[:80], "ms": ms, "calls": c} for ms, k, c in rows_s[:6]],
         "gates": stream_ok,
@@ -3642,6 +4008,11 @@ def main() -> int:
         return served
     serve_launches = served["launches"]
 
+    # 8m. observability: the tools over both processes' trails
+    code = obs_phase(os.path.join(HERE, OBS_DIR), served.get("obs") or {})
+    if code is not None:
+        return code
+
     # 9. the kernels line; "crop_ms_per_launch" is a kernel's device time
     # per launch in the profiled crop call of the raster path named
     def crop_ms(path, name):
@@ -3751,10 +4122,13 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve-child"]:
         sys.exit(serve_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--keep-trails"]:
+        KEEP_TRAILS = os.path.abspath(sys.argv[2])
     try:
         code = main()
     finally:
         for p in SERVING:
             p.stop()
             shutil.rmtree(p.dir, ignore_errors=True)
+        shutil.rmtree(os.path.join(HERE, OBS_DIR), ignore_errors=True)
     sys.exit(code)

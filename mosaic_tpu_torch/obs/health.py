@@ -2,10 +2,8 @@
 over the telemetry spine.
 
 Port of ``mosaic_tpu/obs/health.py``, with its event names, scopes,
-thresholds and the ``obs.health{scope}`` gauge. What differs: the
-reference installs :data:`MONITOR` when ``mosaic_tpu.obs`` is imported;
-the port installs it when `serve/router.py` is imported (its only reader
-so far, the router's eviction order), and :func:`install` /
+thresholds and the ``obs.health{scope}`` gauge. :data:`MONITOR` is
+installed when ``mosaic_tpu_torch.obs`` is imported; :func:`install` /
 :func:`uninstall` stay the explicit switch.
 
 Metrics tell you HOW MUCH (shed count, retry count); the SLO monitor
@@ -42,10 +40,10 @@ updates the labeled gauge ``obs.health{scope}`` (value = state rank:
 health as a first-class series, and trails show exactly when a tenant
 went red.
 
-The monitor is ON whenever the router is imported: unlike SLO specs,
-the state machine carries no deployment policy — transitions are rare
-single events, and a process that sheds 60% of admissions IS unhealthy
-no matter the deployment. The :class:`ServeRouter` consumes
+The monitor is ON by default (installed at ``mosaic_tpu_torch.obs``
+import): unlike SLO specs, the state machine carries no deployment
+policy — transitions are rare single events, and a process that sheds
+60% of admissions IS unhealthy no matter the deployment. The :class:`ServeRouter` consumes
 :func:`tenant_state` in its eviction order: unhealthy-and-cold engines
 go first, so a bounded fleet sheds its sick tenants' residency before
 touching a healthy tenant's warm core.
@@ -304,7 +302,7 @@ class HealthMonitor:
             self._next_eval = float("-inf")
 
 
-#: the process-wide monitor, installed by ``serve/router.py`` at import
+#: the process-wide monitor, installed by ``mosaic_tpu_torch.obs.__init__``
 MONITOR = HealthMonitor()
 
 

@@ -34,9 +34,33 @@ _SEQ = itertools.count()
 _LOGGER = logging.getLogger("mosaic_tpu_torch.runtime")
 
 #: per-process incarnation id, minted once at import:
-#: ``<start-unix-seconds:8 hex>-<pid>-<random:6 hex>``; snapshot sidecars
-#: are stamped with it, so the process that wrote each one is known
+#: ``<start-unix-seconds:8 hex>-<pid>-<random:6 hex>``. Every JSONL trail,
+#: flight-recorder dump and snapshot sidecar is stamped with it, so
+#: ``tools/fleet_report.py`` can merge the trails of many processes into
+#: one timeline; the leading hex timestamp sorts incarnations of one host
+#: in start order and the random suffix disambiguates pid reuse
 INCARNATION = f"{int(time.time()):08x}-{os.getpid()}-{os.urandom(3).hex()}"
+
+
+def incarnation() -> str:
+    """This process's :data:`INCARNATION` id (stable for the process
+    lifetime; a relaunched process mints its own)."""
+    return INCARNATION
+
+
+def incarnation_event() -> dict:
+    """One ``event="incarnation"`` meta dict anchoring this process to
+    the wall clock: ``ts_mono`` and ``ts_epoch`` are sampled together, so
+    a fleet reader can place any of this trail's monotonic stamps on the
+    shared wall-clock axis (``ts_epoch + (e.ts_mono - ts_mono)``);
+    monotonic clocks of two processes are never comparable directly."""
+    return {
+        "event": "incarnation",
+        "incarnation": INCARNATION,
+        "pid": os.getpid(),
+        "ts_mono": round(time.monotonic(), 6),
+        "ts_epoch": round(time.time(), 6),
+    }
 
 #: registered by ``obs/trace.py`` — an object with ``ids() -> dict |
 #: None``, ``current() -> context | None`` and ``adopt(context) -> None``

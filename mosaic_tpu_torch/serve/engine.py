@@ -307,7 +307,10 @@ class ServeEngine:
         }
         if knn_stats is not None:
             out["knn"] = knn_stats
-        _telemetry.record("serve_warmup", **out)
+        # the event keys rungs by string, as JSON does: a trail written
+        # and read back equals the live event
+        _telemetry.record("serve_warmup", **dict(
+            out, rung_seconds={str(b): s for b, s in rungs.items()}))
         return out
 
     def hot_swap(

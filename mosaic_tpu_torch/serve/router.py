@@ -63,9 +63,6 @@ from .engine import ServeEngine
 #: budget
 DEFAULT_MAX_RESIDENT = 4
 
-# the router's eviction order reads the process health monitor
-_health.install()
-
 
 def resolve_max_resident(max_resident) -> int:
     """Host-side residency-bound resolution: explicit argument >

@@ -80,7 +80,20 @@ MODULES = [
     "mosaic_tpu_torch.sql.analyzer",
     "mosaic_tpu_torch.functions._coerce",
     "mosaic_tpu_torch.tools.card_priors",
+    "mosaic_tpu_torch.obs",
+    "mosaic_tpu_torch.obs.export",
+    "mosaic_tpu_torch.obs.recorder",
+    "mosaic_tpu_torch.obs.timeline",
+    "mosaic_tpu_torch.obs.ops_server",
+    "mosaic_tpu_torch.tools.trace_report",
+    "mosaic_tpu_torch.tools.stall_report",
+    "mosaic_tpu_torch.tools.perf_gate",
+    "mosaic_tpu_torch.tools.fleet_report",
+    "mosaic_tpu_torch.tools.doctor",
 ]
+
+#: the ops plane's command-line tools, run as ``python -m`` runs them
+OBS_TOOLS = ("trace_report", "stall_report", "perf_gate", "fleet_report", "doctor")
 
 
 def test_import_leaves_jax_and_reference_out():
@@ -148,6 +161,44 @@ def test_knn_modules_leave_jax_and_reference_out():
     code = (
         "import mosaic_tpu_torch.knn, mosaic_tpu_torch.models, sys; "
         "assert 'jax' not in sys.modules and 'mosaic_tpu' not in sys.modules"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=str(ROOT), timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_obs_tool_clis_leave_jax_and_reference_out(tmp_path):
+    """Each ops-plane tool, run as ``python -m mosaic_tpu_torch.tools.<name>``
+    runs it (``runpy``, ``__main__``) over a small trail, loads neither JAX
+    nor the reference."""
+    trail = tmp_path / "t.jsonl"
+    trail.write_text("".join(
+        f'{{"event": "stream_stage", "stage": "{("compile", "gen_loop")[i % 2]}", '
+        f'"seconds": 0.{i + 1}, '
+        f'"seq": {i}, "ts_mono": {i}.5}}\n' for i in range(4)))
+    argv = {
+        "trace_report": [str(trail)],
+        "stall_report": [str(trail)],
+        "perf_gate": ["--update", "--golden", str(tmp_path / "g.json"),
+                      "--trail", str(trail)],
+        "fleet_report": [str(trail)],
+        "doctor": [str(trail)],
+    }
+    code = (
+        "import runpy, sys\n"
+        f"argv = {argv!r}\n"
+        f"for tool in {OBS_TOOLS!r}:\n"
+        "    sys.argv = [tool] + argv[tool]\n"
+        "    try:\n"
+        "        runpy.run_module('mosaic_tpu_torch.tools.' + tool, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert not e.code, (tool, e.code)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'mosaic_tpu' or m.startswith('mosaic_tpu.')]\n"
+        "print(bad)\nsys.exit(1 if bad else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(

@@ -213,7 +213,9 @@ def test_call_with_retry_exhausts_typed():
             call_with_retry(always, policy=RetryPolicy(max_attempts=2, base_delay_s=0.0))
     assert ei.value.attempts == 2
     assert isinstance(ei.value.last, TransientDeviceError)
-    assert ev[-1]["event"] == "retry_exhausted"
+    # the flight recorder (on since obs is imported) dumps on the failure
+    assert [e["event"] for e in ev][-2:] == ["retry_exhausted", "recorder_dump"]
+    assert ev[-1]["trigger"] == "retry_exhausted"
 
 
 def test_call_with_retry_fallback_is_degraded():
@@ -477,7 +479,9 @@ def test_watchdog_raises_stalled():
             with pytest.raises(StalledDeviceError) as ei:
                 watchdog.guard("unit.stall", lambda: 1, default_s=0.05)
     assert ei.value.site == "unit.stall" and ei.value.deadline_s == 0.05
-    assert [e["event"] for e in ev] == ["fault_stall_injected", "watchdog_stall"]
+    assert [e["event"] for e in ev] == [
+        "fault_stall_injected", "watchdog_stall", "recorder_dump"]
+    assert ev[-1]["trigger"] == "watchdog_stall"
     _join_watchdog_workers("unit.stall")
 
 
