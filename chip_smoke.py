@@ -151,6 +151,30 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    ``profile_raster`` of the crop. Prints each profile, the
    recommendation and its rationale, and each step's seconds; the store
    goes to the serving process for 8e;
+8n. multi-device (``mosaic_tpu_torch/parallel``, ``mesh=``): a logical
+   mesh of ``MESH_SHARDS`` shards on the card (``devices=[card] * 4``;
+   the real cards where there are more than one) reusing phase 3's
+   index, the 4M batch, the crop and 8i's overlay squares. Gates, each
+   bit for bit: ``pip_join(mesh=, probe="adaptive")`` in
+   ``MESH_BATCH``-point chunks equals phase 6's adaptive and scatter
+   joins and launches ``pip_heavy_tiled`` once a shard a chunk, and
+   ``recheck=True`` raises ``ValueError``; ``dist_pip_join`` on a
+   ``(dp, cell)`` mesh with ``cell_axis=2`` equals phase 6 and its zone
+   counts equal the ``bincount`` of phase 6's match, with the hash table
+   sharded and replicated, and exhausted retries raise
+   ``RetryExhausted`` with no degradation; ``StreamJoin(mesh=)`` over 3
+   batches equals the single-device ``run``; ``ServeEngine(mesh=)``
+   after ``warmup()`` answers ``MESH_REQUESTS`` requests of 1-1,024 rows
+   as ``pip_join`` does, with no cold compile, no nvcc build, one graph
+   per (rung, shard), and none left after ``close()``;
+   ``ZonalEngine(mesh=)`` ``.zones`` in both lanes and ``.grid`` on the
+   crop equal the single-device calls; ``overlay_measures(mesh=)``
+   equals 8i's device lane. The serving process's 8j holds a meshed
+   ``KNNFrontend``'s 64-row ring dispatch against the single-device one.
+   Prints the meshed and single-device points/s of the join (a logical
+   mesh runs its shards one after another on one card: no scaling
+   figure), the sharded index's bytes a shard and after the gather, the
+   phase's launches and seconds, with the card's name and power limit;
 8d-8f, 8j and 8k run in a process of their own (``--serve-child``; its
    lines' ``t_s`` count from its own start, the parent passes them
    through), started right after phase 3: it loads phase 3's index from
@@ -394,6 +418,12 @@ OBS_DIR = ".chip_smoke_obs"  # 8m's two trails: the durable stream's and 8d's (r
 OBS_SCRAPE_S = 0.2          # the ops server's scrape period during 8d's loop
 OBS_PROBE_N = 10_000        # telemetry.record calls a round of the cost probe
 OBS_PROBE_ROUNDS = 5        # interleaved rounds, with and without the observers
+MESH_SHARDS = 4             # 8n's shards
+MESH_BATCH = 65_536         # 8n's pip_join chunk: the dispatch ladder's top rung
+MESH_STREAM = 1 << 20       # points of each of 8n's 3 stream batches
+MESH_REQUESTS = 200         # 8n's served requests, 1-1,024 rows each
+MESH_LADDER = (64, 1024)    # 8n's serving ladder
+MESH_SEED = 23
 #: where ``--keep-trails DIR`` copies 8m's trails (the card golden's input)
 KEEP_TRAILS = None
 
@@ -1001,6 +1031,8 @@ def expr_overlay_phases(ix, H3, dev, n_zones, counted, cuda_ms, runs_dir, fold_e
         "x_fold_equal": x_fold_equal, "x_fold_ms": x_fold_ms, "x_fold_err": x_fold_err,
         "o_fold_equal": o_fold_equal, "o_fold_ms": o_fold_ms,
         "o_segments": int(seen["k"]),
+        "overlay": {"left": left, "right": right, "grid": ogrid, "value": ovalue,
+                    "prep": prep, "single": odev},
     }
 
 
@@ -1222,6 +1254,218 @@ class GcPauses:
             by_gen[gen] = (c + 1, t + sec)
         return {"count_and_s_by_generation": {str(g): v for g, v in by_gen.items()},
                 "max_s": max((p[1] for p in self.pauses), default=0.0)}
+
+
+def mesh_devices(dev):
+    """8n's devices: the real cards where there are more than one (up to
+    ``MESH_SHARDS``), else ``MESH_SHARDS`` times the one card — a
+    logical mesh, whose shards run one after another."""
+    import torch
+
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [torch.device("cuda", i) for i in range(min(n, MESH_SHARDS))]
+    return [dev] * MESH_SHARDS
+
+
+def np_same(a, b) -> bool:
+    """Two arrays of one shape and dtype with the same bytes."""
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def mesh_phase(ix, H3, dev, n_zones, raw, cells, joined, scattered, crop,
+               engines, ov, counted, card):
+    """Phase 8n, multi-device. Returns (failure message or None, the
+    launches of the meshed calls by kernel)."""
+    import numpy as np
+    import torch
+
+    from mosaic_tpu_torch.dispatch import BucketLadder, backend_compiles, data_mesh
+    from mosaic_tpu_torch.parallel import dist_join as DJ
+    from mosaic_tpu_torch.raster import ZonalEngine
+    from mosaic_tpu_torch.runtime import RetryExhausted, faults, telemetry
+    from mosaic_tpu_torch.serve import ServeEngine
+    from mosaic_tpu_torch.sql import join as J
+    from mosaic_tpu_torch.sql import overlay as OV
+    from mosaic_tpu_torch.sql.stream import StreamJoin, ring_from_host
+
+    t_phase = time.perf_counter()
+    devices = mesh_devices(dev)
+    mesh = data_mesh(devices=devices)
+    shards = mesh.size
+    launches = {k: 0 for k in counted}
+
+    def meshed(call):
+        """A meshed call, its launches added to the phase's."""
+        for fn in counted.values():
+            fn.launches = 0
+        out_ = call()
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in counted.items()}
+        for k, v in got.items():
+            launches[k] += v
+        return out_, got
+
+    def timed(call):
+        t0 = time.perf_counter()
+        out_ = call()
+        torch.cuda.synchronize()
+        return out_, time.perf_counter() - t0
+
+    # pip_join(mesh=): the dispatch core's sharded lane, a chunk at a time
+    jkw = dict(chip_index=ix, probe="adaptive", batch_size=MESH_BATCH)
+    chunks = -(-raw.shape[0] // MESH_BATCH)
+    t0 = time.perf_counter()
+    mj, jl = meshed(lambda: J.pip_join(raw, None, H3, RES, mesh=mesh, **jkw))
+    join_cold_s = time.perf_counter() - t0
+    (_, mesh_s) = timed(lambda: J.pip_join(raw, None, H3, RES, mesh=mesh, **jkw))
+    (_, single_s) = timed(lambda: J.pip_join(raw, None, H3, RES, **jkw))
+    try:
+        J.pip_join(raw[:1000], None, H3, RES, chip_index=ix, mesh=mesh, recheck=True)
+        rejects_recheck = False
+    except ValueError:
+        rejects_recheck = True
+
+    # dist_pip_join on a (dp, cell) mesh: the index sharded over cell
+    dmesh = DJ.make_mesh(devices=devices, cell_axis=2 if shards % 2 == 0 else 1)
+    pc = cells.cpu().numpy()
+    T = int(ix.table_cell.shape[0])
+    with telemetry.capture() as dev_ev:
+        (dj, dl), djl = meshed(lambda: DJ.dist_pip_join(
+            raw, pc, ix, dmesh, n_zones, table_size=T, probe="adaptive"))
+    layout = [e for e in dev_ev if e["event"] == "dist_join_layout"][-1]
+    (dj_rep, dl_rep), _ = meshed(lambda: DJ.dist_pip_join(
+        raw, pc, ix, dmesh, n_zones, table_size=None, probe="adaptive"))
+    counts_want = np.bincount(joined[joined >= 0], minlength=n_zones)[:n_zones]
+    with telemetry.capture() as ex_ev, faults.transient_errors(
+            50, sites=("dist_join.step",)):
+        try:
+            DJ.dist_pip_join(raw, pc, ix, dmesh, n_zones, table_size=T, probe="adaptive")
+            dist_exhausted = False
+        except RetryExhausted:
+            dist_exhausted = True
+    ex_kinds = [e["event"] for e in ex_ev]
+
+    # StreamJoin(mesh=): 3 batches of a ring cut from the 4M batch
+    ring = ring_from_host(
+        [raw[i * MESH_STREAM:(i + 1) * MESH_STREAM] for i in range(3)], device=dev)
+    s_one = StreamJoin(ix, H3, RES, probe="adaptive").run(ring, 3, collect=True)
+    s_mesh, sl = meshed(lambda: StreamJoin(ix, H3, RES, probe="adaptive", mesh=mesh).run(
+        ring, 3, collect=True))
+    stream_equal = (
+        (s_mesh.checksum, s_mesh.matches, s_mesh.overflow)
+        == (s_one.checksum, s_one.matches, s_one.overflow)
+        and np_same(s_mesh.outs, s_one.outs)
+    )
+    del ring
+
+    # ServeEngine(mesh=): warm, serve, close
+    rng = np.random.default_rng(MESH_SEED)
+    sizes = rng.integers(1, 1025, MESH_REQUESTS)
+    bbox = (float(raw[:, 0].min()), float(raw[:, 1].min()),
+            float(raw[:, 0].max()), float(raw[:, 1].max()))
+    reqs = [rng.uniform(bbox[:2], bbox[2:], (int(n), 2)) for n in sizes]
+    want = np.split(J.pip_join(np.concatenate(reqs), None, H3, RES, chip_index=ix,
+                               probe="adaptive"), np.cumsum(sizes)[:-1])
+    b0 = backend_compiles()
+    ladder = BucketLadder(*MESH_LADDER)
+    eng = ServeEngine(ix, H3, RES, probe="adaptive", ladder=ladder, bounds=bbox,
+                      max_wait_s=0.0, mesh=mesh, default_deadline_s=30.0)
+    try:
+        (warm_info, warm_s) = timed(eng.warmup)
+        graphs = sorted(eng.core._graphs)
+        got, srv_l = meshed(lambda: [eng.join(r, deadline_s=30.0) for r in reqs])
+        (_, serve_s) = timed(lambda: [eng.join(r, deadline_s=30.0) for r in reqs])
+        m = eng.metrics()
+    finally:
+        core = eng.core
+        eng.close()
+    serve_nvcc = backend_compiles() - b0
+
+    # ZonalEngine(mesh=): both zones lanes and the grid on the crop
+    zonal_equal, zonal_l = {}, {}
+    stats_ = ("keys", "count", "sum", "min", "max")
+    for name in ("zones_tiled", "zones_fold", "grid"):
+        one = engines[name]
+        if name == "grid":
+            want_z = one.grid(crop)
+            got_z, zonal_l[name] = meshed(lambda: ZonalEngine(H3, RES, mesh=mesh).grid(crop))
+        else:
+            want_z = one.zones(crop)
+            got_z, zonal_l[name] = meshed(lambda: ZonalEngine(
+                H3, RES, chip_index=ix, lane=one.lane, mesh=mesh).zones(crop))
+        zonal_equal[name] = all(np_same(getattr(got_z, a), getattr(want_z, a))
+                                for a in stats_)
+
+    # overlay_measures(mesh=) on 8i's squares against 8i's device lane
+    om, ol = meshed(lambda: OV.overlay_measures(
+        ov["left"], ov["right"], ov["grid"], OVERLAY_RES, ov["value"],
+        prep=ov["prep"], mesh=mesh))
+    overlay_equal = om.lane == "device" and not om.degraded and all(
+        np_same(getattr(om, f), getattr(ov["single"], f))
+        for f in ("pairs", "value", "valid", "area", "sure"))
+
+    gates = {
+        "join_equal_adaptive": np_same(mj, joined),
+        "join_equal_scatter": np_same(mj, scattered),
+        "join_heavy_once_a_shard": jl["pip_heavy_tiled"] == chunks * shards,
+        "join_rejects_recheck": rejects_recheck,
+        "dist_join_equal": np_same(dj, joined),
+        "dist_join_counts_equal_bincount": np_same(dl, counts_want.astype(np.int64)),
+        "dist_join_heavy_once_a_shard": djl["pip_heavy_tiled"] == shards,
+        "dist_join_table_sharded": bool(layout["table_sharded"]),
+        "dist_join_replicated_table_equal": np_same(dj_rep, joined)
+        and np_same(dl_rep, dl),
+        "dist_join_exhaustion_raises_no_degradation": dist_exhausted
+        and "degraded" not in ex_kinds and "retry_exhausted" in ex_kinds,
+        "stream_equal": stream_equal,
+        "stream_launched_pip_heavy_tiled": sl["pip_heavy_tiled"] > 0,
+        "serve_equal_pip_join": all(np_same(g, w) for g, w in zip(got, want)),
+        "serve_no_cold_compile": m["cold_compiles"] == 0,
+        "serve_no_nvcc_build": serve_nvcc == 0,
+        "serve_one_graph_per_rung_and_shard": graphs == [
+            (b, i) for b in ladder.buckets for i in range(shards)],
+        "serve_close_frees_every_graph": core._graphs == {},
+        "serve_nothing_shed_or_degraded": m["shed"] == 0 and m["degraded"] == 0,
+        "zonal_equal": all(zonal_equal.values()),
+        "zonal_launched_kernels": zonal_l["zones_tiled"]["zonal_tiled"] > 0
+        and zonal_l["zones_fold"]["zonal_fold"] > 0
+        and zonal_l["zones_tiled"]["pip_heavy_tiled"] > 0,
+        "overlay_equal": overlay_equal,
+        "overlay_launched_zonal_seq_fold": ol["zonal_fold"] > 0,
+    }
+    emit({
+        "phase": "multi_device", "card": card, "shards": shards,
+        "devices": [str(d) for d in mesh.device_list],
+        "logical": len(mesh.distinct) < shards,
+        "join": {"points": int(raw.shape[0]), "batch_size": MESH_BATCH,
+                 "chunks": chunks, "cold_s": join_cold_s, "mesh_s": mesh_s,
+                 "single_s": single_s,
+                 "mesh_points_per_s": raw.shape[0] / mesh_s,
+                 "single_points_per_s": raw.shape[0] / single_s,
+                 "pip_heavy_tiled_launches": jl["pip_heavy_tiled"]},
+        "dist_join": {"mesh": dmesh.shape, "table_sharded": layout["table_sharded"],
+                      "index_bytes": DJ.index_nbytes(ix),
+                      "shard_bytes": layout["shard_bytes"],
+                      "gathered_bytes": layout["gathered_bytes"],
+                      "pip_heavy_tiled_launches": djl["pip_heavy_tiled"]},
+        "stream": {"batches": 3, "batch": MESH_STREAM, "launches": sl},
+        "serve": {"requests": MESH_REQUESTS, "ladder": list(MESH_LADDER),
+                  "warmup_s": warm_s, "signatures": warm_info["signatures"],
+                  "graphs": len(graphs), "loop_s": serve_s,
+                  "requests_per_s": MESH_REQUESTS / serve_s, "launches": srv_l},
+        "zonal": {"crop": [CROP, CROP], "equal": zonal_equal, "launches": zonal_l},
+        "overlay": {"pairs": int(om.pairs.shape[0]), "launches": ol},
+        "launches": launches, "phase_s": time.perf_counter() - t_phase,
+        "gates": gates,
+    })
+    bad = [g for g, v in gates.items() if not v]
+    if bad:
+        return f"multi_device gates failed: {bad}", launches
+    return None, launches
 
 
 def latency_outlier(lat, t_start, t0, rows, events, gcp) -> dict:
@@ -2128,6 +2372,14 @@ def knn_phase(ix, H3, dev, kx, build_s):
     t0 = time.perf_counter()
     out_cpu = KNNFrontend(kx_cpu, lane="ring").dispatch(q64, k)[0]
     cpu_s = time.perf_counter() - t0
+    # 8n in this process: a meshed frontend's ring dispatch (every pair
+    # batch sharded over the mesh) against the single-device one
+    from mosaic_tpu_torch.dispatch import data_mesh
+
+    kmesh = data_mesh(devices=mesh_devices(dev))
+    t0 = time.perf_counter()
+    out_mesh = KNNFrontend(kx, lane="ring", mesh=kmesh).dispatch(q64, k)[0]
+    mesh_s = time.perf_counter() - t0
     # transient faults retry to the same bits; exhaustion raises on the card
     q8 = q64[:8]
     with telemetry.capture() as ev1, faults.transient_errors(1, sites=("knn.distance",)):
@@ -2271,6 +2523,7 @@ def knn_phase(ix, H3, dev, kx, build_s):
         "lanes_equal_oracle": lanes_oracle,
         "voronoi_equal_ring": same(outs["voronoi"], outs["ring"]),
         "card_equal_cpu": same(outs["ring"], out_cpu),
+        "mesh_ring_equal_single": same(out_mesh, outs["ring"]),
         "spatial_knn_equal_cpu": model_equal,
         "transient_retried_same_bits": retries >= 1 and same(retried, outs["ring"][:8]),
         "exhaustion_raises_no_degradation": exhausted and "degraded" not in kinds2
@@ -2305,6 +2558,9 @@ def knn_phase(ix, H3, dev, kx, build_s):
                           for lane, v in lane_s.items()},
         "dispatch_64_rows_s": dispatch64_s, "stage_s_64_rows": stages,
         "cpu_frontend_s": cpu_s, "transient_retries": retries,
+        "mesh_ring": {"shards": kmesh.size,
+                      "devices": [str(d) for d in kmesh.device_list],
+                      "dispatch_64_rows_s": mesh_s},
         "spatial_knn": {"landmarks": KNN_LANDMARKS, "candidates": len(sub),
                         "iterations": rc.metrics["iterations"],
                         "card_s": model["card"][1], "cpu_s": model["cpu"][1]},
@@ -3998,6 +4254,12 @@ def main() -> int:
         return t_out
     tj, tz, k128 = t_out["join"], t_out["zones"], t_out["k128"]
 
+    # 8n. multi-device: the mesh lanes on a logical mesh of the card
+    why, mesh_launches = mesh_phase(ix, H3, dev, len(zones), raw, cells, out, base,
+                                    crop, engines, x_out["overlay"], counted, card)
+    if why:
+        return fail(why)
+
     # 8d-8f, 8j, 8k. serving, KNN and epochs in a process of its own, as a
     # server runs: the profiler the phases above attached to this process
     # slows every later eager op. The child, started after phase 3, loaded
@@ -4031,7 +4293,9 @@ def main() -> int:
          + serve_launches["serve"] + serve_launches["router"]
          + serve_launches["knn_serve"] + serve_launches["epochs"]
          + x_launches["pip_heavy_tiled"] + xs_launches["pip_heavy_tiled"]
-         + tj["pip_heavy_tiled"] + tz["pip_heavy_tiled"] + serve_launches["serve_tuned"],
+         + tj["pip_heavy_tiled"] + tz["pip_heavy_tiled"] + serve_launches["serve_tuned"]
+         + mesh_launches["pip_heavy_tiled"],
+         "launches_mesh": mesh_launches["pip_heavy_tiled"],
          "launches_tune_join": tj["pip_heavy_tiled"],
          "launches_tune_zones_128": tz["pip_heavy_tiled"],
          "launches_serve_tuned": serve_launches["serve_tuned"],
@@ -4062,7 +4326,9 @@ def main() -> int:
          "bound_ms": zone_bound, "bound_by": zone_by, "library_ms": None},
         {"name": "zonal_tiled", "route": "cuda", "source": zsrc,
          "replaces": "mosaic_tpu/kernels/zonal.py:196",
-         "launches": zl["zonal_tiled"] + rs_launches["zonal_tiled"] + tz["zonal_tiled"],
+         "launches": zl["zonal_tiled"] + rs_launches["zonal_tiled"] + tz["zonal_tiled"]
+         + mesh_launches["zonal_tiled"],
+         "launches_mesh": mesh_launches["zonal_tiled"],
          "launches_raster_zones_tiled": zl["zonal_tiled"],
          "launches_tune_zones_128": tz["zonal_tiled"],
          "match_128": k128["match"], "max_abs_err_128": k128["max_abs_err"],
@@ -4086,7 +4352,8 @@ def main() -> int:
          "launches": launches["zones_fold"]["zonal_fold"]
          + rs_fold_launches["zonal_fold"] + x_launches["zonal_fold"]
          + xg_launches["zonal_fold"] + xs_launches["zonal_fold"]
-         + o_launches["zonal_fold"],
+         + o_launches["zonal_fold"] + mesh_launches["zonal_fold"],
+         "launches_mesh": mesh_launches["zonal_fold"],
          "launches_expr": x_launches["zonal_fold"],
          "launches_expr_grid": xg_launches["zonal_fold"],
          "launches_expr_scan": xs_launches["zonal_fold"],

@@ -1,10 +1,11 @@
 """Spatial predicates over device geometry columns (torch).
 
 Port of the part of ``mosaic_tpu/core/geometry/predicates.py`` that the
-distance of two geometries reaches: the even-odd crossing test, the
-type-aware boundary edges, segment intersection and the three-term
-minimum boundary distance. The other device predicates are ROADMAP
-queue 1 item 14.
+distance of two geometries and the overlay's sharded predicate reach:
+the even-odd crossing test, the type-aware boundary edges, segment
+intersection, the three-term minimum boundary distance and
+:func:`intersects`. The other device predicates are ROADMAP queue 1
+item 14.
 
 Every function here takes geometries whose tensors may carry a leading
 batch prefix (``verts`` of shape ``(*P, G, R, V, 2)``, the other fields
@@ -225,3 +226,25 @@ def min_distance(ga, gb) -> torch.Tensor:
     d2 = torch.minimum(torch.minimum(amin(d_ab), amin(d_ba)), amin(dv))
     crossed = edges_intersect(ga, gb)
     return torch.where(crossed, torch.zeros_like(d2), _sqrt(d2))
+
+
+def intersects(ga, gb) -> torch.Tensor:
+    """(*P, Ga, Gb) bool polygon/polygon intersects: edges cross, or any
+    real vertex of one lies inside the other (covers containment, and
+    multi-part geometries whose non-first part is the nested one)."""
+    cross = edges_intersect(ga, gb)
+    va, vam = _flat(ga.verts, 1), _flat(vert_mask(ga), 0)  # (*P, A, V, 2)
+    vb, vbm = _flat(gb.verts, 1), _flat(vert_mask(gb), 0)
+
+    def any_in(pts, pm, polys):
+        # (*P, N, V, 2), (*P, N, V) against polys (*P, M) -> (*P, N, M)
+        lead = pts.shape[:-3]
+        n = pts.shape[-3]
+        inside = contains_xy(pts.reshape(*lead, -1, 2), polys)  # (*P, N*V, M)
+        inside = inside.reshape(*lead, n, -1, inside.shape[-1])
+        return (inside & pm[..., None]).any(dim=-2)
+
+    a_in_b = any_in(va, vam, gb)  # (*P, Ga, Gb)
+    b_in_a = any_in(vb, vbm, ga).transpose(-1, -2)  # (*P, Ga, Gb)
+    nonempty = vam.any(dim=-1)[..., :, None] & vbm.any(dim=-1)[..., None, :]
+    return (cross | a_in_b | b_in_a) & nonempty

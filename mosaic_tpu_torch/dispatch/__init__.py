@@ -6,8 +6,10 @@ signature (`bucket.py`), the registry of bounded caches, ``guarded_call``
 through), :class:`DispatchCore` with warmup and freeze, the resident-core
 cache :func:`core_for` (`core.py`), the pipelined execution core of the
 durable stream and raster scan (`pipeline.py`), and what stands in for
-the reference's program store (`programs.py`). The mesh lanes are ROADMAP
-queue 1 item 12; the program store is not ported (`programs.py`).
+the reference's program store (`programs.py`). The data-parallel
+placement (`data_mesh`, `resolve_mesh`, `sharded_pointwise`) lives in
+`core.py` over `parallel.mesh`; the program store is not ported
+(`programs.py`).
 """
 
 from .bucket import (
@@ -26,9 +28,13 @@ from .core import (
     cells_prog,
     clear_caches,
     core_for,
+    data_mesh,
     guarded_call,
     join_cache_view,
     register_cache,
+    resolve_mesh,
+    sharded_join_prog,
+    sharded_pointwise,
     stream_programs,
 )
 from .pipeline import (
@@ -55,13 +61,17 @@ __all__ = [
     "cells_prog",
     "clear_caches",
     "core_for",
+    "data_mesh",
     "dispatch_signature",
     "execute_pipeline",
     "guarded_call",
     "join_cache_view",
     "mesh_key",
     "register_cache",
+    "resolve_mesh",
     "resolve_program_store",
     "resolve_window",
+    "sharded_join_prog",
+    "sharded_pointwise",
     "stream_programs",
 ]

@@ -89,15 +89,13 @@ class BucketLadder:
         return out, n
 
 
-def mesh_key(mesh) -> None:
-    """Cache-key identity of a placement. Only single-device dispatch
-    (``None``) is ported; a mesh is ROADMAP queue 1 item 12."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh placement is not ported yet (ROADMAP queue 1, item 12: "
-            "the multi-device lanes)"
-        )
-    return None
+def mesh_key(mesh) -> "tuple | None":
+    """Deterministic identity of a placement for cache keys: axis names,
+    axis sizes and the device strings in shard order. ``None`` stays
+    ``None`` (single-device dispatch)."""
+    if mesh is None:
+        return None
+    return mesh.key()
 
 
 def dispatch_signature(

@@ -1,7 +1,8 @@
 """The dispatch core: one bucketed, warmed, guarded execution path over
-a resident index, and the registry of every bounded cache.
+a resident index, its data-parallel placement, and the registry of every
+bounded cache.
 
-Port of ``mosaic_tpu/dispatch/core.py`` without its mesh and XLA parts:
+Port of ``mosaic_tpu/dispatch/core.py`` without its XLA parts:
 
 - **Resilience**: :func:`guarded_call` composes the watchdog deadline,
   transient retry and degradation. Frontends name their fault site and
@@ -11,15 +12,20 @@ Port of ``mosaic_tpu/dispatch/core.py`` without its mesh and XLA parts:
   :func:`cache_view` / :func:`clear_caches` (events
   ``dispatch_cache_stats`` and ``dispatch_caches_cleared``). The port
   has no jit, so the cached values are callables: :func:`cells_prog`
-  (cell assignment per system, resolution and variant) and
+  (cell assignment per system, resolution and variant),
   :func:`stream_programs` (the `StreamJoin` function bundle per static
-  spec, shared by every stream of that spec).
+  spec, shared by every stream of that spec) and
+  :func:`sharded_join_prog` (the data-parallel probe per mesh and caps).
+- **Placement**: :func:`data_mesh`, :func:`resolve_mesh` (``mesh=`` and
+  the ``MOSAIC_MESH`` knob) and :func:`sharded_pointwise`, the
+  data-parallel lane: points sharded over a `parallel.mesh.Mesh`, the
+  index replicated, so every per-point result is the single-device one.
 - :class:`DispatchCore` binds them to one resident index: full-bucket
-  caps, the signature set with ``freeze()`` and ``cold_compiles``,
-  :meth:`~DispatchCore.warmup` running every ladder rung, and the
-  guarded execute path. `ServeEngine` delegates to it; :func:`core_for`
-  keeps a bounded, occupancy-aware set of resident cores
-  (``batch_cores``).
+  caps (per shard under a mesh), the signature set with ``freeze()`` and
+  ``cold_compiles``, :meth:`~DispatchCore.warmup` running every ladder
+  rung, and the guarded execute path. `ServeEngine` delegates to it;
+  :func:`core_for` keeps a bounded, occupancy-aware set of resident
+  cores (``batch_cores``).
 
 What differs from the reference, and why:
 
@@ -41,12 +47,22 @@ What differs from the reference, and why:
 - on the card a dispatch replays its rung's probe as a CUDA graph
   captured at the rung's first dispatch (warmup), so its host time is a
   few calls, not the ~930 eager ops that each hand the GIL over
-  (`DispatchCore._graph_run`); on the CPU it runs the eager ops;
-- dispatches on one device take one lock (`_device_lock`): engines on
-  one card (the router's tenants) run their dispatches one after
-  another instead of interleaving their eager ops under the GIL;
-- ``mesh=`` raises ``NotImplementedError`` (ROADMAP queue 1 item 12)
-  and ``program_store=`` too (`dispatch/programs.py`).
+  (`DispatchCore._graph_run`); under a mesh each shard has its own graph
+  per rung, captured on its shard's device. On the CPU it runs the eager
+  ops;
+- dispatches take the lock of each distinct device they run on, once, in
+  one order (`_device_locks`): engines on one card (the router's
+  tenants) run their dispatches one after another instead of
+  interleaving their eager ops under the GIL, a logical mesh that lists
+  one device several times takes its lock once, and two meshes listing
+  the same devices in another order cannot deadlock on each other;
+- a mesh is the port's single-controller `parallel.mesh.Mesh` of torch
+  devices; its device list may repeat a device (a logical mesh), while
+  :func:`data_mesh` over the platform's devices refuses more than there
+  are, as the reference's does;
+- ``program_store=`` raises ``NotImplementedError`` (`dispatch/programs.py`);
+  the reference's "meshed core refuses the store" event has nothing to
+  refuse.
 """
 
 from __future__ import annotations
@@ -54,6 +70,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import os
 import threading
 
 import numpy as np
@@ -62,6 +79,7 @@ import torch
 from .. import FLOAT
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
+from ..parallel import mesh as _mesh
 from ..runtime import telemetry as _telemetry, watchdog as _watchdog
 from ..runtime.retry import call_with_retry
 from .bucket import BucketLadder, backend_compiles, dispatch_signature, mesh_key
@@ -75,9 +93,13 @@ __all__ = [
     "cells_prog",
     "clear_caches",
     "core_for",
+    "data_mesh",
     "guarded_call",
     "join_cache_view",
     "register_cache",
+    "resolve_mesh",
+    "sharded_join_prog",
+    "sharded_pointwise",
     "stream_programs",
 ]
 
@@ -254,43 +276,177 @@ def stream_programs(
     probe,
     convex_cap,
     prefetch,
+    mesh=None,
 ):
     """The `StreamJoin` function bundle per static spec: two StreamJoins
-    over the same (system, resolution, caps, lanes) share one bundle."""
+    over the same (system, resolution, caps, lanes, placement) share one
+    bundle."""
     from ..sql import stream as m
 
     return m.build_stream_programs(
         index_system, resolution, dtype=dtype, cell_dtype=cell_dtype,
         found_cap=found_cap, heavy_cap=heavy_cap, lookup=lookup,
         compaction=compaction, probe=probe, convex_cap=convex_cap,
-        prefetch=prefetch,
+        prefetch=prefetch, mesh=mesh,
     )
 
 
-#: one dispatch at a time per device (`_device_lock`)
+#: one dispatch at a time per device (`_device_locks`)
 _DEVICE_LOCKS: dict = {}
 _DEVICE_LOCKS_GUARD = threading.Lock()
 
 
-def _device_lock(dev: torch.device) -> threading.Lock:
-    """The lock that serializes :meth:`DispatchCore.execute_padded` on
-    ``dev``. A dispatch is several hundred eager ops and each releases and
-    retakes the GIL, so engines interleaving their dispatches op by op
-    (one batcher thread per engine, several tenants on one card) hand the
-    GIL to each other at every op, while the card runs their work one
+def _device_lock(dev) -> threading.Lock:
+    """The lock that serializes dispatches on ``dev`` (a device or its
+    string). A dispatch is several hundred eager ops and each releases
+    and retakes the GIL, so engines interleaving their dispatches op by
+    op (one batcher thread per engine, several tenants on one card) hand
+    the GIL to each other at every op, while the card runs their work one
     stream at a time anyway: taken whole, each dispatch runs at its own
     speed."""
     with _DEVICE_LOCKS_GUARD:
         return _DEVICE_LOCKS.setdefault(str(dev), threading.Lock())
 
 
-def _device_scope(dev: torch.device):
-    """Make ``dev`` current for the block on a CUDA device: a batcher or
-    watchdog thread never relies on the current device of a thread the
-    caller did not create."""
-    if dev.type == "cuda":
-        return torch.cuda.device(dev)
-    return contextlib.nullcontext()
+@contextlib.contextmanager
+def _device_locks(devices):
+    """Hold the lock of every distinct device in ``devices`` for the
+    block: each taken once (a logical mesh lists one device several
+    times; a plain lock taken twice by one thread would deadlock), in one
+    fixed order, by device string (two meshes listing the same devices in
+    another order take them in the same order, so they cannot deadlock
+    on each other)."""
+    locks = [_device_lock(d) for d in sorted({str(d) for d in devices})]
+    taken = []
+    try:
+        for lock in locks:
+            lock.acquire()
+            taken.append(lock)
+        yield
+    finally:
+        for lock in reversed(taken):
+            lock.release()
+
+
+#: make a device current for a block on a CUDA device: a batcher or
+#: watchdog thread never relies on the current device of a thread the
+#: caller did not create
+_device_scope = _mesh.device_scope
+
+
+# -------------------------------------------------------------- placement
+
+def data_mesh(n_devices: int | None = None, devices=None, device=None):
+    """A 1-D ``("dp",)`` data-parallel mesh over the first ``n_devices``
+    of ``devices`` (default: the platform's real devices of ``device``'s
+    kind, the card unless ``device="cpu"``; all of them when
+    ``n_devices`` is None) — the placement of the sharded dispatch lane:
+    points sharded over ``dp``, the index replicated. Asking for more
+    devices than the list holds raises ``ValueError``; a logical mesh
+    repeats a device in ``devices`` (``[dev] * n``)."""
+    if devices is None:
+        from .. import resolve_device
+
+        devs = _mesh.platform_devices(resolve_device(device).type)
+    else:
+        devs = list(devices)
+    n = len(devs) if n_devices is None else int(n_devices)
+    if n < 1 or n > len(devs):
+        raise ValueError(
+            f"mesh wants {n} devices but the platform exposes {len(devs)}"
+        )
+    return _mesh.Mesh(devs[:n], ("dp",))
+
+
+def resolve_mesh(mesh, device=None):
+    """Normalize a frontend ``mesh=`` argument once, on the host:
+
+    - ``None`` → the ``MOSAIC_MESH`` knob (``"4"`` or ``"dp4"`` → a
+      4-device data mesh; unset, empty or at most 1 → single-device
+      dispatch; anything else raises ``ValueError``);
+    - an int → :func:`data_mesh` over that many devices (None at 1 or
+      less);
+    - a `parallel.mesh.Mesh` → used as it is.
+
+    ``device`` is the frontend's device: an int or the knob takes real
+    devices of its kind, and a mesh of another kind is refused (no shard
+    of a dispatch on the card runs on the CPU)."""
+    if mesh is None:
+        raw = os.environ.get("MOSAIC_MESH", "").strip().lower()
+        if not raw:
+            return None
+        if raw.startswith("dp"):
+            raw = raw[2:]
+        try:
+            n = int(raw)
+        except ValueError:
+            raise ValueError(
+                f"MOSAIC_MESH={raw!r}: expected a device count like '4' "
+                "or 'dp4'"
+            ) from None
+        if n <= 1:
+            return None
+        return data_mesh(n, device=device)
+    if isinstance(mesh, int):
+        return data_mesh(mesh, device=device) if mesh > 1 else None
+    if not isinstance(mesh, _mesh.Mesh):
+        raise TypeError(
+            f"mesh= takes a device count or a parallel.mesh.Mesh, got "
+            f"{type(mesh).__name__}"
+        )
+    if device is not None and mesh.type != torch.device(device).type:
+        raise ValueError(
+            f"a mesh of {mesh.type} devices cannot serve a frontend on "
+            f"{torch.device(device)}"
+        )
+    return mesh
+
+
+def sharded_pointwise(fn, mesh):
+    """``fn(points, cells, index) -> out`` (a tensor or a tuple) run data
+    parallel: points and cells sharded over every axis of ``mesh``, the
+    index replicated (placed once per distinct device; pass a
+    `parallel.mesh.Placed` to reuse a placement), each output's axis 0
+    concatenated back in shard order. Every per-point result depends only
+    on that point and the replicated index, so the sharded call equals
+    the single-device call bit for bit."""
+
+    def run(points, cells, index):
+        return _mesh.run_sharded(
+            fn, mesh, sharded=(points, cells), replicated=(index,)
+        )
+
+    return run
+
+
+@bounded_cache("sharded_join", 32)
+def sharded_join_prog(
+    mesh,
+    *,
+    writeback: str,
+    lookup: str,
+    probe: str,
+    found_cap,
+    heavy_cap,
+    convex_cap,
+):
+    """The sharded exact probe per (mesh, static arguments): ``(shifted,
+    cells, index) -> rows``, the single-device probe's multi-device twin.
+    Caps are PER SHARD (full per-shard rows under the ladder), so overflow
+    stays structurally impossible at any device count; under
+    ``probe="adaptive"`` on the card each shard launches
+    ``pip_heavy_tiled`` once."""
+    m = _join_mod()
+
+    def step(shifted, cells, index):
+        return m.pip_join_points(
+            shifted, cells, index,
+            heavy_cap=heavy_cap, found_cap=found_cap,
+            writeback=writeback, lookup=lookup,
+            probe=probe, convex_cap=convex_cap,
+        )
+
+    return sharded_pointwise(step, mesh)
 
 
 # ---------------------------------------------------------- DispatchCore
@@ -302,7 +458,10 @@ class DispatchCore:
     Owns the pad-to-bucket ladder, full-bucket caps, the signature set
     with cold-compile accounting, :meth:`warmup` running every rung, and
     the guarded execute path (watchdog + retry, and on the CPU the f64
-    host-oracle degradation). Runs on the index's device.
+    host-oracle degradation). Runs on the index's device; with ``mesh``
+    (a device count, a `parallel.mesh.Mesh`, or None for the
+    ``MOSAIC_MESH`` knob) each dispatch runs data parallel over the mesh
+    with the index replicated, bit for bit the single-device answer.
     """
 
     def __init__(
@@ -320,7 +479,6 @@ class DispatchCore:
         on_cold_compile=None,
         program_store=None,
     ):
-        mesh_key(mesh)
         resolve_program_store(program_store)
         m = _join_mod()
         self.index = index
@@ -337,9 +495,23 @@ class DispatchCore:
             )
         self.cell_dtype = cell_dtype
         self._cdt = FLOAT if cell_dtype is None else m._as_torch_dtype(cell_dtype)
-        self.mesh = None
         self.lookup = lookup or "gather"
         self.device = index.device
+        self.mesh = resolve_mesh(mesh, device=self.device)
+        #: the index once per distinct device of the mesh; the devices a
+        #: dispatch locks; where it stages its points
+        self._placed = None
+        self._lock_devices = [self.device]
+        self._stage_device = self.device
+        if self.mesh is not None:
+            if self.ladder.min_bucket % self.mesh.size:
+                raise ValueError(
+                    f"min_bucket {self.ladder.min_bucket} must divide evenly "
+                    f"over the {self.mesh.size}-device mesh"
+                )
+            self._placed = _mesh.replicas(index, self.mesh)
+            self._lock_devices = self.mesh.distinct
+            self._stage_device = self.mesh.first
         self._dtype = index.border.verts.dtype
         self._np_dtype = np.dtype(str(self._dtype).removeprefix("torch."))
         self._host = getattr(index, "host", None)
@@ -352,7 +524,8 @@ class DispatchCore:
         self._warmed: frozenset | None = None
         self._cold_compiles = 0
         self._on_cold_compile = on_cold_compile
-        #: bucket -> the rung's captured probe (CUDA only, `_graph_run`)
+        #: the rungs' captured probes (CUDA only, `_graph_run`): keyed by
+        #: bucket, or by (bucket, shard) under a mesh
         self._graphs: dict = {}
 
     # ------------------------------------------------------- accounting
@@ -370,12 +543,18 @@ class DispatchCore:
         return self._warmed is not None
 
     def caps(self, bucket: int):
-        """Full-bucket caps, so tier overflow is structurally impossible
-        and the static-argument set per bucket never changes."""
-        fcap = None if self.writeback == "direct" else bucket
-        hcap = bucket if self.index.num_heavy_cells else None
+        """Full-bucket caps — PER SHARD under a mesh — so tier overflow
+        is structurally impossible and the static-argument set per bucket
+        never changes."""
+        return self._caps_rows(
+            bucket if self.mesh is None else bucket // self.mesh.size
+        )
+
+    def _caps_rows(self, rows: int):
+        fcap = None if self.writeback == "direct" else rows
+        hcap = rows if self.index.num_heavy_cells else None
         ccap = (
-            bucket
+            rows
             if self.probe != "scatter" and self.index.num_convex_cells
             else None
         )
@@ -386,7 +565,7 @@ class DispatchCore:
         return dispatch_signature(
             bucket, self.index, writeback=self.writeback,
             lookup=self.lookup, found_cap=fcap, heavy_cap=hcap,
-            probe=self.probe, convex_cap=ccap,
+            probe=self.probe, convex_cap=ccap, mesh=self.mesh,
         )
 
     def freeze(self) -> None:
@@ -413,23 +592,38 @@ class DispatchCore:
             "dispatch.transfer.h2d", nbytes=int(padded.nbytes), bucket=bucket,
         ):
             pts = torch.from_numpy(np.ascontiguousarray(padded))
-            pts = pts.to(self.device).to(self._cdt)
+            pts = pts.to(self._stage_device).to(self._cdt)
         with _trace.span(
             "dispatch.transfer.h2d", nbytes=int(padded.nbytes),
             bucket=bucket, shifted=True,
         ):
             shifted = torch.from_numpy(
                 np.asarray(padded - self._shift, dtype=self._np_dtype)
-            ).to(self.device)
+            ).to(self._stage_device)
         return pts, shifted
 
     def probe_staged(self, pts: torch.Tensor, shifted: torch.Tensor):
         """Cells and the probe of one staged bucket, on the device: the
-        (B,) int32 rows, not read back."""
+        (B,) int32 rows, not read back. Under a mesh the probe runs once
+        a shard (`sharded_join_prog`), its rows concatenated on the
+        mesh's first device."""
+        if self.mesh is None:
+            return self._shard_probe(pts, shifted, self.index)
         fcap, hcap, ccap = self.caps(pts.shape[0])
         cells = cells_prog(self.index_system, self.resolution, "cells")(pts)
+        prog = sharded_join_prog(
+            self.mesh, writeback=self.writeback, lookup=self.lookup,
+            probe=self.probe, found_cap=fcap, heavy_cap=hcap, convex_cap=ccap,
+        )
+        return prog(shifted, cells, self._placed)
+
+    def _shard_probe(self, pts, shifted, index):
+        """Cells and the probe of one shard's rows (all of a bucket's
+        without a mesh) against ``index``, at caps of the shard's rows."""
+        fcap, hcap, ccap = self._caps_rows(pts.shape[0])
+        cells = cells_prog(self.index_system, self.resolution, "cells")(pts)
         return _join_mod().pip_join_points(
-            shifted, cells, self.index,
+            shifted, cells, index,
             heavy_cap=hcap, found_cap=fcap, writeback=self.writeback,
             lookup=self.lookup, probe=self.probe, convex_cap=ccap,
         )
@@ -438,6 +632,11 @@ class DispatchCore:
         """One exact device join of a full-bucket batch (the unit warmup
         runs and dispatch replays); the (B,) int32 rows on the host."""
         bucket = padded.shape[0]
+        if self.mesh is not None and bucket % self.mesh.size:
+            raise ValueError(
+                f"bucket {bucket} does not divide over the "
+                f"{self.mesh.size}-device mesh"
+            )
         sig = self.signature(bucket)
         new_sig = sig not in self._signatures
         if new_sig:
@@ -461,7 +660,9 @@ class DispatchCore:
                 signatures=len(self._signatures),
             )
         try:
-            with _device_lock(self.device), _device_scope(self.device):
+            with _device_locks(self._lock_devices), _device_scope(
+                self._stage_device
+            ):
                 if self.device.type == "cuda":
                     out = self._graph_run(padded)
                 else:
@@ -477,62 +678,84 @@ class DispatchCore:
                 comp_span.end()
 
     def _graph_run(self, padded: np.ndarray) -> torch.Tensor:
-        """One bucket's probe on the card as a CUDA graph replay: the
+        """One bucket's probe on the card as CUDA graph replays: the
         rung's first dispatch runs the probe's eager ops and captures them
         into a graph on its staged tensors; later dispatches copy their
         staged points into those tensors and replay it. A dispatch is then
         a handful of host calls instead of several hundred eager ops, each
         of which hands the GIL over (the serving path's bound, PERF.md
         §5). The probe makes no host sync at full-bucket caps, so its
-        graph is its eager run, bit for bit. The kernel wrappers record
-        the launches they capture, and each replay counts them
-        (`kernels._build.captured_launches`)."""
+        graph is its eager run, bit for bit. Under a mesh each shard has
+        its own graph per rung, captured on its shard's device, and the
+        shards' rows are concatenated on the mesh's first device. The
+        kernel wrappers record the launches they capture, and each replay
+        counts them (`kernels._build.captured_launches`)."""
+        bucket = padded.shape[0]
+        pts, shifted = self.stage(padded)
+        if self.mesh is None:
+            return self._graph_shard(bucket, self.device, pts, shifted, self.index)
+        pp = _mesh.shard(pts, self.mesh)
+        ss = _mesh.shard(shifted, self.mesh)
+        outs = [
+            self._graph_shard(
+                (bucket, i), dev, pp[i], ss[i], self._placed[str(dev)]
+            )
+            for i, dev in enumerate(self.mesh.device_list)
+        ]
+        return torch.cat([o.to(self._stage_device) for o in outs])
+
+    def _graph_shard(self, key, dev, pts, shifted, index) -> torch.Tensor:
+        """The probe of one shard's staged rows on ``dev``: a replay of
+        the graph under ``key``, or the eager run that answers the first
+        dispatch followed by the capture."""
         from ..kernels import _build
 
-        bucket = padded.shape[0]
-        g = self._graphs.get(bucket)
-        if g is not None:
-            pts, shifted = self.stage(padded)
-            g["pts"].copy_(pts)
-            g["shifted"].copy_(shifted)
-            g["graph"].replay()
-            _build.count_replay(g["launches"])
-            return g["out"]
-        pts, shifted = self.stage(padded)
-        # the eager run answers this dispatch and makes every lazy
-        # initialisation (device constant tables, the kernel library, the
-        # allocator's blocks) before the capture
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            out = self.probe_staged(pts, shifted)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # no garbage collection during the capture: a collected core's
-        # graphs free their memory pools (cudaFree), which would
-        # invalidate it (`torch.cuda.graph` collects once before it)
-        gc_was_enabled = gc.isenabled()
-        gc.disable()
-        try:
-            with _build.captured_launches() as launches, torch.cuda.graph(
-                graph, capture_error_mode="thread_local"
-            ):
-                gout = self.probe_staged(pts, shifted)
-        finally:
-            if gc_was_enabled:
-                gc.enable()
-        self._graphs[bucket] = {
-            "graph": graph, "pts": pts, "shifted": shifted, "out": gout,
-            "launches": launches,
-        }
-        return out
+        with _device_scope(dev):
+            g = self._graphs.get(key)
+            if g is not None:
+                g["pts"].copy_(pts)
+                g["shifted"].copy_(shifted)
+                g["graph"].replay()
+                _build.count_replay(g["launches"])
+                return g["out"]
+            # the graph's own static inputs (a shard is a view of the
+            # staged bucket)
+            pts, shifted = pts.clone(), shifted.clone()
+            # the eager run answers this dispatch and makes every lazy
+            # initialisation (device constant tables, the kernel library,
+            # the allocator's blocks) before the capture
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                out = self._shard_probe(pts, shifted, index)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            # no garbage collection during the capture: a collected core's
+            # graphs free their memory pools (cudaFree), which would
+            # invalidate it (`torch.cuda.graph` collects once before it)
+            gc_was_enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with _build.captured_launches() as launches, torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"
+                ):
+                    gout = self._shard_probe(pts, shifted, index)
+            finally:
+                if gc_was_enabled:
+                    gc.enable()
+            self._graphs[key] = {
+                "graph": graph, "pts": pts, "shifted": shifted, "out": gout,
+                "launches": launches,
+            }
+            return out
 
     def release_graphs(self) -> None:
-        """Free the rungs' CUDA graphs now. A closed engine can live on in
-        a reference cycle until a full garbage collection, and a graph
-        freed there is freed in the middle of whatever dispatch the
-        process is running. A later dispatch captures its rung again."""
-        with _device_lock(self.device):
+        """Free the rungs' CUDA graphs now, every shard's. A closed engine
+        can live on in a reference cycle until a full garbage collection,
+        and a graph freed there is freed in the middle of whatever
+        dispatch the process is running. A later dispatch captures its
+        rung again."""
+        with _device_locks(self._lock_devices):
             self._graphs = {}
 
     def execute(self, points) -> np.ndarray:
@@ -577,7 +800,8 @@ class DispatchCore:
         "signatures", "backend_compiles"}`` (nvcc builds started)."""
         t0 = backend_compiles()
         with _telemetry.capture() as events, _trace.span(
-            "dispatch.warmup", buckets=len(self.ladder.buckets), devices=1,
+            "dispatch.warmup", buckets=len(self.ladder.buckets),
+            devices=1 if self.mesh is None else self.mesh.size,
         ):
             self.load_kernels()
             for b in self.ladder.buckets:
@@ -689,10 +913,12 @@ def core_for(
     cell_dtype=None,
     mesh=None,
 ) -> DispatchCore:
-    """The process-cached :class:`DispatchCore` for an (index, static
-    arguments) combination. The cache holds the index strongly, so the
-    ``id(index)`` part of the key cannot be recycled while the entry
-    lives."""
+    """The process-cached :class:`DispatchCore` for an (index,
+    placement, static arguments) combination: repeated
+    `pip_join(mesh=...)` calls reuse one core. The cache holds the index
+    strongly, so the ``id(index)`` part of the key cannot be recycled
+    while the entry lives."""
+    mesh = resolve_mesh(mesh, device=index.device)
     key = (
         id(index), id(index_system), index_system.resolution_arg(resolution),
         writeback, lookup, probe, str(cell_dtype), mesh_key(mesh),
@@ -703,7 +929,7 @@ def core_for(
         core = DispatchCore(
             index, index_system, resolution, ladder=ladder,
             writeback=writeback, lookup=lookup, probe=probe,
-            cell_dtype=cell_dtype,
+            cell_dtype=cell_dtype, mesh=mesh,
         )
         _BATCH_CORES.put(key, core)
     return core

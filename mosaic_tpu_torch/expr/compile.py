@@ -309,26 +309,48 @@ def pixel_program(
 @_dispatch.bounded_cache("overlay_programs", 64)
 def overlay_program(
     value: ast.Expr, Lb: int, Rb: int, Pb: int, Sb: int, vpad: int,
-    acc_name: str,
+    acc_name: str, mesh=None,
 ):
     """The fused overlay measure program: gather candidate chip pairs
     from the two sorted side tables, compute per-pair intersection areas
     (kind routing + convex clip, `kernels.overlay.pair_areas`), fold
     them into per-geometry-pair totals (`zonal_fold_masked`: on the card
     the ``zonal_seq_fold`` kernel), and evaluate the pair tree over the
-    folded tables — one program per ``(tree, buckets)`` signature."""
+    folded tables — one program per ``(tree, buckets, mesh)`` signature.
+    Under ``mesh`` the per-pair stage runs data parallel over the pair
+    axis (side tables replicated, candidates sharded), and its outputs
+    are gathered back in shard order BEFORE the f64 fold: the segment sum
+    is never split into per-shard partials (a different accumulation
+    order, 1 ulp of drift), so a sharded run equals the single-device
+    one bit for bit."""
     acc_dt = _ACC[acc_name]
     from ..kernels import overlay as _ko
+
+    def per_pair(li, ri, lcore, lok, lverts, lvlen, larea, lcell,
+                 rcore, rok, rverts, rvlen, rarea, band):
+        li = li.long()
+        ri = ri.long()
+        return _ko.pair_areas(
+            lcore[li], rcore[ri], lok[li], rok[ri],
+            lverts[li], lvlen[li], rverts[ri], rvlen[ri],
+            larea[li], rarea[ri], lcell[li], band, xp=torch,
+        )
+
+    def sharded(li, ri, *tables):
+        from ..parallel import mesh as _mesh
+
+        return _mesh.run_sharded(
+            per_pair, mesh, sharded=(li, ri), replicated=tables,
+        )
+
+    stage = per_pair if mesh is None else sharded
 
     def fused(li, ri, valid, seg, lcore, lok, lverts, lvlen, larea,
               lcell, rcore, rok, rverts, rvlen, rarea, seg_larea,
               seg_rarea, band):
-        li = li.long()
-        ri = ri.long()
-        area, host_needed = _ko.pair_areas(
-            lcore[li], rcore[ri], lok[li], rok[ri],
-            lverts[li], lvlen[li], rverts[ri], rvlen[ri],
-            larea[li], rarea[ri], lcell[li], band, xp=torch,
+        area, host_needed = stage(
+            li, ri, lcore, lok, lverts, lvlen, larea, lcell,
+            rcore, rok, rverts, rvlen, rarea, band,
         )
         cnt, s, _mn, _mx = zonal_fold_masked(
             area, valid, seg, Sb, acc_dtype=acc_dt

@@ -96,7 +96,7 @@ def map_zonal(
     )
     sig = _compile.signature_of(
         value, th, tw, num_segments, acc,
-        engine.index_system, engine.resolution, None,
+        engine.index_system, engine.resolution, engine.mesh,
     )
     dev = engine.device
     degrades = dev.type == "cpu"
@@ -352,6 +352,6 @@ def warmup_expr(
         engine._assign(gt6, plan.origins[0], th, tw).cpu()
     return _compile.warmup_zonal(
         value, th, tw, num_segments, acc_name(engine),
-        engine.index_system, engine.resolution, None,
+        engine.index_system, engine.resolution, engine.mesh,
         device=engine.device,
     )

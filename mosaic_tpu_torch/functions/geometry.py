@@ -1,9 +1,13 @@
 """Row-pair geometry programs on the device (torch).
 
-Port of the part of ``mosaic_tpu/functions/geometry.py`` that KNN runs:
-:func:`_pair_pack` (two columns on one shared f64 shift),
-:func:`_vmap_pair` (a dense ``(Ga, Gb)`` predicate evaluated on aligned
-row pairs), :func:`_contains_dense` and :func:`_distance_dense`. The
+Port of the part of ``mosaic_tpu/functions/geometry.py`` that KNN and
+the sharded overlay predicate run: :func:`_pair_pack` (two columns on
+one shared f64 shift), :func:`_vmap_pair` (a dense ``(Ga, Gb)``
+predicate evaluated on aligned row pairs), :func:`_contains_dense` and
+:func:`_distance_dense`; and the two fused overlay frontends,
+:func:`st_intersection_area` and :func:`st_overlap_fraction`, whose
+keyword options (``prep=``, ``pair_cap=``, ``mesh=``, ``lane=``,
+``device=``) pass through to `sql.overlay.overlay_measures`. The
 reference maps its dense functions over pairs with ``jax.vmap``; here
 the dense functions of `core/geometry/predicates.py` take a leading pair
 axis, so :func:`_vmap_pair` is one batch of eager torch ops.
@@ -88,3 +92,32 @@ def _distance_dense(a, b) -> torch.Tensor:
     d = _pred.min_distance(a, b)
     cont = _contains_dense(a, b) | _contains_dense(b, a).transpose(-1, -2)
     return torch.where(cont, torch.zeros_like(d), d)
+
+
+def st_intersection_area(geom_a, geom_b, index_system, resolution, **kw):
+    """Fused overlay join: per intersecting (left, right) geometry pair,
+    the exact intersection AREA — `sql.overlay.overlay_measures` with the
+    raw `expr.ast.overlap_area` tree. Keyword options (``prep=``,
+    ``pair_cap=``, ``mesh=``, ``lane=``, ``device=``) pass through;
+    returns `sql.overlay.OverlayMeasures`."""
+    from ..sql.overlay import overlay_measures
+    from ._coerce import to_packed
+
+    return overlay_measures(
+        to_packed(geom_a), to_packed(geom_b), index_system, resolution, **kw,
+    )
+
+
+def st_overlap_fraction(geom_a, geom_b, index_system, resolution, **kw):
+    """Fused overlay join: per intersecting pair, the fraction of the
+    LEFT geometry covered by the right one (``overlap_area /
+    left_area``); shared-edge touches report exactly 0.0. Keyword options
+    pass through as in :func:`st_intersection_area`."""
+    from ..expr.ast import overlap_fraction
+    from ..sql.overlay import overlay_measures
+    from ._coerce import to_packed
+
+    return overlay_measures(
+        to_packed(geom_a), to_packed(geom_b), index_system, resolution,
+        overlap_fraction(), **kw,
+    )

@@ -46,8 +46,11 @@ disk grows by one round a ring (:class:`_Rings`) where the reference
 starts ``k_loop(k)`` over from the seed (a row does not depend on the
 other rows, so the cells are the same); a ring lane degraded in more than one iteration (CPU only) keeps
 its first ``DegradedResult`` where the reference's ``degraded or d``
-tests an array's truth and raises; ``mesh=`` (ROADMAP queue 1 item 12)
-and ``program_store=`` raise.
+tests an array's truth and raises; ``program_store=`` raises. ``mesh=``
+(a device count, a `parallel.mesh.Mesh`, or None for the ``MOSAIC_MESH``
+knob) shards every pair batch over the mesh with the candidate column
+replicated (:func:`_sharded_point_pairs`), bit for bit the single-device
+distances; every pair rung must divide over it.
 """
 
 from __future__ import annotations
@@ -64,6 +67,7 @@ from ..dispatch import (
     cells_prog,
     guarded_call,
     mesh_key,
+    resolve_mesh,
     resolve_program_store,
 )
 from ..dispatch.core import _device_scope
@@ -140,6 +144,23 @@ def _point_pair_prog():
     def run(dcs, qxy, crows):
         dq = _point_column(qxy, dcs.shift)
         return _vmap_pair(_distance_dense, dq, take_rows(dcs, crows))
+
+    return run
+
+
+@bounded_cache("knn_point_pairs_sharded", 8)
+def _sharded_point_pairs(mesh):
+    """The meshed pair program: the candidate column replicated (placed
+    once a distinct device), query coordinates and candidate rows sharded
+    over the pair axis (the `parallel/dist_knn` layout — embarrassingly
+    parallel, no collective)."""
+    from ..parallel import mesh as _mesh
+
+    def run(dcs, qxy, crows):
+        return _mesh.run_sharded(
+            lambda q, r, d: _point_pair_prog()(d, q, r), mesh,
+            sharded=(qxy, crows), replicated=(dcs,),
+        )
 
     return run
 
@@ -279,7 +300,6 @@ class KNNFrontend:
                 "KNNFrontend needs a non-empty candidate index (warmup "
                 "dispatches pair batches against candidate row 0)"
             )
-        self.mesh = mesh_key(mesh)
         resolve_program_store(program_store)
         self.kx = kx
         self.lane = lane
@@ -287,6 +307,14 @@ class KNNFrontend:
         self.row_ladder = row_ladder or DEFAULT_ROW_LADDER
         self.max_iterations = int(max_iterations)
         self.device = kx.device
+        self.mesh = resolve_mesh(mesh, device=self.device)
+        if self.mesh is not None:
+            for b in self.pair_ladder.buckets:
+                if b % self.mesh.size:
+                    raise ValueError(
+                        f"pair bucket {b} does not divide over the "
+                        f"{self.mesh.size}-device mesh"
+                    )
         #: past the retry budget only a frontend on the CPU answers from
         #: the host oracle; on the card the batch raises RetryExhausted
         self._degrade_to_host = self.device.type == "cpu"
@@ -320,7 +348,9 @@ class KNNFrontend:
         self._warmed = frozenset(self._signatures)
 
     def _note(self, kind: str, bucket: int) -> bool:
-        sig = ("knn", kind, int(bucket), self.mesh, self.kx.fingerprint)
+        sig = (
+            "knn", kind, int(bucket), mesh_key(self.mesh), self.kx.fingerprint,
+        )
         if sig in self._signatures:
             return False
         self._signatures.add(sig)
@@ -376,7 +406,11 @@ class KNNFrontend:
         with _trace.span("knn.pairs", bucket=b, pairs=m), _device_scope(self.device):
             qdev = torch.from_numpy(np.ascontiguousarray(qxy, dtype=np.float64))
             rdev = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64))
-            vals = _point_pair_prog()(
+            prog = (
+                _point_pair_prog() if self.mesh is None
+                else _sharded_point_pairs(self.mesh)
+            )
+            vals = prog(
                 self.kx.dc, qdev.to(self.device, self._dtype), rdev.to(self.device)
             )
             out = vals.to(torch.float64).cpu().numpy()

@@ -17,7 +17,9 @@ shift), on the card unless the model was built with ``device="cpu"``.
 
 What differs from the reference: ``index`` and ``resolution`` are
 required (the context's index system and the resolution analyzer are
-not ported); ``mesh=`` raises (ROADMAP queue 1 item 12); each
+not ported); ``mesh=`` takes a `parallel.mesh.Mesh` (or a device
+count) and shards each iteration's pair batch over it
+(`parallel/dist_knn.py`), bit for bit the single-device distances; each
 iteration's shells come from ONE batched ``k_ring``/``k_loop`` call over
 every landmark's cover (rows do not depend on each other, so the cells
 are the same); past the retry budget only a model on the CPU degrades to
@@ -37,7 +39,6 @@ from ..core.index.base import IndexSystem
 from ..core.tessellate import tessellate
 from ..core.types import PackedGeometry
 from ..dispatch import core as _dispatch
-from ..dispatch.bucket import mesh_key
 from ..runtime.errors import DegradedResult
 from .core import CheckpointManager
 
@@ -69,13 +70,16 @@ def _pair_distance_prog():
 
 class GridRingNeighbours:
     """One iteration's candidate generation + distance evaluation
-    (reference: GridRingNeighbours.transform / leftTransform)."""
+    (reference: GridRingNeighbours.transform / leftTransform).
+
+    With ``mesh`` set, each iteration's pair batch shards over the mesh's
+    devices (`parallel/dist_knn.py`) — the reference's distributed
+    join+distance step."""
 
     def __init__(self, index: IndexSystem, resolution: int, mesh=None):
-        mesh_key(mesh)
         self.index = index
         self.resolution = resolution
-        self.mesh = None
+        self.mesh = mesh
 
     # ------------------------------------------------------------ cells
     def ring_cells(self, cover: list[np.ndarray], iteration: int) -> list[np.ndarray]:
@@ -107,6 +111,10 @@ class GridRingNeighbours:
         P = li.shape[0]
         if P == 0:
             return np.zeros(0)
+        if self.mesh is not None:
+            from ..parallel.dist_knn import distributed_pair_distances
+
+            return distributed_pair_distances(self.mesh, dl, dc, li, ci)
         Ppad = _pow2(P)
         lip = np.concatenate([li, np.zeros(Ppad - P, dtype=li.dtype)])
         cip = np.concatenate([ci, np.zeros(Ppad - P, dtype=ci.dtype)])
@@ -153,7 +161,6 @@ class SpatialKNN:
                 "SpatialKNN needs index=: the context's index system is "
                 "not ported yet (ROADMAP queue 1, item 14)"
             )
-        mesh_key(mesh)
         self.index = index
         self.resolution = resolution
         self.k = int(k_neighbours)
@@ -162,8 +169,11 @@ class SpatialKNN:
         self.distance_threshold = distance_threshold
         self.approximate = approximate
         self.checkpoint_dir = checkpoint_dir
-        self.mesh = None
         self.device = resolve_device(device)
+        self.mesh = (
+            None if mesh is None
+            else _dispatch.resolve_mesh(mesh, device=self.device)
+        )
         self.metrics: dict = {}
         self._ring_cache: dict = {}
 
@@ -202,8 +212,8 @@ class SpatialKNN:
 
         dl, dc = _pair_pack(land, cand, device=self.device)
         ring = self._ring_cache.get(res)
-        if ring is None:
-            ring = GridRingNeighbours(self.index, res)
+        if ring is None or ring.mesh is not self.mesh:
+            ring = GridRingNeighbours(self.index, res, mesh=self.mesh)
             self._ring_cache[res] = ring
 
         ckpt = (

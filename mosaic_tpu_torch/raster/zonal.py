@@ -30,8 +30,13 @@ device (the card unless ``device="cpu"``); there is no jit, so nothing is
 compiled per tile shape; a tile with no pixel to fold skips its device
 fold (its partial is empty either way). :meth:`ZonalEngine.map` and
 :meth:`ZonalEngine.warmup_expr` run fused expression trees
-(`mosaic_tpu_torch/expr`). ``mesh=`` and ``zonal_grid(index_system=None)``
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+(`mosaic_tpu_torch/expr`). ``zonal_grid(index_system=None)`` raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
+``mesh=`` (or the ``MOSAIC_MESH`` knob) shards the zones probe over a
+`parallel.mesh.Mesh` with the chip index replicated, as the reference's:
+a tile's pixel count must divide over the mesh, and the fold
+(``zonal_tiled`` or ``zonal_seq_fold``) runs on the whole tile as
+before, so the results are the single-device bits.
 ``profile=`` resolves ``probe``, ``lookup`` and ``zonal_lane`` at
 construction, as the reference's does (one ``tune_resolve`` event,
 ``zonal_engine``); the port also reads the profile's ``raster_tile`` as
@@ -57,8 +62,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..dispatch import core as _dispatch
 from ..kernels.zonal import zonal_fold, zonal_tiled
 from ..obs import trace as _trace
+from ..parallel import mesh as _mesh
 from ..runtime import faults as _faults, telemetry as _telemetry
 from ..runtime.errors import CapacityOverflow
 from ..tune import resolve as _tune_resolve
@@ -157,8 +164,6 @@ class ZonalEngine:
         profile=None,
         device=None,
     ):
-        if mesh is not None:
-            raise _not_ported("ZonalEngine(mesh=...)", 12, "multi-device")
         # profile-consumed knobs fold at this host entry point: explicit
         # arg > env knob > profile > built-in default (tune/resolve.py).
         # lane="auto" is the legacy spelling of "not passed".
@@ -184,6 +189,14 @@ class ZonalEngine:
                 )
             dev = chip_index.device
         self.device = dev
+        # placement resolves once, on the host: with a mesh bound, the
+        # zones probe runs data parallel over the pixel centers with the
+        # chip index replicated (placed once a distinct device)
+        self.mesh = _dispatch.resolve_mesh(mesh, device=dev)
+        self._placed = (
+            None if self.mesh is None or chip_index is None
+            else _mesh.replicas(chip_index, self.mesh)
+        )
         self.index_system = index_system
         self.resolution = int(resolution)
         self.chip_index = chip_index
@@ -232,16 +245,24 @@ class ZonalEngine:
             device=self.device,
         )
 
-    def _zones_probe(self, gt6, origin, th: int, tw: int):
-        """(geom, near) of one tile's pixel centers on the device."""
-        ix = self.chip_index
-        pts = tile_centers(gt6, origin, th=th, tw=tw, device=self.device)
-        cells = self.index_system.point_to_cell(pts, self.resolution).to(torch.int64)
+    def _probe_core(self, pts, cells, ix):
+        """(geom, near) of pixel centers against ``ix``."""
         shifted = (pts - ix.border.shift).to(ix.border.verts.dtype)
         out = pip_join_points(shifted, cells, ix, edge_eps2=self._eps2, **self._probe_kw)
         if self._eps2 is None:
             return out, torch.zeros(out.shape, dtype=torch.bool, device=out.device)
         return out
+
+    def _zones_probe(self, gt6, origin, th: int, tw: int):
+        """(geom, near) of one tile's pixel centers on the device; under a
+        mesh, the probe of each shard of the centers on its device."""
+        pts = tile_centers(gt6, origin, th=th, tw=tw, device=self.device)
+        cells = self.index_system.point_to_cell(pts, self.resolution).to(torch.int64)
+        if self.mesh is None:
+            return self._probe_core(pts, cells, self.chip_index)
+        return _dispatch.sharded_pointwise(self._probe_core, self.mesh)(
+            pts, cells, self._placed
+        )
 
     def _tile_zone_rows(self, plan, t: int, maskb=None) -> np.ndarray:
         """(TH*TW,) zone row per pixel center of tile ``t`` (negative =
@@ -249,6 +270,12 @@ class ZonalEngine:
         host re-join of the banded pixels. ``maskb`` narrows the patch to
         pixels that can contribute; ``None`` patches every banded pixel."""
         th, tw = plan.shape
+        if self.mesh is not None and (th * tw) % self.mesh.size:
+            raise ValueError(
+                f"tile of {th * tw} pixels does not divide over the "
+                f"{self.mesh.size}-device mesh — pick a tile shape whose "
+                "pixel count is a multiple of the device count"
+            )
         gt6 = np.asarray(plan.gt, np.float64)
         geom_d, near_d = self._zones_probe(gt6, plan.origins[t], th, tw)
         geom = geom_d.cpu().numpy()

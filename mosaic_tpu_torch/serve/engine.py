@@ -34,10 +34,14 @@ What differs from the reference, and why:
   host oracle (`DegradedResult`); on the card the batch's futures raise
   `RetryExhausted` and no work moves to the CPU — KNN batches included
   (`knn/frontend.py`);
-- ``mesh=`` raises (ROADMAP queue 1 item 12), and ``program_store=``
-  (`dispatch/programs.py`) too. ``profile=`` and ``hot_swap(profile=)``
-  resolve as the reference's; ``hot_swap`` frees the replaced core's
-  CUDA graphs (see :meth:`ServeEngine.hot_swap`).
+- ``program_store=`` raises (`dispatch/programs.py`). ``mesh=`` (or the
+  ``MOSAIC_MESH`` knob) places every dispatch data parallel over a
+  `parallel.mesh.Mesh` with the index replicated, as the reference's:
+  the answers are the single-device bits, a hot swap keeps the mesh, and
+  the KNN frontend built from a ``knn=`` index shares it;
+- ``profile=`` and ``hot_swap(profile=)`` resolve as the reference's;
+  ``hot_swap`` frees the replaced core's CUDA graphs, every shard's (see
+  :meth:`ServeEngine.hot_swap`).
 
 KNN requests (``knn=`` a :class:`~mosaic_tpu_torch.knn.KNNIndex` or a
 ready :class:`~mosaic_tpu_torch.knn.KNNFrontend`, ``submit_knn``) ride
@@ -55,7 +59,6 @@ import numpy as np
 import torch
 
 from ..dispatch import BucketLadder, DispatchCore, cells_prog
-from ..dispatch.bucket import mesh_key
 from ..dispatch.programs import resolve_program_store
 from ..obs import trace as _trace
 from ..runtime import quarantine as _quarantine, telemetry as _telemetry
@@ -135,7 +138,6 @@ class ServeEngine:
         knn=None,
         knn_lane: str | None = None,
     ):
-        mesh_key(mesh)
         resolve_program_store(program_store)
         self.index = index
         self.index_system = index_system
@@ -170,12 +172,12 @@ class ServeEngine:
         self.core = DispatchCore(
             index, index_system, resolution, ladder=self.ladder,
             writeback=self.writeback, lookup=knobs["lookup"],
-            probe=knobs["probe"], cell_dtype=cell_dtype,
+            probe=knobs["probe"], cell_dtype=cell_dtype, mesh=mesh,
             on_cold_compile=self._on_cold_compile,
         )
         self.probe = self.core.probe
         self.lookup = self.core.lookup
-        self.mesh = None
+        self.mesh = self.core.mesh
         # optional KNN frontend riding the same queue and batcher: a
         # KNNIndex builds a fresh frontend sharing the engine's
         # cold-compile tripwire; a KNNFrontend is adopted as it is
@@ -372,7 +374,7 @@ class ServeEngine:
                 index, self.index_system, new_resolution, ladder=ladder,
                 writeback=new_writeback, lookup=knobs["lookup"],
                 probe=knobs["probe"], cell_dtype=self.cell_dtype,
-                on_cold_compile=self._on_cold_compile,
+                mesh=self.mesh, on_cold_compile=self._on_cold_compile,
             )
             stats = core.warmup()  # runs every rung, then freezes
             new_knn = self.knn
@@ -438,9 +440,9 @@ class ServeEngine:
     # --------------------------------------------------------- dispatch
 
     def _build_knn(self, knn, lane):
-        """Wrap a KNNIndex in a frontend sharing the engine's cold-compile
-        tripwire; pass a ready-made frontend through unchanged; None
-        stays None."""
+        """Wrap a KNNIndex in a frontend sharing the engine's mesh and
+        cold-compile tripwire; pass a ready-made frontend through
+        unchanged; None stays None."""
         if knn is None:
             return None
         from ..knn.frontend import KNNFrontend
@@ -453,7 +455,8 @@ class ServeEngine:
                 f"knn= takes a KNNIndex or a KNNFrontend, got {type(knn).__name__}"
             )
         return KNNFrontend(
-            knn, lane=lane or "ring", on_cold_compile=self._on_cold_compile,
+            knn, lane=lane or "ring", mesh=self.mesh,
+            on_cold_compile=self._on_cold_compile,
         )
 
     def _dispatch(self, points: np.ndarray, deadline_hint=None, reqs=None):

@@ -32,8 +32,10 @@ What differs from the reference, and why:
   TPU, and their results are the same;
 - ``pip_join`` runs with and without the epsilon-band recheck, with the
   reference's escalation, retry, watchdog and degradation, and takes a
-  tuning profile (``profile=``); ``mesh=`` raises
-  ``NotImplementedError`` (ROADMAP queue 1, item 12). Besides the probe attempts, the cell assignment with its
+  tuning profile (``profile=``). ``mesh=`` routes each chunk through the
+  dispatch core's data-parallel lane, as the reference's does (a
+  `parallel.mesh.Mesh`, whose device list may repeat a device). Besides
+  the probe attempts, the cell assignment with its
   count read-back and the recheck's narrow re-join also run under
   ``guarded_call("pip_join.device", ...)``, so every wait on the card
   has a watchdog. Degradation to the host oracle follows only a
@@ -99,12 +101,6 @@ EDGE_BAND_K = 16.0
 #: per-bucket edge capacity
 CONVEX_BUCKETS = 8
 CONVEX_EDGE_CAP = 16
-
-_MESH_TODO = (
-    "is not ported yet (ROADMAP queue 1, item 12: the multi-device "
-    "lanes)"
-)
-
 
 @dataclasses.dataclass
 class ChipIndex:
@@ -1321,10 +1317,19 @@ def pip_join(
     built-in default (`tune/resolve.py`). Profile-consumed knobs here:
     ``resolution``, ``probe``, ``writeback``, ``lookup``, ``batch_size``
     (pass ``batch_size=0`` to force the unbatched path past a profile's
-    recommendation). ``mesh`` raises ``NotImplementedError``.
+    recommendation).
+
+    ``mesh`` routes each chunk through the dispatch core's bucketed
+    data-parallel lane (`dispatch.DispatchCore`): points padded to the
+    ladder bucket and sharded over the mesh with the ChipIndex
+    replicated, full per-shard caps (no count read-back, no escalation),
+    bit for bit the single-device answer; under ``probe="adaptive"`` on
+    the card each shard launches ``pip_heavy_tiled``. Takes a device
+    count (real devices of the join's kind), a `parallel.mesh.Mesh`, or
+    None (the ``MOSAIC_MESH`` knob). A chunk must fit the ladder's top
+    bucket (``batch_size``). Requires ``recheck=False``: the
+    epsilon-band path stays single-device.
     """
-    if mesh is not None:
-        raise NotImplementedError(f"pip_join(mesh=...) {_MESH_TODO}")
     # profile-consumed knobs fold HERE, at the host entry point: explicit
     # argument > env knob > profile > built-in default (tune/resolve.py).
     # lookup's default is None, as the reference's, so the tune_resolve
@@ -1366,6 +1371,13 @@ def pip_join(
     if recheck is None:
         recheck = current_config().exact_recheck
     dev = chip_index.device
+    mesh = _dispatch.resolve_mesh(mesh, device=dev)
+    if mesh is not None and recheck:
+        raise ValueError(
+            "pip_join(mesh=...) runs the bucketed sharded dispatch lane, "
+            "which does not support the epsilon-band recheck yet — pass "
+            "recheck=False (or drop the mesh for the exact-recheck path)"
+        )
     host: HostRecheck | None = getattr(chip_index, "host", None)
     if recheck and host is None:
         raise ValueError(
@@ -1394,6 +1406,15 @@ def pip_join(
             (ebk * float(np.finfo(np_dtype).eps) * host.coord_scale) ** 2
         ))
     need_counts = writeback != "direct" or chip_index.num_heavy_cells
+    core = (
+        None
+        if mesh is None
+        else _dispatch.core_for(
+            chip_index, index_system, resolution,
+            writeback=writeback, lookup=lookup, probe=probe,
+            cell_dtype=cell_dtype, mesh=mesh,
+        )
+    )
 
     def assign(chunk: np.ndarray):
         """Cells (and margins) of a chunk and its three probe counts."""
@@ -1411,6 +1432,16 @@ def pip_join(
         return pts, cells, margins, counts
 
     def run(chunk: np.ndarray) -> np.ndarray:
+        if core is not None:
+            # the sharded bucketed lane: pad to the ladder, dispatch data
+            # parallel at full per-shard caps (overflow structurally
+            # impossible: no count read-back, no escalation), slice the
+            # pad off. RetryExhausted reaches `run_resilient` as on every
+            # lane.
+            padded, nn = core.ladder.pad(chunk)
+            return _dispatch.guarded_call(
+                "pip_join.device", core.execute_padded, padded
+            )[:nn]
         m = chunk.shape[0]
         pts, cells, margins, counts = _dispatch.guarded_call(
             "pip_join.device", assign, chunk

@@ -33,8 +33,10 @@ What differs from the reference: the accelerated dtype is always f64
 computes f64 natively), so the device lane equals the host lane bit for
 bit on the card as on the CPU. Past the retry budget (or on any device
 error) only a call on the CPU degrades to the host lane; on the card the
-error propagates. ``mesh=`` raises ``NotImplementedError`` (ROADMAP queue
-1 item 12). :func:`intersects_join` has no ``backend=``: its exact f64
+error propagates. ``mesh=`` (or the ``MOSAIC_MESH`` knob) shards the
+per-pair stage over a `parallel.mesh.Mesh` and gathers its outputs
+before the f64 fold (`expr.compile.overlay_program`), so the measures are
+the single-device bits. :func:`intersects_join` has no ``backend=``: its exact f64
 predicate runs batched on the entry point's device (the reference's
 default is its host oracle; its device predicate is f32).
 
@@ -105,12 +107,6 @@ ACC_NAME = "float64"
 #: the tessellation clipper's on-edge tolerance (`core.tessellate._EPS`),
 #: which the exact intersects predicate reads
 _SEG_EPS = 1e-12
-
-
-def _not_ported(what: str, item: int, why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item}: {why})"
-    )
 
 
 def pair_plan(total: int, pair_cap: int | None = None):
@@ -841,8 +837,9 @@ def _package(out: dict, lane: str, degraded: bool = False,
     )
 
 
-def _device_lane(prep: OverlayPrep, value, pair_cap) -> dict:
-    """The device lane's output dict (the host lane's keys)."""
+def _device_lane(prep: OverlayPrep, value, pair_cap, mesh) -> dict:
+    """The device lane's output dict (the host lane's keys); ``mesh``
+    shards its per-pair stage."""
     from ..expr import compile as _compile
     from ..expr.host_oracle import splice_override
 
@@ -878,16 +875,16 @@ def _device_lane(prep: OverlayPrep, value, pair_cap) -> dict:
 
     with _trace.span(
         "overlay.measures", pairs=int(uniq.shape[0]), candidates=total,
-        mesh=False,
+        mesh=mesh is not None,
     ) as span:
         with _telemetry.timed("overlay_stage", stage="measures"):
             sig = _compile.overlay_signature_of(
                 value, L.bucket, R.bucket, Pb, Sb, prep.vpad,
-                prep.acc_name, prep.index_system, prep.resolution, None,
+                prep.acc_name, prep.index_system, prep.resolution, mesh,
             )
             prog = _compile.overlay_program(
                 value, L.bucket, R.bucket, Pb, Sb, prep.vpad,
-                prep.acc_name,
+                prep.acc_name, mesh,
             )
             acc = np.dtype(prep.acc_name)
             dev = prep.device
@@ -965,7 +962,7 @@ def overlay_measures(
     / ``left_area`` / ``right_area`` (default: the raw intersection
     area). Candidate generation runs on the device as a sorted segment
     equi-join over the prep's cell columns, the measures as ONE fused
-    program per ``(tree-hash, buckets, index)`` signature — warm it with
+    program per ``(tree-hash, buckets, index, mesh)`` signature — warm it with
     :func:`warmup_overlay` before `expr.compile.freeze`. The device is
     the prep's (``device`` when the prep is built here: the card unless
     ``device="cpu"``).
@@ -974,25 +971,28 @@ def overlay_measures(
     the CPU the device lane degrades there (result flagged) when it fails
     past its retry budget; on the card the error propagates.
     ``pair_cap`` bounds the candidate emission — the excess is reported
-    as an OVERFLOW(-2) row, never silently dropped.
+    as an OVERFLOW(-2) row, never silently dropped. ``mesh`` (a device
+    count, a `parallel.mesh.Mesh`, or None for the ``MOSAIC_MESH`` knob)
+    shards the per-pair stage over the mesh's devices, the prep's kind.
     """
     from ..expr import ast as _ast
     from ..expr.host_oracle import host_overlay_measures
 
-    if mesh is not None:
-        raise _not_ported("overlay_measures(mesh=...)", 12, "multi-device")
     value = _ast.overlap_area() if value is None else value
     _ast.validate_pair(value)
     if prep is None:
         prep = _prep_for(left, right, index_system, resolution,
                          left_chips, right_chips, device)
+    mesh = _dispatch.resolve_mesh(mesh, device=prep.device)
     if lane == "host":
         out = host_overlay_measures(prep, value, pair_cap=pair_cap)
         return _package(out, lane="host")
     if lane != "device":
         raise ValueError(f"unknown overlay lane {lane!r}")
     try:
-        return _package(_device_lane(prep, value, pair_cap), lane="device")
+        return _package(
+            _device_lane(prep, value, pair_cap, mesh), lane="device"
+        )
     except Exception as e:  # lint: broad-except-ok (degradation seam: on the CPU the f64 host oracle answers instead and the result is flagged, as the reference's; on the card the error propagates)
         if prep.device.type != "cpu":
             raise
@@ -1024,13 +1024,11 @@ def warmup_overlay(
     the warm set (`expr.compile.freeze` afterwards arms the cold-compile
     tripwire), its side tables are on the device and the kernel library
     is bound; return the prep for amortized reuse."""
-    if mesh is not None:
-        raise _not_ported("warmup_overlay(mesh=...)", 12, "multi-device")
     if prep is None:
         prep = _prep_for(left, right, index_system, resolution,
                          left_chips, right_chips, device)
     overlay_measures(
         left, right, index_system, resolution, value,
-        prep=prep, pair_cap=pair_cap,
+        prep=prep, pair_cap=pair_cap, mesh=mesh,
     )
     return prep

@@ -31,8 +31,9 @@ tiled `zones` call bit for bit); ``scan(expr=...)`` folds a fused
 expression tree (`mosaic_tpu_torch/expr`) through the f64 fold lane
 whatever the stream's lane, and its snapshots carry the tree's
 ``expr_sha256`` as the reference's do, so either package resumes the
-other's expression scans; ``mesh=`` raises ``NotImplementedError``
-(ROADMAP queue 1, item 12). ``profile=`` takes a `tune.TuningProfile`
+other's expression scans; ``mesh=`` is the engine's (`ZonalEngine`: the
+probe sharded over the mesh, each tile folded whole, the single-device
+bits). ``profile=`` takes a `tune.TuningProfile`
 as the reference's does: ``probe``/``lookup`` resolve here, the tile
 shape and window per scan.
 """
@@ -54,12 +55,6 @@ from ..runtime.errors import RetryExhausted
 from ..tune import resolve as _tune_resolve
 
 __all__ = ["RasterScanResult", "RasterStream"]
-
-
-def _not_ported(what: str, item: int, why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item}: {why})"
-    )
 
 
 def _zonal():
@@ -106,8 +101,6 @@ class RasterStream:
         mesh=None,
         profile=None,
     ):
-        if mesh is not None:
-            raise _not_ported("RasterStream(mesh=...)", 12, "multi-device")
         # profile-consumed knobs fold at this host entry point: explicit
         # arg > env knob > profile > built-in default (tune/resolve.py);
         # the tile/window knobs resolve per scan, where they apply
@@ -125,7 +118,7 @@ class RasterStream:
             index_system, resolution, chip_index=chip_index,
             found_cap=found_cap, heavy_cap=heavy_cap, lookup=lookup,
             compaction=compaction, probe=probe, convex_cap=convex_cap,
-            lane=lane, device=chip_index.device,
+            lane=lane, mesh=mesh, device=chip_index.device,
         )
         self.chip_index = chip_index
         self.index_system = index_system
@@ -316,7 +309,7 @@ class RasterStream:
             )
             expr_sig = _ec.signature_of(
                 value, th, tw, g, acc_name, eng.index_system,
-                eng.resolution, None,
+                eng.resolution, eng.mesh,
             )
             band = 0  # snapshot meta: fused scans read the stack
         if acc0 is None:

@@ -62,8 +62,11 @@ What differs from the reference, and why:
   first segment, so a first build is never booked to a segment;
 - ``donate_ring`` is accepted and changes nothing: the port never frees
   the caller's tensor (``metrics["ring_donated"]`` is False);
-- ``mesh=`` raises ``NotImplementedError`` (item 12); ``lookup`` and
-  ``compaction`` default to the lanes `pip_join_points` runs
+- ``mesh=`` (or the ``MOSAIC_MESH`` knob) shards the probe data
+  parallel over a `parallel.mesh.Mesh` inside the loop, the index
+  replicated (placed once a distinct device): bit for bit the
+  single-device stream; the batch must divide over the mesh. ``lookup``
+  and ``compaction`` default to the lanes `pip_join_points` runs
   (``gather``, ``scatter``) on every device;
 - `ring_from_generator` takes seeds for ``torch.Generator`` (one a
   slot): its points cannot equal ``jax.random``'s.
@@ -81,6 +84,7 @@ import torch
 from .. import resolve_device
 from ..dispatch import core as _dispatch, pipeline as _pipeline
 from ..obs import metrics as _metrics, trace as _trace
+from ..parallel import mesh as _mesh
 from ..runtime import (
     checkpoint as _checkpoint,
     faults as _faults,
@@ -108,10 +112,6 @@ __all__ = [
     "ring_from_generator",
     "ring_from_host",
 ]
-
-_MESH_TODO = (
-    "is not ported yet (ROADMAP queue 1, item 12: the multi-device lanes)"
-)
 
 _I32_OFF = 1 << 31
 _U32_MASK = (1 << 32) - 1
@@ -292,8 +292,15 @@ def build_stream_programs(
     probe,
     convex_cap,
     prefetch,
+    mesh=None,
 ) -> StreamPrograms:
     """The StreamJoin program set for one static spec.
+
+    ``mesh`` (a `parallel.mesh.Mesh`, or None) shards the probe data
+    parallel with the ChipIndex replicated: ``join`` then takes the index
+    as placed by `parallel.mesh.replicas` (or as it is), and each
+    per-point result depends only on that point and the index, so the
+    sharded stream equals the single-device one bit for bit.
 
     ``seg_loop(ring, index, i0, acc, cells, nb, collect)`` runs batches
     ``[i0, i0 + nb)`` (ring slot ``i % K``) and returns the new ``(acc,
@@ -308,7 +315,7 @@ def build_stream_programs(
         c = index_system.point_to_cell(pts.to(cell_dtype), resolution)
         return c.to(torch.int64)
 
-    def join(pts, cells, chip_index):
+    def join_one(pts, cells, chip_index):
         shifted = (pts - chip_index.border.shift).to(dtype)
         return pip_join_points(
             shifted,
@@ -321,6 +328,11 @@ def build_stream_programs(
             probe=probe,
             convex_cap=convex_cap,
         )
+
+    join = (
+        join_one if mesh is None
+        else _dispatch.sharded_pointwise(join_one, mesh)
+    )
 
     def seg(ring, chip_index, i0: int, acc, cells, nb: int, collect: bool):
         k = ring.shape[0]
@@ -404,8 +416,6 @@ class StreamJoin:
         mesh=None,
         profile=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(f"StreamJoin(mesh=...) {_MESH_TODO}")
         #: the TuningProfile consulted again at run_durable/resume time
         #: for the pipeline/window knobs (same precedence as here)
         self._profile = profile
@@ -431,11 +441,18 @@ class StreamJoin:
         # the force-lane knob resolves here, at the host entry point
         self.probe = resolve_probe_mode(probe)
         self.convex_cap = convex_cap
+        # placement resolves here too, once: the programs close over it
+        self.mesh = _dispatch.resolve_mesh(mesh, device=self.device)
+        #: what the loop probes: the index, or its placement on the mesh
+        self._probe_index = (
+            index if self.mesh is None
+            else _mesh.replicas(index, self.mesh)
+        )
         progs = _dispatch.stream_programs(
             index_system, resolution, dtype=index.border.verts.dtype,
             cell_dtype=cell_dtype, found_cap=found_cap, heavy_cap=heavy_cap,
             lookup=self.lookup, compaction=self.compaction, probe=self.probe,
-            convex_cap=convex_cap, prefetch=self.prefetch,
+            convex_cap=convex_cap, prefetch=self.prefetch, mesh=self.mesh,
         )
         self._programs = progs
         self.assign = progs.assign
@@ -451,16 +468,26 @@ class StreamJoin:
                 f"{self.device}: stage it with ring_from_host(..., "
                 f"device={str(self.device)!r})"
             )
+        self._check_batch(ring.shape[1])
         return int(ring.shape[0]), int(ring.shape[1])
+
+    def _check_batch(self, batch: int) -> None:
+        if self.mesh is not None and int(batch) % self.mesh.size:
+            raise ValueError(
+                f"stream batch {int(batch)} does not divide over the "
+                f"{self.mesh.size}-device mesh"
+            )
 
     def step(self, pts: torch.Tensor) -> torch.Tensor:
         """Single batch (assign + join) — the single-batch-rate reference
         the sustained number is measured against."""
-        return self._programs.step(pts, self.index)
+        self._check_batch(pts.shape[0])
+        return self._programs.step(pts, self._probe_index)
 
     def step_stats(self, pts: torch.Tensor) -> torch.Tensor:
         """Single batch, device-folded to (3,) stats."""
-        return self._programs.step_stats(pts, self.index)
+        self._check_batch(pts.shape[0])
+        return self._programs.step_stats(pts, self._probe_index)
 
     def _load_kernels(self) -> list[str]:
         """Build/bind the kernel library the probe launches (on the card,
@@ -486,7 +513,7 @@ class StreamJoin:
             prefetch=self.prefetch, donate_ring=self.donate_ring,
         ):
             self._load_kernels()
-            acc, outs = self._loop(ring, self.index, n_batches, collect)
+            acc, outs = self._loop(ring, self._probe_index, n_batches, collect)
             _sync(self.device)
         return acc, outs
 
@@ -505,7 +532,7 @@ class StreamJoin:
             "stream.run", n_batches=n_batches, batch=batch, ring_k=k,
         ):
             t0 = time.perf_counter()
-            acc, outs = self._loop(ring, self.index, n_batches, collect)
+            acc, outs = self._loop(ring, self._probe_index, n_batches, collect)
             acc_np = acc.cpu().numpy()  # blocks: the loop's only host pull
             wall = time.perf_counter() - t0
             n_points = n_batches * batch
@@ -1030,7 +1057,7 @@ class StreamJoin:
 
         def dispatch():
             a, c, o = self._seg_loop(
-                ring, self.index, step, acc_dev, cells_arg,
+                ring, self._probe_index, step, acc_dev, cells_arg,
                 nb=seg_n, collect=collect,
             )
             # one host pull forces completion (and is what a real stall
@@ -1142,7 +1169,7 @@ class StreamJoin:
                 # queued, not waited for: the blocking pull happens at
                 # the window's drain
                 return self._seg_loop(
-                    ring, self.index, step, a0, c0,
+                    ring, self._probe_index, step, a0, c0,
                     nb=seg_n, collect=collect,
                 )
 

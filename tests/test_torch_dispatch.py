@@ -1,7 +1,7 @@
 """The port's dispatch core (`mosaic_tpu_torch/dispatch`) on the CPU.
 
-Mirrors `tests/test_dispatch.py` without its mesh cases (the mesh lanes
-are ROADMAP queue 1 item 12, and ``mesh=`` raises): the same custom grid
+Mirrors `tests/test_dispatch.py` (its mesh cases, on logical CPU meshes,
+are in `tests/test_torch_mesh.py`): the same custom grid
 `GridConf(-180, 180, -90, 90, 2, 10, 10)` at resolution 3 and its three
 zones, indexed by each package from the same WKT. Contracts:
 
@@ -17,8 +17,10 @@ zones, indexed by each package from the same WKT. Contracts:
    its default) and, with f64 cells, the reference's f64 host oracle
    (tolerance 0).
 4. What the port does not carry raises a typed ``NotImplementedError``
-   naming its ROADMAP entry: ``mesh=`` (item 12), ``program_store=`` and
-   ``MOSAIC_PROGRAM_STORE`` (queue 3, the program store).
+   naming its ROADMAP entry: ``program_store=`` and
+   ``MOSAIC_PROGRAM_STORE`` (queue 3, the program store). ``mesh=`` is
+   carried: a meshed core answers the single-device rows, and a device
+   count asks for real devices (one on the CPU).
 """
 
 import numpy as np
@@ -322,11 +324,22 @@ class TestCacheRegistry:
 
 
 class TestNotPorted:
-    def test_mesh_names_item_12(self, index):
-        with pytest.raises(NotImplementedError, match="item 12"):
+    def test_mesh_names_item_12(self, index, points):
+        """``mesh=`` is ported (it raised before): a device count takes
+        real devices, and the CPU has one; a logical 2-device mesh core
+        answers the single-device rows and ``core_for`` keys on it."""
+        with pytest.raises(ValueError, match="devices"):
             dispatch.DispatchCore(index, CUSTOM, RES, mesh=2)
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(ValueError, match="devices"):
             dispatch.core_for(index, CUSTOM, RES, mesh=2)
+        mesh = dispatch.data_mesh(devices=["cpu"] * 2)
+        ladder = BucketLadder(64, 1024)
+        meshed = dispatch.DispatchCore(index, CUSTOM, RES, ladder=ladder, mesh=mesh)
+        single = dispatch.DispatchCore(index, CUSTOM, RES, ladder=ladder)
+        assert meshed.mesh is mesh and meshed.caps(1024)[0] == 512
+        np.testing.assert_array_equal(meshed.execute(points), single.execute(points))
+        a = dispatch.core_for(index, CUSTOM, RES, ladder=ladder, mesh=mesh)
+        assert a.mesh is mesh and a is not dispatch.core_for(index, CUSTOM, RES, ladder=ladder)
 
     def test_program_store_names_queue_3(self, index, tmp_path):
         with pytest.raises(NotImplementedError, match="queue 3"):

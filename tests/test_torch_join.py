@@ -210,10 +210,21 @@ def test_host_join_equals_reference(own_indexes, batches):
     "kw", [{"mesh": 2}],
     ids=["mesh"],
 )
-def test_later_slices_raise_typed(port_index, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_later_slices_raise_typed(port_index, kw, batches):
+    """``mesh=`` is ported (it raised before): a device count takes real
+    devices, of which the CPU has one; on a logical mesh of that many
+    devices the join equals the single-device one."""
+    from mosaic_tpu_torch.dispatch import data_mesh
+
+    with pytest.raises(ValueError, match="devices"):
         TJ.pip_join(np.zeros((4, 2)), None, H3IndexSystem(), RES,
                     chip_index=port_index, device="cpu", **kw)
+    pts = batches["mixed"][0]
+    want = TJ.pip_join(pts, None, H3IndexSystem(), RES,
+                       chip_index=port_index, device="cpu")
+    got = TJ.pip_join(pts, None, H3IndexSystem(), RES, chip_index=port_index,
+                      device="cpu", mesh=data_mesh(devices=["cpu"] * kw["mesh"]))
+    np.testing.assert_array_equal(got, want)
 
 
 def test_profile_resolution_and_probe_equal_reference(own_indexes, batches):

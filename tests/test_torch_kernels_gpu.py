@@ -1209,3 +1209,35 @@ def test_profiled_engine_with_a_65536_rung_equals_pip_join(cuda):
         assert not old._graphs
         np.testing.assert_array_equal(
             eng.submit(reqs[1], deadline_s=30.0).result(timeout=60), want[1])
+
+
+# ---- the data-parallel placement on the card
+
+
+def test_meshed_join_on_card_launches_once_a_shard(cuda):
+    """A 4-shard logical mesh on one card (``devices=[cuda] * 4``) gives
+    `pip_join(mesh=)` the single-device join's rows, and each dispatch
+    launches `pip_heavy_tiled` once a shard: 4 launches for one bucket;
+    a meshed engine holds one graph per (rung, shard) and frees them all
+    on ``close()``."""
+    from mosaic_tpu_torch.dispatch import BucketLadder, data_mesh
+    from mosaic_tpu_torch.serve import ServeEngine
+    from mosaic_tpu_torch.sql import join as TJ
+
+    h3, ix = _serve_index(cuda)
+    mesh = data_mesh(devices=[torch.device("cuda", torch.cuda.current_device())] * 4)
+    (pts,) = _requests(41, [5000])
+    want = TJ.pip_join(pts, None, h3, 9, chip_index=ix, probe="adaptive")
+    before = TP.pip_heavy_tiled.launches
+    got = TJ.pip_join(pts, None, h3, 9, chip_index=ix, probe="adaptive", mesh=mesh)
+    assert TP.pip_heavy_tiled.launches - before == 4
+    np.testing.assert_array_equal(got, want)
+    with ServeEngine(ix, h3, 9, probe="adaptive", ladder=BucketLadder(64, 1024),
+                     bounds=BBOX, max_wait_s=0.0, mesh=mesh) as eng:
+        eng.warmup()
+        assert sorted(eng.core._graphs) == [
+            (b, s) for b in eng.ladder.buckets for s in range(4)
+        ]
+        np.testing.assert_array_equal(eng.join(pts[:1000], deadline_s=30.0), want[:1000])
+        core = eng.core
+    assert core._graphs == {}

@@ -388,8 +388,16 @@ def test_query_answers_per_row_and_empty_batches(frontends, problem):
         fe.dispatch(q, 0)
     with pytest.raises(ValueError, match="unknown knn lane"):
         KNNFrontend(problem[2], lane="grid")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # mesh= is ported: a meshed frontend answers the same bits, and
+    # anything but a count or a Mesh is refused
+    with pytest.raises(TypeError, match="mesh="):
         KNNFrontend(problem[2], mesh=object())
+    from mosaic_tpu_torch.dispatch import data_mesh
+
+    meshed = KNNFrontend(problem[2], mesh=data_mesh(devices=["cpu"] * 2))
+    np.testing.assert_array_equal(
+        meshed.dispatch(q, 2)[0].view(np.int64), out.view(np.int64)
+    )
 
 
 def test_more_neighbours_than_candidates_pad(grids):

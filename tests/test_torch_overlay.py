@@ -295,10 +295,18 @@ def test_overlay_stage_telemetry_and_spans():
 
 def test_unported_options_raise():
     left = _port(_squares([(0.3, 0.1, 2.6, 2.6)]))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # mesh= is ported (it raised before): a device count takes real
+    # devices, of which the CPU has one; a logical mesh gives the bits
+    with pytest.raises(ValueError, match="devices"):
         O.overlay_measures(left, left, GRID, RES, mesh=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="devices"):
         O.warmup_overlay(left, left, GRID, RES, mesh=2, device="cpu")
+    mesh = dispatch.data_mesh(devices=["cpu"] * 2)
+    prep = O.warmup_overlay(left, left, GRID, RES, mesh=mesh, device="cpu")
+    _assert_bitwise(
+        O.overlay_measures(left, left, GRID, RES, prep=prep, mesh=mesh),
+        O.overlay_measures(left, left, GRID, RES, prep=prep),
+    )
     with pytest.raises(ValueError, match="lane"):
         O.overlay_measures(left, left, GRID, RES, lane="gpu", device="cpu")
 

@@ -353,7 +353,8 @@ def test_unported_arguments_raise(index, raster):
 
     with pytest.raises(ValueError, match="out of range"):
         st.scan(raster, expr=E.band(9).zonal())
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # mesh= is ported (it raised before): only a count or a Mesh is taken
+    with pytest.raises(TypeError, match="mesh="):
         RasterStream(index, PORT, RES, mesh=object())
 
 

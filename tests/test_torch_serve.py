@@ -18,7 +18,9 @@ Contracts, each exact (tolerance 0):
 - one connected trace per request across the submit and batcher
   threads;
 - what the port does not carry raises a typed error naming its ROADMAP
-  entry (profiles item 13, mesh item 12, the program store queue 3); a
+  entry (the program store, queue 3); ``mesh=`` is carried (a device
+  count takes real devices, one on the CPU; the meshed engine cases run
+  on logical meshes in `tests/test_torch_mesh.py`); a
   ``knn=`` that is neither a KNN index nor a frontend raises
   ``TypeError`` (KNN serving itself: `tests/test_torch_knn_serve.py`).
 """
@@ -593,13 +595,27 @@ class TestSummarize:
 class TestNotPorted:
     # KNN serving is ported (tests/test_torch_knn_serve.py): the cases of
     # its two refusals went with them; the ids keep the other cases' names
-    @pytest.mark.parametrize("kw,item", [
-        pytest.param(dict(mesh=2), "item 12", id="kw3-item 12"),
-        pytest.param(dict(program_store="/nonexistent"), "queue 3", id="kw4-queue 3"),
+    # mesh= is ported: its case (it raised NotImplementedError naming item
+    # 12 before) now asks for 2 real devices, which the CPU does not have,
+    # and a logical 2-device mesh serves the single-device answers
+    @pytest.mark.parametrize("kw,exc,item", [
+        pytest.param(dict(mesh=2), ValueError, "devices", id="kw3-item 12"),
+        pytest.param(dict(program_store="/nonexistent"), NotImplementedError,
+                     "queue 3", id="kw4-queue 3"),
     ])
-    def test_engine_arguments_raise_naming_their_item(self, index, grid, kw, item):
-        with pytest.raises(NotImplementedError, match=item):
+    def test_engine_arguments_raise_naming_their_item(self, index, grid, kw, exc, item):
+        with pytest.raises(exc, match=item):
             make_engine(index, grid, **kw)
+        if "mesh" in kw:
+            from mosaic_tpu_torch.dispatch import data_mesh
+
+            pts = rand_points(np.random.default_rng(3), 300)
+            mesh = data_mesh(devices=["cpu"] * kw["mesh"])
+            with make_engine(index, grid, mesh=mesh) as eng:
+                assert eng.mesh is mesh and eng.core.mesh is mesh
+                np.testing.assert_array_equal(
+                    eng.join(pts, deadline_s=30.0), ref_join(pts, grid, index)
+                )
 
     def test_knn_submit_and_swap(self, index, grid):
         with make_engine(index, grid) as eng:

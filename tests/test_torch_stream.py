@@ -311,8 +311,15 @@ def test_ring_from_generator_seeds_each_slot():
 
 
 def test_unported_arguments_raise(ixs):
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # mesh= is ported (it raised before): only a count or a Mesh is
+    # taken, and a meshed stream's batch must divide over the mesh
+    from mosaic_tpu_torch.dispatch import data_mesh
+
+    with pytest.raises(TypeError, match="mesh="):
         StreamJoin(ixs[1], PORT, RES, mesh=object())
+    sj = StreamJoin(ixs[1], PORT, RES, mesh=data_mesh(devices=["cpu"] * 8))
+    with pytest.raises(ValueError, match="divide"):
+        sj.step(torch.zeros((100, 2), dtype=torch.float64))
 
 
 def test_donate_ring_keeps_the_ring(ixs, ring, sj):
