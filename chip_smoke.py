@@ -175,6 +175,40 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    mesh runs its shards one after another on one card: no scaling
    figure), the sharded index's bytes a shard and after the gather, the
    phase's launches and seconds, with the card's name and power limit;
+8o. the function surface (``mosaic_tpu_torch/functions``, ``context.py``,
+   ``sql/frame.py``), every call through ``MosaicContext.build("H3")
+   .functions``: phase 3's 256 zones and 8i's 6,050 squares go to WKT,
+   WKB, hex and GeoJSON and back (gate: bit for bit); ``st_area``,
+   ``st_length``, ``st_perimeter``, ``st_centroid``, ``st_x/ymin/max`` on
+   the card for zones and squares as two columns, held to the f64 oracle
+   (1e-9; the centroid to the oracle on the recentred column, and to the
+   raw oracle and the native engine within the function matrix's
+   2e-5 / 1e-7), the native engine to the oracle (1e-11 / 1e-12), the
+   card to ``device="cpu"`` (1e-12 relative, the largest gap printed),
+   ``st_numpoints`` to the device vertex count; ``st_contains``,
+   ``st_intersects`` and ``st_distance`` on ``FN_PAIRS`` row pairs (zone
+   ``i % 256`` against square ``i % 6050``, the squares mapped into the
+   zones' bbox), the first ``FN_PAIRS_CPU`` equal to the CPU bit for bit
+   and the first ``FN_ORACLE`` (``FN_ORACLE_DIST`` for the distance) in
+   ≥ 0.9999 agreement with the oracle; ``grid_longlatascellid`` of the 4M
+   points equal to ``H3.point_to_cell`` on the card (its agreement with
+   the CPU on ``FN_CELL_CPU`` points and each differing point's margin
+   printed); ``MosaicFrame.set_index_resolution`` (``grid_tessellate``)
+   of the first ``FN_TESS_ZONES`` zones equal to phase 3's chips of them
+   (a quarter: the whole set takes ~20 s again), the phase 3 cells'
+   ``grid_format_cellid`` / ``grid_parse_cellid`` round trip; a frame
+   carrying phase 3's chips joins: ``point_in_polygon_join`` of the 4M
+   points under ``MOSAIC_TUNE_PROBE=adaptive`` equal to phase 6's join,
+   and under the context's ``exact_recheck`` on the first ``N_EXACT``
+   equal to ``host_join``, each launching ``pip_heavy_tiled``;
+   ``intersects_join`` of 8i's two frames equal to the overlay's;
+   ``rst_rastertogrid{avg,min,max,count}`` of the whole raster, each
+   launching ``zonal_seq_fold``, equal on the crop to a numpy f64 host
+   fold of the same cells bit for bit, ``rst_rastertogridmedian`` on the
+   crop; ``st_intersection_area`` of 8i's squares equal to
+   ``overlay_measures`` bit for bit with one ``zonal_seq_fold`` launch.
+   Prints geometries/s, pairs/s, points/s beside phase 6's, pixels/s and
+   the phase's launches;
 8d-8f, 8j and 8k run in a process of their own (``--serve-child``; its
    lines' ``t_s`` count from its own start, the parent passes them
    through), started right after phase 3: it loads phase 3's index from
@@ -424,6 +458,12 @@ MESH_STREAM = 1 << 20       # points of each of 8n's 3 stream batches
 MESH_REQUESTS = 200         # 8n's served requests, 1-1,024 rows each
 MESH_LADDER = (64, 1024)    # 8n's serving ladder
 MESH_SEED = 23
+FN_PAIRS = 65_536           # 8o's row pairs of the pair predicates
+FN_PAIRS_CPU = 1_024        # the first pairs, held against the CPU bit for bit
+FN_ORACLE = 2_048           # the first pairs held against the f64 oracle ...
+FN_ORACLE_DIST = 128        # ... and of st_distance (a Python loop a vertex)
+FN_CELL_CPU = 100_000       # points whose card cells are compared with the CPU's
+FN_TESS_ZONES = 64          # zones 8o tessellates again, held to phase 3's chips of them
 #: where ``--keep-trails DIR`` copies 8m's trails (the card golden's input)
 KEEP_TRAILS = None
 
@@ -1032,7 +1072,7 @@ def expr_overlay_phases(ix, H3, dev, n_zones, counted, cuda_ms, runs_dir, fold_e
         "o_fold_equal": o_fold_equal, "o_fold_ms": o_fold_ms,
         "o_segments": int(seen["k"]),
         "overlay": {"left": left, "right": right, "grid": ogrid, "value": ovalue,
-                    "prep": prep, "single": odev},
+                    "prep": prep, "single": odev, "left_chips": lt, "right_chips": rt},
     }
 
 
@@ -1254,6 +1294,364 @@ class GcPauses:
             by_gen[gen] = (c + 1, t + sec)
         return {"count_and_s_by_generation": {str(g): v for g, v in by_gen.items()},
                 "max_s": max((p[1] for p in self.pauses), default=0.0)}
+
+
+def repeat_rows(col, rows):
+    """The one-ring column ``col`` gathered by ``rows`` (a vectorized
+    ``col.take`` for polygons of one shell each, the smoke's zones and
+    squares)."""
+    import numpy as np
+
+    from mosaic_tpu_torch.core.types import PackedGeometry
+
+    n = len(col)
+    if not (np.array_equal(col.geom_offsets, np.arange(n + 1))
+            and np.array_equal(col.part_offsets, np.arange(n + 1))):
+        raise ValueError("repeat_rows takes one ring a geometry")
+    rows = np.asarray(rows, dtype=np.int64)
+    lens = np.diff(col.ring_offsets)[rows]
+    ro = np.concatenate([[0], np.cumsum(lens)])
+    src = np.repeat(col.ring_offsets[:-1][rows] - ro[:-1], lens) + np.arange(ro[-1])
+    k = np.arange(rows.size + 1, dtype=np.int64)
+    return PackedGeometry(xy=col.xy[src], ring_offsets=ro, part_offsets=k,
+                          geom_offsets=k, geom_type=col.geom_type[rows],
+                          srid=col.srid[rows])
+
+
+def same_column(a, b) -> bool:
+    """Two PackedGeometry columns equal bit for bit: xy, offsets, types,
+    SRIDs and the z lane."""
+    import numpy as np
+
+    fields = ("xy", "ring_offsets", "part_offsets", "geom_offsets", "geom_type", "srid")
+    same = all(np.asarray(getattr(a, f)).dtype == np.asarray(getattr(b, f)).dtype
+               and np.asarray(getattr(a, f)).tobytes() == np.asarray(getattr(b, f)).tobytes()
+               for f in fields)
+    return (same and (a.z is None) == (b.z is None)
+            and np.array_equal(a.geom_has_z, b.geom_has_z))
+
+
+def max_rel_gap(a, b, scale: float = 1e-300) -> float:
+    """Largest |a - b| / max(|b|, scale) over the rows (NaN where both are
+    NaN counts as no gap). A coordinate's ``scale`` is its column's
+    largest coordinate magnitude: near 0 a relative gap of a coordinate
+    says nothing."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    both_nan = np.isnan(a) & np.isnan(b)
+    gap = np.where(both_nan, 0.0, np.abs(a - b) / np.maximum(np.abs(b), scale))
+    return float(np.max(gap)) if gap.size else 0.0
+
+
+def host_cell_fold(values, valid, cells):
+    """{cell: (count, sum, min, max)} of the valid pixels, numpy f64, each
+    sum sequential in pixel order (``np.add.at``): the host fold the
+    ``rst_rastertogrid*`` projections are held to."""
+    import numpy as np
+
+    uniq, inv = np.unique(cells, return_inverse=True)
+    v, m = values.astype(np.float64), valid
+    k = uniq.size
+    cnt = np.bincount(inv[m], minlength=k)
+    s = np.zeros(k)
+    np.add.at(s, inv[m], v[m])
+    mn = np.full(k, np.inf)
+    np.minimum.at(mn, inv[m], v[m])
+    mx = np.full(k, -np.inf)
+    np.maximum.at(mx, inv[m], v[m])
+    return uniq, cnt, s, mn, mx
+
+
+def functions_phase(ix, table, H3, dev, zones, raw, joined, host_exact, main_pps,
+                    raster, crop, ov, counted, card):
+    """Phase 8o, the function surface through ``MosaicContext.build("H3")``
+    and its ``.functions``: codecs, device measures, pair predicates, grid,
+    MosaicFrame, raster to grid and the overlay frontend, on phase 3's
+    zones, the 4M batch, the raster and 8i's squares. Returns (failure
+    message or None, the phase's launches by kernel)."""
+    import numpy as np
+    import torch
+
+    from mosaic_tpu_torch import context as TC
+    from mosaic_tpu_torch.core.geometry import measures as TM
+    from mosaic_tpu_torch.core.geometry.device import pack_to_device
+    from mosaic_tpu_torch.core.types import PackedGeometry, concat_packed
+    from mosaic_tpu_torch.sql import overlay as OV
+    from mosaic_tpu_torch.sql.frame import MosaicFrame
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in counted}
+    secs = {}
+
+    def run(name, call):
+        """``call()`` timed (synced) with its launches added to the
+        phase's; the counts are set to 0 just before it."""
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out_ = call()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counted.items()}
+        for k, v in got.items():
+            launches[k] += v
+        return out_, got
+
+    ctx = TC.MosaicContext.build("H3")
+    F = ctx.functions
+    left, right, ogrid = ov["left"], ov["right"], ov["grid"]
+    squares = concat_packed([left, right])
+    geoms = concat_packed([zones, squares])
+    gates = {"register_names": len(ctx.register()) == 131,
+             "index_system_h3": ctx.index_system.name == "H3"}
+
+    # codecs: every format and back, bit for bit
+    codec_s = {}
+    readers = {"wkt": F.st_geomfromwkt, "wkb": F.st_geomfromwkb,
+               "hex": F.st_geomfromwkb, "geojson": F.st_geomfromgeojson}
+    for fmt, read in readers.items():
+        t0 = time.perf_counter()
+        back = read(F.convert_to(geoms, fmt))
+        codec_s[fmt] = time.perf_counter() - t0
+        gates[f"codec_{fmt}_round_trip"] = same_column(back, geoms)
+
+    # device measures on the card, zones and squares as two columns (each
+    # recentred on its own bbox)
+    meas = {"st_area": F.st_area, "st_length": F.st_length,
+            "st_perimeter": F.st_perimeter, "st_xmin": F.st_xmin,
+            "st_ymin": F.st_ymin, "st_xmax": F.st_xmax, "st_ymax": F.st_ymax}
+    m_gap = {"card_cpu": 0.0, "card_oracle": 0.0, "card_native": 0.0,
+             "native_oracle": 0.0}
+    m_ok = True
+    card_s = 0.0
+    card_cpu = {}
+    coord = ("st_xmin", "st_ymin", "st_xmax", "st_ymax", "st_centroid")
+    for part in (zones, squares):
+        scale = float(np.abs(part.xy).max())
+        for name, fn in meas.items():
+            sc = scale if name in coord else 1e-300
+            fn(part)  # warm
+            t0 = time.perf_counter()
+            got = fn(part)
+            card_s += time.perf_counter() - t0
+            cpu = fn(part, device="cpu")
+            orc = fn(part, backend="oracle")
+            nat = fn(part, backend="native")
+            m_ok &= bool(np.allclose(got, orc, rtol=1e-9, atol=1e-9)
+                         and np.allclose(got, nat, rtol=2e-5, atol=1e-7)
+                         and np.allclose(nat, orc, rtol=1e-11, atol=1e-12))
+            gap = max_rel_gap(got, cpu, sc)
+            card_cpu[name] = max(card_cpu.get(name, 0.0), gap)
+            m_gap["card_cpu"] = max(m_gap["card_cpu"], gap)
+            m_gap["card_oracle"] = max(m_gap["card_oracle"], max_rel_gap(got, orc, sc))
+            m_gap["card_native"] = max(m_gap["card_native"], max_rel_gap(got, nat, sc))
+            m_gap["native_oracle"] = max(m_gap["native_oracle"], max_rel_gap(nat, orc, sc))
+        t0 = time.perf_counter()
+        c = F.st_centroid(part)
+        card_s += time.perf_counter() - t0
+        c_cpu = F.st_centroid(part, device="cpu")
+        c_orc = F.st_centroid(part, backend="oracle")
+        c_nat = F.st_centroid(part, backend="native")
+        # the oracle's shoelace on raw NYC coordinates loses ~1e-9 of the
+        # centroid to cancellation; on the column moved to its bbox middle
+        # (the device's frame) it holds the 1e-9 band
+        bb = part.bounds()
+        mid = (bb[:, :2].min(0) + bb[:, 2:].max(0)) / 2.0
+        c_rc = F.st_centroid(F.st_translate(part, -mid[0], -mid[1]), backend="oracle").xy + mid
+        m_ok &= bool(np.allclose(c.xy, c_rc, rtol=1e-9, atol=1e-9)
+                     and np.allclose(c.xy, c_orc.xy, rtol=2e-5, atol=1e-7)
+                     and np.allclose(c.xy, c_nat.xy, rtol=2e-5, atol=1e-7))
+        gap = max_rel_gap(c.xy, c_cpu.xy, scale)
+        card_cpu["st_centroid"] = max(card_cpu.get("st_centroid", 0.0), gap)
+        m_gap["card_cpu"] = max(m_gap["card_cpu"], gap)
+        m_gap["centroid_card_oracle"] = max(
+            m_gap.get("centroid_card_oracle", 0.0), max_rel_gap(c.xy, c_orc.xy, scale))
+        m_gap["centroid_card_recentred_oracle"] = max(
+            m_gap.get("centroid_card_recentred_oracle", 0.0),
+            max_rel_gap(c.xy, c_rc, scale))
+        counts = TM.num_points(pack_to_device(part, dtype=torch.float64, device=dev))
+        m_ok &= bool(np.array_equal(F.st_numpoints(part), counts.cpu().numpy()))
+    gates["measures_within_bands"] = m_ok
+    gates["measures_card_equal_cpu_1e-12"] = m_gap["card_cpu"] <= 1e-12
+    measures_per_s = len(geoms) * (len(meas) + 1) / card_s
+
+    # predicates on FN_PAIRS row pairs: zone i % 256 against square
+    # i % 6,050, the squares mapped into the zones' bbox
+    zb, sb = zones.bounds(), squares.bounds()
+    z0, z1 = zb[:, :2].min(0), zb[:, 2:].max(0)
+    s0, s1 = sb[:, :2].min(0), sb[:, 2:].max(0)
+    moved = F.st_scale(F.st_translate(squares, -s0[0], -s0[1]),
+                       (z1[0] - z0[0]) / (s1[0] - s0[0]), (z1[1] - z0[1]) / (s1[1] - s0[1]))
+    moved = F.st_translate(moved, z0[0], z0[1])
+    i = np.arange(FN_PAIRS)
+    pa, pb = repeat_rows(zones, i % len(zones)), repeat_rows(moved, i % len(moved))
+    pred = {}
+    p_ok = {}
+    for name in ("st_contains", "st_intersects", "st_distance"):
+        fn = getattr(F, name)
+        fn(pa.slice(0, 64), pb.slice(0, 64))  # warm
+        got, _ = run(name, lambda: fn(pa, pb))
+        sub = slice(0, FN_PAIRS_CPU)
+        cpu = fn(repeat_rows(zones, i[sub] % len(zones)),
+                 repeat_rows(moved, i[sub] % len(moved)), device="cpu")
+        n_orc = FN_ORACLE_DIST if name == "st_distance" else FN_ORACLE
+        orc = fn(repeat_rows(zones, i[:n_orc] % len(zones)),
+                 repeat_rows(moved, i[:n_orc] % len(moved)), backend="oracle")
+        if name == "st_distance":
+            orc_agree = float(np.isclose(got[:n_orc], orc, rtol=1e-9, atol=1e-12).mean())
+            gap = max_rel_gap(got[sub], cpu)
+        else:
+            orc_agree = float((got[:n_orc] == orc).mean())
+            gap = None
+        p_ok[f"{name}_card_equal_cpu"] = got[sub].tobytes() == cpu.tobytes()
+        p_ok[f"{name}_oracle_agreement"] = orc_agree >= 0.9999
+        pred[name] = {"s": secs[name], "pairs_per_s": FN_PAIRS / secs[name],
+                      "true_or_positive": int((got > 0).sum()),
+                      "oracle_agreement": orc_agree, "oracle_pairs": n_orc,
+                      "card_cpu_max_gap": gap}
+    gates.update(p_ok)
+
+    # grid: the 4M points' cells on the card, the zones' chips, the ids
+    F.grid_longlatascellid(raw[:1024, 0], raw[:1024, 1], RES)  # warm
+    cells, _ = run("grid_longlatascellid", lambda: F.grid_longlatascellid(
+        raw[:, 0], raw[:, 1], RES))
+    want_cells = H3.point_to_cell(torch.from_numpy(raw).to(dev), RES)
+    gates["longlat_equal_point_to_cell"] = bool(
+        cells.device.type == "cuda" and torch.equal(cells, want_cells))
+    sub = raw[:FN_CELL_CPU]
+    cpu_cells = F.grid_longlatascellid(sub[:, 0], sub[:, 1], RES, device="cpu")
+    differ = (cells[:FN_CELL_CPU].cpu() != cpu_cells).numpy()
+    margins = []
+    if differ.any():
+        _, rel = H3.point_to_cell_margin(torch.from_numpy(sub[differ]), RES)
+        margins = rel[:, 0].numpy().tolist()[:20]
+    sub, _ = run("set_index_resolution", lambda: MosaicFrame.from_geometry(
+        zones.slice(0, FN_TESS_ZONES)).set_index_resolution(RES))
+    rows = np.nonzero(table.geom_id < FN_TESS_ZONES)[0]
+    gates["tessellate_equal_phase3"] = bool(
+        sub.chips_index == "H3" and sub.resolution == RES
+        and np.array_equal(sub.chips.cell_id, table.cell_id[rows])
+        and np.array_equal(sub.chips.is_core, table.is_core[rows])
+        and np.array_equal(sub.chips.geom_id, table.geom_id[rows])
+        and same_column(sub.chips.chips, table.chips.take(rows)))
+    # the joins' frame carries phase 3's chips, as set_index_resolution
+    # would attach them
+    frame = MosaicFrame(geometry=zones, columns={"zone_id": np.arange(len(zones))},
+                        resolution=RES, chips=table, chips_index=ctx.index_system.name)
+    uniq = np.unique(table.cell_id)
+    gates["format_parse_round_trip"] = bool(np.array_equal(
+        F.grid_parse_cellid(F.grid_format_cellid(uniq)), uniq))
+
+    # MosaicFrame: the 4M batch under probe="adaptive", then the exact
+    # join under the context's exact_recheck on the first N_EXACT points
+    points = MosaicFrame.from_geometry(PackedGeometry.from_points(raw))
+    exact_pts = MosaicFrame.from_geometry(PackedGeometry.from_points(raw[:N_EXACT]))
+    old_probe = os.environ.get("MOSAIC_TUNE_PROBE")
+    os.environ["MOSAIC_TUNE_PROBE"] = "adaptive"
+    try:
+        fj, fj_l = run("frame_join_cold", lambda: frame.point_in_polygon_join(points))
+        fj_warm, fjw_l = run("frame_join", lambda: frame.point_in_polygon_join(points))
+        TC.MosaicContext.build("H3", exact_recheck=True)
+        fe, fe_l = run("frame_exact_join", lambda: frame.point_in_polygon_join(exact_pts))
+    finally:
+        TC.MosaicContext.build("H3")
+        if old_probe is None:
+            os.environ.pop("MOSAIC_TUNE_PROBE")
+        else:
+            os.environ["MOSAIC_TUNE_PROBE"] = old_probe
+    gates["frame_join_equal_pip_join"] = bool(
+        np.array_equal(fj["polygon_row"], joined)
+        and np.array_equal(fj_warm["polygon_row"], joined))
+    ok = joined >= 0
+    gates["frame_join_columns"] = bool(np.array_equal(
+        fj["polygon_zone_id"][ok], joined[ok].astype(np.float64))
+        and np.isnan(fj["polygon_zone_id"][~ok]).all())
+    gates["frame_join_launched_pip_heavy_tiled"] = (
+        fj_l["pip_heavy_tiled"] > 0 and fjw_l["pip_heavy_tiled"] > 0)
+    gates["frame_exact_equal_host_join"] = bool(np.array_equal(fe["polygon_row"], host_exact))
+    gates["frame_exact_launched_pip_heavy_tiled"] = fe_l["pip_heavy_tiled"] > 0
+    lc, rc = ov["left_chips"], ov["right_chips"]
+    fl = MosaicFrame(geometry=left, resolution=OVERLAY_RES, chips=lc, chips_index=ogrid.name)
+    fr = MosaicFrame(geometry=right, resolution=OVERLAY_RES, chips=rc, chips_index=ogrid.name)
+    pairs, _ = run("frame_intersects_join", lambda: fl.intersects_join(fr, index=ogrid))
+    want_pairs = OV.intersects_join(left, right, ogrid, OVERLAY_RES,
+                                    left_chips=lc, right_chips=rc)
+    gates["frame_intersects_equal_overlay"] = bool(
+        pairs.dtype == want_pairs.dtype and np.array_equal(pairs, want_pairs))
+
+    # raster to grid: the whole raster on the card, held against a numpy f64
+    # host fold on the crop (same cells)
+    grid_s = {}
+    r_ok = True
+    for comb in ("avg", "min", "max", "count"):
+        fn = getattr(F, f"rst_rastertogrid{comb}")
+        res_, got_l = run(f"rst_rastertogrid{comb}", lambda: fn([raster], RES))
+        grid_s[comb] = secs[f"rst_rastertogrid{comb}"]
+        r_ok &= got_l["zonal_fold"] > 0 and len(res_[0][0]) > 0
+    gates["rastertogrid_launched_zonal_seq_fold"] = r_ok
+    x, y = crop.pixel_centers()
+    crop_cells = H3.point_to_cell(torch.from_numpy(
+        np.stack([x, y], -1).reshape(-1, 2)).to(dev), RES).cpu().numpy()
+    band = crop.bands[0]
+    uniq_c, cnt, s_, mn, mx = host_cell_fold(band.values.ravel(), band.mask.ravel(),
+                                             crop_cells)
+    keep = cnt > 0
+    host = {
+        "count": {int(c): float(v) for c, v, k in zip(uniq_c, cnt.astype(np.float64), keep) if k},
+        "avg": {int(c): float(v) for c, v, k in zip(uniq_c, s_ / np.maximum(cnt, 1.0), keep) if k},
+        "min": {int(c): float(v) for c, v, k in zip(uniq_c, mn, keep) if k},
+        "max": {int(c): float(v) for c, v, k in zip(uniq_c, mx, keep) if k},
+    }
+    crop_equal = {}
+    for comb in ("avg", "min", "max", "count"):
+        got = getattr(F, f"rst_rastertogrid{comb}")([crop], RES)[0][0]
+        crop_equal[comb] = {k: v.hex() for k, v in got.items()} == {
+            k: v.hex() for k, v in host[comb].items()}
+        gates[f"rastertogrid{comb}_crop_equal_host_fold"] = crop_equal[comb]
+    med, _ = run("rst_rastertogridmedian_crop", lambda: F.rst_rastertogridmedian([crop], RES))
+    gates["median_crop_cells"] = sorted(med[0][0]) == sorted(host["count"])
+
+    # the overlay frontend through the surface: 8i's squares, the default
+    # tree (the exact intersection area)
+    prep = ov["prep"]
+    area, a_l = run("st_intersection_area", lambda: F.st_intersection_area(
+        left, right, ogrid, OVERLAY_RES, prep=prep))
+    want_area = OV.overlay_measures(left, right, ogrid, OVERLAY_RES, prep=prep)
+    gates["intersection_area_equal_overlay_measures"] = all(
+        np.asarray(getattr(area, f)).dtype == np.asarray(getattr(want_area, f)).dtype
+        and np.asarray(getattr(area, f)).tobytes() == np.asarray(getattr(want_area, f)).tobytes()
+        for f in ("pairs", "value", "valid", "area", "sure"))
+    gates["intersection_area_one_zonal_seq_fold"] = a_l["zonal_fold"] == 1
+    TC.MosaicContext.reset()
+
+    real_pixels = raster.height * raster.width
+    emit({
+        "phase": "functions", "geometries": len(geoms), "zones": len(zones),
+        "squares": len(squares), "pairs": FN_PAIRS, "pairs_cpu": FN_PAIRS_CPU,
+        "codec_s": codec_s, "measures_per_s": measures_per_s,
+        "measure_max_rel_gap": m_gap, "measure_card_cpu_gap": card_cpu,
+        "predicates": pred,
+        "longlat_points": int(raw.shape[0]),
+        "longlat_points_per_s": raw.shape[0] / secs["grid_longlatascellid"],
+        "longlat_cpu_points": FN_CELL_CPU,
+        "longlat_cpu_agreement": float(1.0 - differ.mean()),
+        "longlat_cpu_differ_margins": margins,
+        "tessellated_zones": FN_TESS_ZONES, "tessellated_chips": len(sub.chips),
+        "chips": len(table), "cells": int(uniq.size),
+        "heavy_cells": ix.num_heavy_cells,
+        "frame_join_points_per_s": raw.shape[0] / secs["frame_join"],
+        "main_path_points_per_s": main_pps,
+        "frame_exact_points_per_s": N_EXACT / secs["frame_exact_join"],
+        "intersects_pairs": int(pairs.shape[0]),
+        "rastertogrid_s": grid_s,
+        "rastertogrid_pixels_per_s": {k: real_pixels / v for k, v in grid_s.items()},
+        "crop_cells": len(host["count"]), "seconds": secs,
+        "launches": launches, "phase_s": time.perf_counter() - t_phase,
+        "nvidia_smi": card, "gates": gates,
+    })
+    bad = [k for k, v in gates.items() if not v]
+    return (f"functions gates failed: {bad}" if bad else None), launches
 
 
 def mesh_devices(dev):
@@ -3459,6 +3857,7 @@ def main() -> int:
         "host_oracle_agreement": agree, "oracle_points": N_ORACLE,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     })
+    main_pps = N_POINTS / min(warm)
     if heavy_launches <= 0:
         return fail("pip_join(probe='adaptive') never launched pip_heavy_tiled")
     if zone_launches <= 0:
@@ -3543,6 +3942,7 @@ def main() -> int:
         for i in range(0, N_EXACT, 250_000)
     ])
     exact_oracle_s = time.perf_counter() - t0
+    host_exact = want
     exact_agree = float((want == exact[:N_EXACT]).mean())
     # stage times of one more warm exact join, a sync around each stage:
     # margin cells, the banded probe (and its copy back), the narrow
@@ -4260,6 +4660,13 @@ def main() -> int:
     if why:
         return fail(why)
 
+    # 8o. the function surface through MosaicContext.build("H3").functions
+    why, fn_launches = functions_phase(ix, table, H3, dev, zones, raw, out, host_exact,
+                                       main_pps, raster, crop, x_out["overlay"],
+                                       counted, card)
+    if why:
+        return fail(why)
+
     # 8d-8f, 8j, 8k. serving, KNN and epochs in a process of its own, as a
     # server runs: the profiler the phases above attached to this process
     # slows every later eager op. The child, started after phase 3, loaded
@@ -4294,8 +4701,9 @@ def main() -> int:
          + serve_launches["knn_serve"] + serve_launches["epochs"]
          + x_launches["pip_heavy_tiled"] + xs_launches["pip_heavy_tiled"]
          + tj["pip_heavy_tiled"] + tz["pip_heavy_tiled"] + serve_launches["serve_tuned"]
-         + mesh_launches["pip_heavy_tiled"],
+         + mesh_launches["pip_heavy_tiled"] + fn_launches["pip_heavy_tiled"],
          "launches_mesh": mesh_launches["pip_heavy_tiled"],
+         "launches_functions": fn_launches["pip_heavy_tiled"],
          "launches_tune_join": tj["pip_heavy_tiled"],
          "launches_tune_zones_128": tz["pip_heavy_tiled"],
          "launches_serve_tuned": serve_launches["serve_tuned"],
@@ -4352,8 +4760,10 @@ def main() -> int:
          "launches": launches["zones_fold"]["zonal_fold"]
          + rs_fold_launches["zonal_fold"] + x_launches["zonal_fold"]
          + xg_launches["zonal_fold"] + xs_launches["zonal_fold"]
-         + o_launches["zonal_fold"] + mesh_launches["zonal_fold"],
+         + o_launches["zonal_fold"] + mesh_launches["zonal_fold"]
+         + fn_launches["zonal_fold"],
          "launches_mesh": mesh_launches["zonal_fold"],
+         "launches_functions": fn_launches["zonal_fold"],
          "launches_expr": x_launches["zonal_fold"],
          "launches_expr_grid": xg_launches["zonal_fold"],
          "launches_expr_scan": xs_launches["zonal_fold"],

@@ -1,10 +1,12 @@
 """Carry state across from the JAX package.
 
-The port and the reference agree field for field on the join index and
-the KNN index; this module builds the port's
-:class:`~mosaic_tpu_torch.sql.join.ChipIndex` and
-:class:`~mosaic_tpu_torch.knn.KNNIndex` from the reference's arrays, so
-both packages can run on one index. It takes plain numpy arrays and never
+The port and the reference agree field for field on the join index, the
+KNN index, the geometry column and the in-memory raster; this module
+builds the port's :class:`~mosaic_tpu_torch.sql.join.ChipIndex`,
+:class:`~mosaic_tpu_torch.knn.KNNIndex`,
+:class:`~mosaic_tpu_torch.core.types.PackedGeometry` and
+:class:`~mosaic_tpu_torch.raster.Raster` from the reference's, so both
+packages can run on one input. It reads plain numpy fields and never
 imports the JAX package.
 """
 
@@ -18,6 +20,34 @@ from .sql.join import ChipIndex
 _PACKED = ("xy", "ring_offsets", "part_offsets", "geom_offsets", "geom_type", "srid")
 #: DeviceGeometry fields of the shifted candidate column
 _DEVICE = ("verts", "ring_len", "ring_is_hole", "n_rings", "geom_type", "shift")
+#: Raster fields, all host values
+_RASTER = ("data", "gt", "srid", "nodata", "meta_xml", "path", "pages")
+
+
+def geometry_from_reference(col):
+    """The port's PackedGeometry from a reference ``PackedGeometry`` (or
+    any object with its numpy fields): the same arrays, copied, z and the
+    per-geometry z flags included."""
+    from .core.types import PackedGeometry
+
+    z = getattr(col, "z", None)
+    has_z = getattr(col, "geom_has_z", None)
+    return PackedGeometry(
+        **{n: np.array(getattr(col, n)) for n in _PACKED},
+        z=None if z is None else np.array(z),
+        geom_has_z=None if has_z is None else np.array(has_z),
+    )
+
+
+def raster_from_reference(raster):
+    """The port's Raster from a reference ``Raster`` (its numpy pixels
+    copied, the geotransform, SRID, nodata and metadata as they are)."""
+    from .raster import Raster
+
+    fields = {n: getattr(raster, n) for n in _RASTER}
+    fields["data"] = np.array(fields["data"])
+    fields["gt"] = tuple(float(v) for v in fields["gt"])
+    return Raster(**fields)
 
 
 def chip_index_from_reference(arrays: dict[str, np.ndarray], device=None) -> ChipIndex:

@@ -169,3 +169,7 @@ def is_linear(geom_type):
     return (geom_type == GeometryType.LINESTRING) | (
         geom_type == GeometryType.MULTILINESTRING
     )
+
+
+def is_point_like(geom_type):
+    return (geom_type == GeometryType.POINT) | (geom_type == GeometryType.MULTIPOINT)

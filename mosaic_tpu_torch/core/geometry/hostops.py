@@ -1,12 +1,18 @@
-"""Host exact-geometry engine: the ctypes seam to the native boolean ops.
+"""Host exact-geometry engine: boolean ops, buffer, hull, simplify.
 
-Port of the part of ``mosaic_tpu/core/geometry/hostops.py`` the overlay
-join reads: :func:`intersection` (row-wise polygon ∩ polygon) through the
-repo's C++ Martinez–Rueda sweep (`native/src/martinez.cpp`, built with
-``make -C native`` on first use), plus the shell/hole nesting of its flat
-even-odd contours. The marshaling is the reference's line for line, so
-both packages get the same f64 vertices from the same library. Buffer,
-union and the other ops are ROADMAP queue 1 item 14.
+Port of ``mosaic_tpu/core/geometry/hostops.py``, line for line (a copy kept
+in the port so that it never imports the JAX package).
+
+Role of JTS/ESRI in the reference (`core/geometry/MosaicGeometryJTS.scala:
+61-101` — intersection/union/difference/buffer/simplify/convexHull). These
+are the irreducibly sequential, branchy geometry algorithms that do not map
+to the card's array units; they stay on host C++ while predicates/measures/
+tessellation-classification run on device. The C++ core
+(`native/src/martinez.cpp`) implements Martinez–Rueda sweep-line boolean
+operations; this module is the ctypes seam plus shell/hole nesting.
+
+Geometries are exchanged with C++ as flat even-odd contour lists; nesting
+back into polygon-with-holes structure happens here via containment parity.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ _SO = _REPO / "native" / "build" / "libmosaicgeom.so"
 
 _lib = None
 
-OP_INTERSECTION = 0
+OP_INTERSECTION, OP_UNION, OP_DIFFERENCE, OP_XOR = 0, 1, 2, 3
 
 _c_dpp = ctypes.POINTER(ctypes.c_double)
 _c_lpp = ctypes.POINTER(ctypes.c_int64)
@@ -56,8 +62,28 @@ def lib() -> ctypes.CDLL:
         ctypes.POINTER(_c_dpp), ctypes.POINTER(_c_lpp),
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
     ]
+    l.mg_buffer.restype = ctypes.c_int
+    l.mg_buffer.argtypes = [
+        _c_dpp, _c_lpp, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_double, ctypes.c_int,
+        ctypes.POINTER(_c_dpp), ctypes.POINTER(_c_lpp),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+    ]
+    l.mg_union_many.restype = ctypes.c_int
+    l.mg_union_many.argtypes = [
+        _c_dpp, _c_lpp, ctypes.c_int64, _c_lpp, ctypes.c_int64,
+        ctypes.POINTER(_c_dpp), ctypes.POINTER(_c_lpp),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+    ]
     l.mg_free_result.restype = None
     l.mg_free_result.argtypes = [_c_dpp, _c_lpp]
+    l.mg_convex_hull.restype = ctypes.c_int64
+    l.mg_convex_hull.argtypes = [_c_dpp, ctypes.c_int64, _c_dpp]
+    l.mg_simplify_mask.restype = ctypes.c_int64
+    l.mg_simplify_mask.argtypes = [
+        _c_dpp, ctypes.c_int64, ctypes.c_double, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8),
+    ]
     _lib = l
     return l
 
@@ -195,13 +221,19 @@ def _is_polygonal(col: PackedGeometry, g: int) -> bool:
 
 
 # ------------------------------------------------------------- public column ops
-def bool_op(op: int, a: PackedGeometry, b: PackedGeometry) -> PackedGeometry:
-    """Row-wise polygon boolean op between two equal-length columns,
-    through the native Martinez sweep (`mg_bool_op`)."""
+def bool_op(
+    op: int, a: PackedGeometry, b: PackedGeometry, fn=None
+) -> PackedGeometry:
+    """Row-wise polygon boolean op between two equal-length columns.
+
+    ``fn`` selects the C entry point — default `mg_bool_op` (the Martinez
+    sweep); `second.clip` passes `mg_eval_clip` (the independent witness
+    clipper) so both engines share this one marshaling seam."""
     if len(a) != len(b):
         raise ValueError("columns must have equal length")
     l = lib()
-    fn = l.mg_bool_op
+    if fn is None:
+        fn = l.mg_bool_op
     out = GeometryBuilder()
     for g in range(len(a)):
         if not (_is_polygonal(a, g) and _is_polygonal(b, g)):
@@ -227,3 +259,142 @@ def bool_op(op: int, a: PackedGeometry, b: PackedGeometry) -> PackedGeometry:
 
 def intersection(a: PackedGeometry, b: PackedGeometry) -> PackedGeometry:
     return bool_op(OP_INTERSECTION, a, b)
+
+
+def union(a: PackedGeometry, b: PackedGeometry) -> PackedGeometry:
+    return bool_op(OP_UNION, a, b)
+
+
+def difference(a: PackedGeometry, b: PackedGeometry) -> PackedGeometry:
+    return bool_op(OP_DIFFERENCE, a, b)
+
+
+def sym_difference(a: PackedGeometry, b: PackedGeometry) -> PackedGeometry:
+    return bool_op(OP_XOR, a, b)
+
+
+def buffer(
+    col: PackedGeometry, dist: float, quad_segs: int = 8
+) -> PackedGeometry:
+    """Round-join buffer. Polygons: Minkowski via edge-capsule union (exact
+    up to arc polygonization, matching JTS's segmentized arcs); negative
+    distances erode. Points/lines: union of edge capsules."""
+    l = lib()
+    out = GeometryBuilder()
+    for g in range(len(col)):
+        closed = 1 if _is_polygonal(col, g) else 0
+        rings = _geom_rings(col, g)
+        xy, ro = _flatten(rings)
+        oxy, oro = _c_dpp(), _c_lpp()
+        onv, onr = ctypes.c_int64(), ctypes.c_int64()
+        rc = l.mg_buffer(
+            *_as_ptr(xy, ro), closed, float(dist), int(quad_segs),
+            ctypes.byref(oxy), ctypes.byref(oro),
+            ctypes.byref(onv), ctypes.byref(onr),
+        )
+        if rc != 0:
+            raise MemoryError("mg_buffer failed")
+        contours = _read_result(l, oxy, oro, onv, onr)
+        _emit_polygon(out, _nest_contours(contours), int(col.srid[g]))
+    return out.build()
+
+
+def unary_union(col: PackedGeometry) -> PackedGeometry:
+    """Per-row union of a geometry's own parts (reference: ST_UnaryUnion)."""
+    l = lib()
+    out = GeometryBuilder()
+    for g in range(len(col)):
+        if not _is_polygonal(col, g):
+            out.append_from(col, g)
+            continue
+        parts = []
+        for p in col.geom_parts(g):
+            parts.append([col.ring_xy(r) for r in col.part_rings(p)])
+        contours = _union_groups(l, parts)
+        _emit_polygon(out, _nest_contours(contours), int(col.srid[g]))
+    return out.build()
+
+
+def union_all(col: PackedGeometry, srid: int | None = None) -> PackedGeometry:
+    """Union of every polygonal row into one geometry (ST_Union_Agg)."""
+    l = lib()
+    groups = []
+    for g in range(len(col)):
+        if not _is_polygonal(col, g):
+            raise NotImplementedError("union_all expects polygonal rows")
+        groups.append(_geom_rings(col, g))
+    contours = _union_groups(l, groups)
+    out = GeometryBuilder()
+    _emit_polygon(
+        out, _nest_contours(contours),
+        int(col.srid[0]) if (srid is None and len(col)) else int(srid or 0),
+    )
+    return out.build()
+
+
+def _union_groups(l, groups: list[list[np.ndarray]]) -> list[np.ndarray]:
+    rings = [r for grp in groups for r in grp]
+    xy, ro = _flatten(rings)
+    go = np.zeros(len(groups) + 1, np.int64)
+    np.cumsum([len(grp) for grp in groups], out=go[1:])
+    oxy, oro = _c_dpp(), _c_lpp()
+    onv, onr = ctypes.c_int64(), ctypes.c_int64()
+    rc = l.mg_union_many(
+        *_as_ptr(xy, ro), go.ctypes.data_as(_c_lpp), ctypes.c_int64(len(groups)),
+        ctypes.byref(oxy), ctypes.byref(oro),
+        ctypes.byref(onv), ctypes.byref(onr),
+    )
+    if rc != 0:
+        raise MemoryError("mg_union_many failed")
+    return _read_result(l, oxy, oro, onv, onr)
+
+
+def convex_hull(col: PackedGeometry) -> PackedGeometry:
+    l = lib()
+    out = GeometryBuilder()
+    for g in range(len(col)):
+        pts = np.ascontiguousarray(col.geom_xy(g), dtype=np.float64)
+        n = pts.shape[0]
+        buf = np.zeros((max(2 * n, 1), 2))
+        k = l.mg_convex_hull(
+            pts.ctypes.data_as(_c_dpp), ctypes.c_int64(n),
+            buf.ctypes.data_as(_c_dpp),
+        )
+        hull = buf[:k]
+        srid = int(col.srid[g])
+        if k >= 3:
+            out.add_geometry(GeometryType.POLYGON, [[hull]], srid)
+        elif k == 2:
+            out.add_geometry(GeometryType.LINESTRING, [[hull]], srid)
+        else:
+            out.add_geometry(GeometryType.POINT, [[hull[:1]]], srid)
+    return out.build()
+
+
+def simplify(col: PackedGeometry, tol: float) -> PackedGeometry:
+    """Douglas–Peucker per ring (reference: JTS DouglasPeuckerSimplifier)."""
+    l = lib()
+    out = GeometryBuilder()
+    for g in range(len(col)):
+        gt = col.geometry_type(g)
+        if gt.base == GeometryType.POINT:
+            out.append_from(col, g)
+            continue
+        closed = 1 if gt.base == GeometryType.POLYGON else 0
+        for p in col.geom_parts(g):
+            for r in col.part_rings(p):
+                ring = np.ascontiguousarray(col.ring_xy(r), dtype=np.float64)
+                n = ring.shape[0]
+                keep = np.zeros(n, dtype=np.uint8)
+                l.mg_simplify_mask(
+                    ring.ctypes.data_as(_c_dpp), ctypes.c_int64(n),
+                    ctypes.c_double(tol), closed,
+                    keep.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                )
+                kept = ring[keep.astype(bool)]
+                if closed and kept.shape[0] < 3:
+                    kept = ring  # refuse to collapse a ring
+                out.add_ring(kept)
+            out.end_part()
+        out.end_geom(gt, int(col.srid[g]))
+    return out.build()

@@ -1,13 +1,15 @@
-"""Host (numpy, float64) oracle helpers of geometry ops.
+"""Host (numpy, float64) oracle implementations of geometry ops.
 
-Port of the part of ``mosaic_tpu/core/geometry/oracle.py`` that the
-port's callers use: the ring walk :func:`_rings`, which
-`runtime/quarantine.py degenerate_zone_mask` reads, and the exact
-row-wise intersects predicate :func:`pair_intersects` that
-`sql/overlay.py intersects_join` refines candidates with, and the
-exact row-wise distance :func:`pair_distance` that `models/knn.py`
-degrades to on the CPU. The other measures and predicates come with
-ROADMAP queue 1 item 14.
+Port of ``mosaic_tpu/core/geometry/oracle.py``: the straightforward
+per-geometry numpy measures (:func:`area`, :func:`length`,
+:func:`centroid`, :func:`bounds`) and point predicates that the
+``oracle`` function backend answers with and the device measures are held
+against, plus the exact row-wise pair predicates the reference keeps in
+``functions/geometry.py``: :func:`pair_contains`,
+:func:`pair_intersects` (which `sql/overlay.py intersects_join` refines
+candidates with) and
+:func:`pair_distance` (which `models/knn.py` degrades to on the CPU).
+The ring walk :func:`_rings` is read by `runtime/quarantine.py`.
 """
 
 from __future__ import annotations
@@ -48,6 +50,21 @@ def area(col: PackedGeometry) -> np.ndarray:
     return out
 
 
+def length(col: PackedGeometry) -> np.ndarray:
+    out = np.zeros(len(col))
+    for g in range(len(col)):
+        base = col.geometry_type(g).base
+        if base == GeometryType.POINT:
+            continue
+        tot = 0.0
+        for _, xy in _rings(col, g):
+            if base == GeometryType.POLYGON and xy.shape[0] >= 2:
+                xy = np.vstack([xy, xy[:1]])
+            tot += float(np.sum(np.linalg.norm(np.diff(xy, axis=0), axis=1)))
+        out[g] = tot
+    return out
+
+
 def centroid(col: PackedGeometry) -> np.ndarray:
     """(G, 2) f64 centroid: the area-weighted one of a polygon, the
     length-weighted one of a line, the mean vertex otherwise."""
@@ -79,6 +96,35 @@ def centroid(col: PackedGeometry) -> np.ndarray:
     return out
 
 
+def point_in_polygon(col: PackedGeometry, g: int, pt: np.ndarray) -> bool:
+    """Even-odd ray crossing over all rings of polygon g (boundary excluded
+    per crossing parity; boundary points may go either way in f64)."""
+    x, y = float(pt[0]), float(pt[1])
+    inside = False
+    for _, xy in _rings(col, g):
+        n = xy.shape[0]
+        if n < 3:
+            continue
+        j = n - 1
+        for i in range(n):
+            xi, yi = xy[i]
+            xj, yj = xy[j]
+            if (yi > y) != (yj > y):
+                xcross = xi + (y - yi) * (xj - xi) / (yj - yi)
+                if x < xcross:
+                    inside = not inside
+            j = i
+    return inside
+
+
+def contains_points(col: PackedGeometry, g: int, pts: np.ndarray) -> np.ndarray:
+    return np.array([point_in_polygon(col, g, p) for p in np.atleast_2d(pts)])
+
+
+def bounds(col: PackedGeometry) -> np.ndarray:
+    return col.bounds()
+
+
 def _rings_of(col: PackedGeometry, g: int) -> list:
     return [
         col.ring_xy(r) for p in col.geom_parts(g) for r in col.part_rings(p)
@@ -106,6 +152,25 @@ def _rings_cross(ra, rb, ta: GeometryType, tb: GeometryType) -> bool:
     if not a0.shape[0] or not b0.shape[0]:
         return False
     return bool(np.any(_segments_cross(a0, a1, b0, b1)))
+
+
+def pair_contains(a: PackedGeometry, b: PackedGeometry) -> np.ndarray:
+    """(G,) bool row-wise a contains b, exact in f64 — the reference's
+    ``st_contains(..., backend="oracle")``: every vertex of b inside a
+    (even-odd) and no boundary crossing or touch."""
+    from ..tessellate import _even_odd_inside
+
+    n = len(a)
+    out = np.zeros(n, dtype=bool)
+    for g in range(n):
+        ra, rb = _rings_of(a, g), _rings_of(b, g)
+        pts = b.geom_xy(g)
+        if not pts.shape[0] or not ra:
+            continue
+        if not _even_odd_inside(pts, ra).all():
+            continue
+        out[g] = not _rings_cross(ra, rb, a.geometry_type(g), b.geometry_type(g))
+    return out
 
 
 def pair_intersects(a: PackedGeometry, b: PackedGeometry) -> np.ndarray:

@@ -1,11 +1,11 @@
 """Spatial predicates over device geometry columns (torch).
 
-Port of the part of ``mosaic_tpu/core/geometry/predicates.py`` that the
-distance of two geometries and the overlay's sharded predicate reach:
-the even-odd crossing test, the type-aware boundary edges, segment
-intersection, the three-term minimum boundary distance and
-:func:`intersects`. The other device predicates are ROADMAP queue 1
-item 14.
+Port of ``mosaic_tpu/core/geometry/predicates.py``: the even-odd
+crossing test (:func:`contains_xy`, with a bbox prefilter
+:func:`contains_xy_bbox`, and :func:`contains_xy_gather` of each point
+against its own polygon), the type-aware boundary edges, segment
+intersection, the three-term minimum boundary distance, the point to
+boundary distance :func:`points_min_dist` and :func:`intersects`.
 
 Every function here takes geometries whose tensors may carry a leading
 batch prefix (``verts`` of shape ``(*P, G, R, V, 2)``, the other fields
@@ -121,6 +121,37 @@ def contains_xy(points: torch.Tensor, polys) -> torch.Tensor:
     return (crossing_number(points, polys) & 1) == 1
 
 
+def contains_xy_bbox(points: torch.Tensor, polys) -> torch.Tensor:
+    """(N, G) :func:`contains_xy` with a bbox prefilter (cheap reject
+    before the edges)."""
+    from .measures import bounds
+
+    bb = bounds(polys)  # (G, 4)
+    px, py = points[:, 0][:, None], points[:, 1][:, None]
+    in_bb = (px >= bb[None, :, 0]) & (py >= bb[None, :, 1]) & (
+        px <= bb[None, :, 2]
+    ) & (py <= bb[None, :, 3])
+    return in_bb & contains_xy(points, polys)
+
+
+def contains_xy_gather(points: torch.Tensor, poly_idx: torch.Tensor, polys) -> torch.Tensor:
+    """(N,) bool: each point tested against its own polygon
+    ``poly_idx[i]`` (the shape after a cell join: one candidate chip a
+    point)."""
+    a, b, mask = _poly_edges(polys)  # (G, R, E, 2)
+    ga, gb, gm = a[poly_idx], b[poly_idx], mask[poly_idx]  # (N, R, E, ...)
+    px = points[:, 0][:, None, None]
+    py = points[:, 1][:, None, None]
+    ay, by = ga[..., 1], gb[..., 1]
+    ax, bx = ga[..., 0], gb[..., 0]
+    straddle = (ay > py) != (by > py)
+    denom = by - ay
+    denom = torch.where(denom == 0, torch.ones_like(denom), denom)
+    xcross = ax + (py - ay) * (bx - ax) / denom
+    hit = straddle & (px < xcross) & gm
+    return (hit.sum(dim=(-2, -1), dtype=torch.int32) & 1) == 1
+
+
 def _seg_seg_intersect(p1, p2, q1, q2):
     """Proper + touching segment intersection by orientation tests; all
     args broadcast over (..., 2), the result is (...,) bool."""
@@ -226,6 +257,19 @@ def min_distance(ga, gb) -> torch.Tensor:
     d2 = torch.minimum(torch.minimum(amin(d_ab), amin(d_ba)), amin(dv))
     crossed = edges_intersect(ga, gb)
     return torch.where(crossed, torch.zeros_like(d2), _sqrt(d2))
+
+
+def points_min_dist(points: torch.Tensor, polys) -> torch.Tensor:
+    """(N, G) distance from each point to each geometry's boundary (0
+    inside polygons)."""
+    a, b, mask = _boundary_edges(polys)
+    af, bf, mf = _flat(a, 1), _flat(b, 1), _flat(mask, 0)  # (G, E*, ...)
+    d2 = _point_seg_dist2(points[:, None, None, :], af[None], bf[None])
+    d2 = torch.where(mf[None], d2, torch.full((), _BIG, dtype=d2.dtype, device=d2.device))
+    d2 = d2.amin(dim=-1) if d2.shape[-1] else torch.full(
+        d2.shape[:-1], _BIG, dtype=d2.dtype, device=d2.device)
+    inside = contains_xy(points, polys)
+    return torch.where(inside, torch.zeros_like(d2), _sqrt(d2))
 
 
 def intersects(ga, gb) -> torch.Tensor:

@@ -2,11 +2,8 @@
 
 Port of ``mosaic_tpu/core/index/base.py``. The contract is *columnar*:
 every operation takes and returns arrays (numpy on the host, torch
-tensors on a device). Cell IDs are always int64. The neighbourhood,
-string and validity methods are part of the contract but not abstract:
-a system that has not ported one raises ``NotImplementedError`` (the
-custom grid has them all; H3 has the ones its join and tessellation
-call).
+tensors on a device). Cell IDs are always int64. H3, BNG and the custom
+grid implement every abstract method, as in the reference.
 """
 
 from __future__ import annotations
@@ -46,15 +43,9 @@ class IndexSystem(abc.ABC):
     def max_resolution(self) -> int:
         return max(self.resolutions())
 
-    def _not_ported(self, what: str):
-        raise NotImplementedError(
-            f"{self.name}: {what} is not ported for this index system yet "
-            "(ROADMAP queue 1, item 14)"
-        )
-
+    @abc.abstractmethod
     def resolution_of(self, cells: Array) -> Array:
         """(N,) int32 resolution of each cell id."""
-        self._not_ported("resolution_of")
 
     # ------------------------------------------------------------ core math
     @abc.abstractmethod
@@ -91,24 +82,24 @@ class IndexSystem(abc.ABC):
         """(N,) int64 -> (N, boundary_max_verts, 2) boundary polygons (CCW,
         padded by repeating the last vertex)."""
 
+    @abc.abstractmethod
     def k_ring(self, cells: Array, k: int) -> Array:
         """(N,) -> (N, M) filled disk of radius k (cell itself included).
         M is static for the system/k; invalid slots are -1."""
-        self._not_ported("k_ring")
 
+    @abc.abstractmethod
     def k_loop(self, cells: Array, k: int) -> Array:
         """(N,) -> (N, M) hollow ring at exactly distance k; -1 pads."""
-        self._not_ported("k_loop")
 
+    @abc.abstractmethod
     def grid_distance(self, cells_a: Array, cells_b: Array) -> Array:
         """(N,),(N,) -> (N,) int64 grid distance, consistent with k_loop:
         grid_distance(c, n) == k for every n in k_loop(c, k)."""
-        self._not_ported("grid_distance")
 
+    @abc.abstractmethod
     def buffer_radius(self, resolution: int) -> float:
         """Radius (in CRS units) that guarantees a cell containing any point
         of a geometry is reached by buffering the geometry by this much."""
-        self._not_ported("buffer_radius")
 
     # ------------------------------------------------------------ polyfill
     @abc.abstractmethod
@@ -135,23 +126,23 @@ class IndexSystem(abc.ABC):
         ]
 
     # ------------------------------------------------------------- strings
+    @abc.abstractmethod
     def format(self, cells: np.ndarray) -> list[str]:
         """Host: int64 ids -> canonical string ids."""
-        self._not_ported("format")
 
+    @abc.abstractmethod
     def parse(self, strs: Sequence[str]) -> np.ndarray:
         """Host: string ids -> int64 ids."""
-        self._not_ported("parse")
 
     # ------------------------------------------------------------ validity
+    @abc.abstractmethod
     def is_valid(self, cells: Array) -> Array:
         """(N,) -> (N,) bool."""
-        self._not_ported("is_valid")
 
     # -------------------------------------------------------- conveniences
     def cell_area_approx(self, resolution: int) -> float:
         """Mean cell area in CRS units (used by the resolution analyzer)."""
-        self._not_ported("cell_area_approx")
+        raise NotImplementedError
 
     def resolution_arg(self, res) -> int:
         """Parse user resolution input (int or string like '500m')."""

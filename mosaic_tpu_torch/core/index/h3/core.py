@@ -687,3 +687,17 @@ def is_pentagon_cell(cells, xp=np):
     res, bc, digits = hm.unpack(cells, xp)
     lead = hm.leading_nonzero_digit(digits, res, xp)
     return pent[bc] & (lead == 0)
+
+
+def is_valid_cell(cells, xp=np):
+    """(N,) bool: a cell-mode id with a real base cell, a resolution of
+    at most 15, digits 0-6 up to its resolution and 7 past it (host
+    numpy)."""
+    cells = cells.astype(np.int64)
+    mode = (cells >> C.MODE_OFFSET) & 0xF
+    res, bc, digits = hm.unpack(cells, xp)
+    ok = (mode == C.MODE_CELL) & (bc < C.NUM_BASE_CELLS) & (res <= C.MAX_RES)
+    r_idx = np.arange(C.MAX_RES)
+    used = r_idx[None, :] < res[..., None]
+    dig_ok = xp.where(used, digits < 7, digits == 7)
+    return ok & xp.all(dig_ok, axis=-1) & (cells >= 0)

@@ -55,11 +55,22 @@ class H3IndexSystem(IndexSystem):
         cells = np.asarray(cells).astype(np.int64)
         return ((cells >> C.RES_OFFSET) & 0xF).astype(np.int32)
 
+    def buffer_radius(self, resolution: int) -> float:
+        return float(np.degrees(_cell_radius_rad(resolution)))
+
     def cell_area_approx(self, resolution: int) -> float:
         """Mean cell area in square degrees (CRS units of EPSG:4326)."""
         sphere_sq_deg = 4 * np.pi * (180 / np.pi) ** 2
         n_cells = 2 + 120 * (7**resolution)
         return float(sphere_sq_deg / n_cells)
+
+    def is_valid(self, cells):
+        """(N,) bool validity of each id (host numpy; a tensor comes back
+        as a tensor on its device)."""
+        out = core.is_valid_cell(np.asarray(_host(cells)), np)
+        if isinstance(cells, torch.Tensor):
+            return torch.as_tensor(out, device=cells.device)
+        return out
 
     def is_pentagon(self, cells):
         """(N,) bool: the cell is one of the 12 pentagons of its
@@ -513,3 +524,9 @@ class H3IndexSystem(IndexSystem):
         split = np.searchsorted(pair2[:, 0], np.arange(G + 1))
         return [pair2[split[g] : split[g + 1], 1] for g in range(G)]
 
+    # ------------------------------------------------------------- strings
+    def format(self, cells: np.ndarray) -> list[str]:
+        return ["%x" % int(c) for c in np.asarray(_host(cells))]
+
+    def parse(self, strs: Sequence[str]) -> np.ndarray:
+        return np.asarray([int(s, 16) for s in strs], dtype=np.int64)

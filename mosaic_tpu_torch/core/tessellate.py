@@ -874,3 +874,41 @@ def tessellate_subset(
         chips=t.chips,
         has_geom=t.has_geom,
     )
+
+
+def polyfill(
+    col: PackedGeometry, index: IndexSystem, resolution: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Centroid-rule polyfill: cells whose center lies inside each geometry.
+
+    Reference analog: `Polyfill` expression → H3 JNI polyfill
+    (`core/index/H3IndexSystem.scala:113-126`; centroid semantics) and BNG's
+    centroid BFS (`core/index/BNGIndexSystem.scala:180-204`).
+
+    Returns CSR ``(cells (T,), offsets (G+1,))``.
+    """
+    resolution = index.resolution_arg(resolution)
+    all_cells: list[np.ndarray] = []
+    offsets = [0]
+    bounds = col.bounds()
+    for g in range(len(col)):
+        base = col.geometry_type(g).base
+        if base != GeometryType.POLYGON:
+            offsets.append(offsets[-1])
+            all_cells.append(np.zeros(0, np.int64))
+            continue
+        cand = np.asarray(index.polyfill_candidates(bounds[g], resolution))
+        if cand.size == 0:
+            offsets.append(offsets[-1])
+            all_cells.append(np.zeros(0, np.int64))
+            continue
+        centers = np.asarray(index.cell_center(cand), dtype=np.float64)
+        rings = [r for r, _, _ in _geom_rings(col, g)]
+        inside = _even_odd_inside(centers, rings)
+        kept = np.unique(cand[inside])
+        all_cells.append(kept)
+        offsets.append(offsets[-1] + kept.size)
+    return (
+        np.concatenate(all_cells) if all_cells else np.zeros(0, np.int64),
+        np.asarray(offsets, dtype=np.int64),
+    )

@@ -1,6 +1,7 @@
 """Core geometry container types (host numpy; a copy of
 ``mosaic_tpu/core/types.py`` kept in the port so that it never imports
-the JAX package).
+the JAX package, whose ``to_padded`` works on the whole column at once
+where the reference loops over rings, with the same result).
 
 The reference engine represents geometries as per-row JVM objects
 (`core/types/model/InternalGeometry.scala:25-118` holds boundary/hole coord
@@ -65,6 +66,26 @@ class GeometryType(enum.IntEnum):
             return GeometryType(self.value - 3)
         return self
 
+    @classmethod
+    def from_name(cls, name: str) -> "GeometryType":
+        return _NAME_TO_TYPE[name.strip().upper()]
+
+    @property
+    def wkt_name(self) -> str:
+        return _TYPE_TO_NAME[self]
+
+
+_NAME_TO_TYPE = {
+    "POINT": GeometryType.POINT,
+    "LINESTRING": GeometryType.LINESTRING,
+    "POLYGON": GeometryType.POLYGON,
+    "MULTIPOINT": GeometryType.MULTIPOINT,
+    "MULTILINESTRING": GeometryType.MULTILINESTRING,
+    "MULTIPOLYGON": GeometryType.MULTIPOLYGON,
+    "GEOMETRYCOLLECTION": GeometryType.GEOMETRYCOLLECTION,
+}
+_TYPE_TO_NAME = {v: k for k, v in _NAME_TO_TYPE.items()}
+
 
 def _as_offsets(a: Iterable[int]) -> np.ndarray:
     arr = np.asarray(list(a) if not isinstance(a, np.ndarray) else a, dtype=np.int64)
@@ -77,6 +98,26 @@ def ring_signed_area(xy: np.ndarray) -> float:
     """Signed shoelace area of one ring (host helper)."""
     x, y = xy[:, 0], xy[:, 1]
     return 0.5 * float(np.sum(x * np.roll(y, -1) - np.roll(x, -1) * y))
+
+
+def open_ring(
+    xy: np.ndarray, z: np.ndarray | None = None
+) -> tuple[np.ndarray, np.ndarray | None]:
+    """Drop an explicit closing vertex (shared by all codec readers)."""
+    if xy.shape[0] >= 2 and np.array_equal(xy[0], xy[-1]):
+        return xy[:-1], (z[:-1] if z is not None else None)
+    return xy, z
+
+
+def close_ring(
+    xy: np.ndarray, z: np.ndarray | None = None
+) -> tuple[np.ndarray, np.ndarray | None]:
+    """Append the closing vertex if absent (shared by all codec writers)."""
+    if xy.shape[0] and not np.array_equal(xy[0], xy[-1]):
+        xy = np.vstack([xy, xy[:1]])
+        if z is not None:
+            z = np.concatenate([z, z[:1]])
+    return xy, z
 
 
 @dataclasses.dataclass
@@ -130,6 +171,14 @@ class PackedGeometry:
         return int(self.geom_type.shape[0])
 
     @property
+    def num_geometries(self) -> int:
+        return len(self)
+
+    @property
+    def num_parts(self) -> int:
+        return int(self.part_offsets.shape[0] - 1)
+
+    @property
     def num_rings(self) -> int:
         return int(self.ring_offsets.shape[0] - 1)
 
@@ -164,6 +213,17 @@ class PackedGeometry:
 
     def geometry_type(self, g: int) -> GeometryType:
         return GeometryType(int(self.geom_type[g]))
+
+    # ------------------------------------------------------------ per-g sizes
+    def rings_per_geom(self) -> np.ndarray:
+        # ring index range of geometry g is part_offsets[geom_offsets[g]] ..
+        # part_offsets[geom_offsets[g+1]] — offsets compose.
+        ring_bounds = self.part_offsets[self.geom_offsets]
+        return np.diff(ring_bounds)
+
+    def vertices_per_geom(self) -> np.ndarray:
+        vert_bounds = self.ring_offsets[self.part_offsets[self.geom_offsets]]
+        return np.diff(vert_bounds)
 
     # ------------------------------------------------------------------ bbox
     def bounds(self) -> np.ndarray:
@@ -208,20 +268,6 @@ class PackedGeometry:
         stop = max(start, min(stop + n if stop < 0 else stop, n))
         return self.take(range(start, stop))
 
-    @classmethod
-    def empty(cls) -> "PackedGeometry":
-        return cls(
-            xy=np.zeros((0, 2)),
-            ring_offsets=np.zeros(1, np.int64),
-            part_offsets=np.zeros(1, np.int64),
-            geom_offsets=np.zeros(1, np.int64),
-            geom_type=np.zeros(0, np.uint8),
-            srid=np.zeros(0, np.int32),
-        )
-
-    def concat(self, other: "PackedGeometry") -> "PackedGeometry":
-        return concat_packed([self, other])
-
     # ------------------------------------------------------------ conversion
     def to_padded(
         self,
@@ -235,53 +281,84 @@ class PackedGeometry:
         Shells are re-oriented CCW and holes CW. ``close_rings`` repeats the
         first vertex at the end of each ring (edge iteration then needs no
         wraparound index math on device).
+
+        The reference's per-ring loop as array operations over the whole
+        column, with the same result: a ring's orientation comes from its
+        shoelace sum, whose sign is taken from one segmented sum where it
+        is certain (larger than any order of the adds could move it) and
+        from :func:`ring_signed_area`, the reference's own ``np.sum``,
+        elsewhere.
         """
         G = len(self)
-        ring_counts = np.zeros(G, dtype=np.int64)
-        for g in range(G):
-            n = 0
-            for p in self.geom_parts(g):
-                n += len(self.part_rings(p))
-            ring_counts[g] = n
+        ring_counts = self.rings_per_geom().astype(np.int64)
         R = int(max_rings if max_rings is not None else (ring_counts.max() if G else 1))
         R = max(R, 1)
         extra = 1 if close_rings else 0
-        ring_len_max = 0
-        for r in range(self.num_rings):
-            ring_len_max = max(ring_len_max, int(self.ring_offsets[r + 1] - self.ring_offsets[r]))
+        nr = self.num_rings
+        rl = np.diff(self.ring_offsets)
+        ring_len_max = int(rl.max()) if nr else 0
         V = int(max_verts if max_verts is not None else ring_len_max + extra)
         V = max(V, 1)
+
+        part_geom = np.repeat(np.arange(G), np.diff(self.geom_offsets))
+        ring_part = np.repeat(np.arange(self.part_offsets.shape[0] - 1),
+                              np.diff(self.part_offsets))
+        ring_geom = part_geom[ring_part]
+        r_idx = np.arange(nr)
+        ri = r_idx - self.part_offsets[self.geom_offsets[:-1]][ring_geom]
+        k = r_idx - self.part_offsets[:-1][ring_part]
+        gt = self.geom_type.astype(np.int64)[ring_geom]
+        poly = (gt == GeometryType.POLYGON) | (gt == GeometryType.MULTIPOLYGON)
+        is_hole = poly & (k > 0)
+        closing = close_rings & poly & (rl > 0)
+        bad = (ri >= R) | (rl + closing > V)
+        if bad.any():
+            r = int(np.argmax(bad))
+            g = int(ring_geom[r])
+            if ri[r] >= R:
+                raise ValueError(f"geometry {g} exceeds max_rings={R}")
+            raise ValueError(
+                f"geometry {g} ring of {int(rl[r])} vertices exceeds max_verts={V}"
+            )
+
+        flip = np.zeros(nr, dtype=bool)
+        orient = np.nonzero(poly & (rl >= 3))[0]
+        if orient.size:
+            x, y = self.xy[:, 0], self.xy[:, 1]
+            nz = rl > 0
+            nxt = np.arange(self.xy.shape[0]) + 1
+            nxt[self.ring_offsets[1:][nz] - 1] = self.ring_offsets[:-1][nz]
+            term = x * y[nxt] - x[nxt] * y
+            # one segmented sum over the non-empty rings (each runs to the
+            # next one's start)
+            starts = self.ring_offsets[:-1][nz]
+            sums = np.zeros(nr)
+            mags = np.zeros(nr)
+            sums[nz] = np.add.reduceat(term, starts)
+            mags[nz] = np.add.reduceat(np.abs(term), starts)
+            sums, mags = sums[orient], mags[orient]
+            sa = 0.5 * sums
+            eps = np.finfo(np.float64).eps
+            sure = np.abs(sums) > 4.0 * rl[orient] * eps * mags
+            for j in np.nonzero(~sure)[0]:
+                sa[j] = ring_signed_area(self.ring_xy(int(orient[j])))
+            flip[orient] = (sa < 0) != is_hole[orient]
 
         verts = np.zeros((G, R, V, 2), dtype=dtype)
         ring_len = np.zeros((G, R), dtype=np.int32)
         ring_hole = np.zeros((G, R), dtype=bool)
-        n_rings = np.zeros((G,), dtype=np.int32)
-        for g in range(G):
-            ri = 0
-            gt = self.geometry_type(g).base
-            for p in self.geom_parts(g):
-                for k, r in enumerate(self.part_rings(p)):
-                    if ri >= R:
-                        raise ValueError(f"geometry {g} exceeds max_rings={R}")
-                    pts = self.ring_xy(r)
-                    is_hole = gt == GeometryType.POLYGON and k > 0
-                    if gt == GeometryType.POLYGON and pts.shape[0] >= 3:
-                        sa = ring_signed_area(pts)
-                        if (sa < 0) != is_hole:
-                            pts = pts[::-1]
-                    n = pts.shape[0]
-                    stored = n + (extra if (close_rings and gt == GeometryType.POLYGON and n) else 0)
-                    if stored > V:
-                        raise ValueError(
-                            f"geometry {g} ring of {n} vertices exceeds max_verts={V}"
-                        )
-                    verts[g, ri, :n] = pts
-                    if close_rings and gt == GeometryType.POLYGON and n:
-                        verts[g, ri, n] = pts[0]
-                    ring_len[g, ri] = n
-                    ring_hole[g, ri] = is_hole
-                    ri += 1
-            n_rings[g] = ri
+        if nr:
+            vr = np.repeat(r_idx, rl)
+            j = np.arange(self.xy.shape[0]) - self.ring_offsets[:-1][vr]
+            src = np.where(flip[vr], self.ring_offsets[1:][vr] - 1 - j,
+                           self.ring_offsets[:-1][vr] + j)
+            verts[ring_geom[vr], ri[vr], j] = self.xy[src]
+            c = np.nonzero(closing)[0]
+            first = np.where(flip[c], self.ring_offsets[1:][c] - 1, self.ring_offsets[:-1][c])
+            verts[ring_geom[c], ri[c], rl[c]] = self.xy[first]
+            ring_len[ring_geom, ri] = rl
+            ring_hole[ring_geom, ri] = is_hole
+        n_rings = ring_counts.astype(np.int32)
         return PaddedGeometry(
             verts=verts,
             ring_len=ring_len,
@@ -291,6 +368,36 @@ class PackedGeometry:
             srid=self.srid.copy(),
             rings_closed=close_rings,
         )
+
+    # ----------------------------------------------------------- constructors
+    @classmethod
+    def empty(cls) -> "PackedGeometry":
+        return cls(
+            xy=np.zeros((0, 2)),
+            ring_offsets=np.zeros(1, np.int64),
+            part_offsets=np.zeros(1, np.int64),
+            geom_offsets=np.zeros(1, np.int64),
+            geom_type=np.zeros(0, np.uint8),
+            srid=np.zeros(0, np.int32),
+        )
+
+    @classmethod
+    def from_points(cls, xy: np.ndarray, srid: int = 4326) -> "PackedGeometry":
+        """Vectorized construction of a POINT column from an (N, 2) array."""
+        xy = np.asarray(xy, dtype=np.float64).reshape(-1, 2)
+        n = xy.shape[0]
+        ar = np.arange(n + 1, dtype=np.int64)
+        return cls(
+            xy=xy,
+            ring_offsets=ar,
+            part_offsets=ar,
+            geom_offsets=ar,
+            geom_type=np.full(n, GeometryType.POINT, np.uint8),
+            srid=np.full(n, srid, np.int32),
+        )
+
+    def concat(self, other: "PackedGeometry") -> "PackedGeometry":
+        return concat_packed([self, other])
 
 
 def concat_packed(columns: Sequence[PackedGeometry]) -> PackedGeometry:
@@ -347,6 +454,10 @@ class PaddedGeometry:
 
     def __len__(self) -> int:
         return int(self.geom_type.shape[0])
+
+    @property
+    def max_rings(self) -> int:
+        return int(self.verts.shape[1])
 
     @property
     def max_verts(self) -> int:

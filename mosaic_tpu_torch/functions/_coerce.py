@@ -1,12 +1,12 @@
-"""Input coercion of geometry columns.
+"""Input coercion + format preservation for the function DSL.
 
-Port of the part of ``mosaic_tpu/functions/_coerce.py`` that the tuning
-profiler and the resolution analyzer read: :func:`detect_format`,
-:func:`coerce` and :func:`to_packed`. A :class:`PackedGeometry` passes
-through as it is. The serialized forms (WKT, WKB, hex WKB, GeoJSON) are
-detected as the reference detects them, but their readers
-(``core/geometry/{wkt,wkb,geojson}.py``) come with ROADMAP queue 1 item
-14, so coercing one raises ``NotImplementedError``.
+Port of ``mosaic_tpu/functions/_coerce.py``. The reference's expressions
+accept geometry in any serialized form (WKT, WKB, HEX, GeoJSON, internal)
+and geometry-returning expressions serialize the result back into the
+*input's* form (`expressions/geometry/base/VectorExpression.scala:17-94`,
+`codegen/format/ConvertToCodeGen.scala:42-73`). Every DSL function
+funnels its inputs through :func:`coerce`, and geometry outputs go back
+out through :func:`like_input`.
 """
 
 from __future__ import annotations
@@ -14,6 +14,11 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.types import PackedGeometry
+from ..core.geometry import geojson as _geojson
+from ..core.geometry import wkb as _wkb
+from ..core.geometry import wkt as _wkt
+
+FORMATS = ("packed", "wkt", "wkb", "hex", "geojson", "coords")
 
 
 def detect_format(data) -> str:
@@ -49,11 +54,51 @@ def coerce(data, srid: int = 4326) -> tuple[PackedGeometry, str]:
     fmt = detect_format(data)
     if fmt == "packed":
         return data, fmt
-    raise NotImplementedError(
-        f"reading {fmt} geometry is not ported yet (ROADMAP queue 1, item "
-        f"14: core/geometry/{{wkt,wkb,geojson}}.py); pass a PackedGeometry"
-    )
+    single = not isinstance(data, (list, tuple))
+    seq = [data] if single else list(data)
+    if fmt == "wkt":
+        return _wkt.from_wkt(seq, srid=srid), fmt
+    if fmt == "wkb":
+        return _wkb.from_wkb(seq, srid=srid), fmt
+    if fmt == "hex":
+        return _wkb.from_hex(seq, srid=srid), fmt
+    return _geojson.from_geojson(seq), fmt
 
 
 def to_packed(data, srid: int = 4326) -> PackedGeometry:
     return coerce(data, srid)[0]
+
+
+def serialize(col: PackedGeometry, fmt: str):
+    """PackedGeometry -> the named serialized form."""
+    if fmt == "packed" or fmt == "coords":
+        return col
+    if fmt == "wkt":
+        return _wkt.to_wkt(col)
+    if fmt == "wkb":
+        return _wkb.to_wkb(col)
+    if fmt == "hex":
+        return _wkb.to_hex(col)
+    if fmt == "geojson":
+        return _geojson.to_geojson(col)
+    raise ValueError(f"unknown geometry format {fmt!r}")
+
+
+def like_input(col: PackedGeometry, fmt: str):
+    """Serialize a result the way the input came in (reference: serialise)."""
+    return serialize(col, fmt)
+
+
+def as_points(data) -> np.ndarray:
+    """Point-geometry input (or a raw (N,2) array) -> (N,2) float64."""
+    if isinstance(data, np.ndarray) and data.ndim == 2 and data.shape[1] == 2:
+        return np.asarray(data, dtype=np.float64)
+    if hasattr(data, "shape") and getattr(data, "ndim", 0) == 2:
+        return np.asarray(data, dtype=np.float64)
+    col = to_packed(data)
+    out = np.full((len(col), 2), np.nan)
+    for g in range(len(col)):
+        pts = col.geom_xy(g)
+        if pts.shape[0]:
+            out[g] = pts[0]
+    return out

@@ -17,9 +17,7 @@ Port of ``mosaic_tpu/knn/index.py``. Built once per candidate set:
   convex chip sites (``chip_index.voronoi``) that the frontend's convex
   lane walks.
 
-What differs from the reference: ``index_system`` and ``resolution`` are
-required (the resolution analyzer and the context's index system are
-not ported); ``device`` places ``dc`` and the chip index (the card unless
+What differs from the reference: ``device`` places ``dc`` and the chip index (the card unless
 the caller asks for the CPU).
 """
 
@@ -35,7 +33,8 @@ from ..core.geometry.device import DeviceGeometry, pack_to_device
 from ..core.index.base import IndexSystem
 from ..core.tessellate import tessellate
 from ..core.types import GeometryType, PackedGeometry
-from ..functions.geometry import DEVICE_DTYPE, _translate
+from ..core.geometry.affine import translate
+from ..functions.geometry import DEVICE_DTYPE
 
 
 @dataclasses.dataclass
@@ -185,12 +184,13 @@ def build_knn_index(
     ``resolution`` the resolution analyzer picks one for the candidates
     (`sql/analyzer.py`), as the reference's does."""
     if index_system is None:
-        raise NotImplementedError(
-            "build_knn_index needs index_system=: the context's index "
-            "system is not ported yet (ROADMAP queue 1, item 14)"
-        )
+        from ..context import current_context
+
+        index_system = current_context().index_system
+    from ..functions._coerce import to_packed
+
     dev = resolve_device(device)
-    cand = candidates
+    cand = to_packed(candidates)
     if resolution is not None:
         res = index_system.resolution_arg(resolution)
     else:
@@ -205,7 +205,7 @@ def build_knn_index(
 
     shift = np.asarray(_candidate_shift(cand), dtype=np.float64)
     dc = pack_to_device(
-        _translate(cand, -shift[0], -shift[1]), dtype=DEVICE_DTYPE, device=dev,
+        translate(cand, -shift[0], -shift[1]), dtype=DEVICE_DTYPE, device=dev,
     )
 
     chip_index = None

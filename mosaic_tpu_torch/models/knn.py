@@ -15,9 +15,7 @@ every iteration's geometry distances are one padded device call (pairs
 gathered from two float64 DeviceGeometry columns sharing one recenter
 shift), on the card unless the model was built with ``device="cpu"``.
 
-What differs from the reference: ``index`` and ``resolution`` are
-required (the context's index system and the resolution analyzer are
-not ported); ``mesh=`` takes a `parallel.mesh.Mesh` (or a device
+What differs from the reference: ``mesh=`` takes a `parallel.mesh.Mesh` (or a device
 count) and shards each iteration's pair batch over it
 (`parallel/dist_knn.py`), bit for bit the single-device distances; each
 iteration's shells come from ONE batched ``k_ring``/``k_loop`` call over
@@ -157,10 +155,9 @@ class SpatialKNN:
         device=None,
     ):
         if index is None:
-            raise NotImplementedError(
-                "SpatialKNN needs index=: the context's index system is "
-                "not ported yet (ROADMAP queue 1, item 14)"
-            )
+            from ..context import current_context
+
+            index = current_context().index_system
         self.index = index
         self.resolution = resolution
         self.k = int(k_neighbours)

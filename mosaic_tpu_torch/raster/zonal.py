@@ -97,12 +97,6 @@ __all__ = [
 ]
 
 
-def _not_ported(what: str, item: int, why: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item}: {why})"
-    )
-
-
 def resolve_zonal_lane(lane: str = "auto") -> str:
     """Resolve the fold lane on the host: ``MOSAIC_RASTER_LANE``
     overrides ``auto``; explicit arguments win over the env. ``fold`` is
@@ -513,10 +507,9 @@ def zonal_grid(
     """One-shot raster→grid-cell zonal fold (build a :class:`ZonalEngine`
     once and reuse it when folding many rasters)."""
     if index_system is None:
-        raise _not_ported(
-            "zonal_grid(index_system=None)", 14,
-            "the context that supplies a default index system",
-        )
+        from ..context import current_context
+
+        index_system = current_context().index_system
     resolution = index_system.resolution_arg(resolution)
     eng = ZonalEngine(index_system, resolution, device=device)
     return eng.grid(raster, band=band, tile=tile)

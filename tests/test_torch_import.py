@@ -90,6 +90,20 @@ MODULES = [
     "mosaic_tpu_torch.tools.perf_gate",
     "mosaic_tpu_torch.tools.fleet_report",
     "mosaic_tpu_torch.tools.doctor",
+    "mosaic_tpu_torch.functions",
+    "mosaic_tpu_torch.functions.aggregates",
+    "mosaic_tpu_torch.functions.formats",
+    "mosaic_tpu_torch.functions.grid",
+    "mosaic_tpu_torch.functions.raster",
+    "mosaic_tpu_torch.functions.util",
+    "mosaic_tpu_torch.core.geometry.wkt",
+    "mosaic_tpu_torch.core.geometry.wkb",
+    "mosaic_tpu_torch.core.geometry.geojson",
+    "mosaic_tpu_torch.core.geometry.collection",
+    "mosaic_tpu_torch.core.geometry.affine",
+    "mosaic_tpu_torch.core.geometry.measures",
+    "mosaic_tpu_torch.core.geometry.second",
+    "mosaic_tpu_torch.sql.frame",
 ]
 
 #: the ops plane's command-line tools, run as ``python -m`` runs them
@@ -160,6 +174,28 @@ def test_knn_modules_leave_jax_and_reference_out():
     """The KNN slice's entry modules, imported alone."""
     code = (
         "import mosaic_tpu_torch.knn, mosaic_tpu_torch.models, sys; "
+        "assert 'jax' not in sys.modules and 'mosaic_tpu' not in sys.modules"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=str(ROOT), timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_function_surface_leaves_jax_and_reference_out():
+    """The function surface's entry modules, imported alone, and a built
+    context; ``import mosaic_tpu_torch``, its context module and the join
+    (which reads the context) do not load the function namespace until
+    first use."""
+    code = (
+        "import sys, mosaic_tpu_torch, mosaic_tpu_torch.context as C, "
+        "mosaic_tpu_torch.sql.join\n"
+        "assert 'mosaic_tpu_torch.functions' not in sys.modules\n"
+        "import mosaic_tpu_torch.functions, mosaic_tpu_torch.sql.frame\n"
+        "ctx = C.MosaicContext.build('H3')\n"
+        "assert len(ctx.register()) == len(mosaic_tpu_torch.functions.__all__)\n"
         "assert 'jax' not in sys.modules and 'mosaic_tpu' not in sys.modules"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

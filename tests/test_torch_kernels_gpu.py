@@ -1241,3 +1241,59 @@ def test_meshed_join_on_card_launches_once_a_shard(cuda):
         np.testing.assert_array_equal(eng.join(pts[:1000], deadline_s=30.0), want[:1000])
         core = eng.core
     assert core._graphs == {}
+
+
+# ------------------------------------------------------ the function surface
+def _surface_zones():
+    return synthetic_zones(4, 4, bbox=BBOX, verts=64)
+
+
+def test_rastertogridavg_on_card_equals_cpu_bit_for_bit(cuda):
+    """`rst_rastertogrid*` folds through `zonal_seq_fold` on the card: every
+    cell's value equals the CPU lane's bits."""
+    from mosaic_tpu_torch import functions as F
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+    from mosaic_tpu_torch.datasets import synthetic_raster
+
+    r = synthetic_raster(300, 260, seed=4)
+    r.data[0, :7, :9] = r.nodata
+    h3 = H3IndexSystem()
+    for name in ("avg", "min", "max", "count"):
+        fn = getattr(F, f"rst_rastertogrid{name}")
+        before = TZ.zonal_fold.launches
+        got = fn([r], 9, index=h3)
+        assert TZ.zonal_fold.launches > before
+        want = fn([r], 9, index=h3, device="cpu")
+        assert [list(b) for b in got[0]] == [list(b) for b in want[0]]
+        for gb, wb in zip(got[0], want[0]):
+            assert {k: float(v).hex() for k, v in gb.items()} == {
+                k: float(v).hex() for k, v in wb.items()}, name
+
+
+def test_surface_measures_and_pairs_on_card_equal_cpu(cuda):
+    """Device measures on the card within 1e-12 of the CPU (sum order);
+    the f64 pair programs equal the CPU bit for bit."""
+    from mosaic_tpu_torch import functions as F
+
+    zones = _surface_zones()
+    for name in ("st_area", "st_length", "st_xmin", "st_ymax"):
+        fn = getattr(F, name)
+        np.testing.assert_allclose(fn(zones), fn(zones, device="cpu"), rtol=1e-12)
+    shifted = F.st_translate(zones, 0.004, 0.003)
+    for name in ("st_contains", "st_intersects", "st_distance"):
+        fn = getattr(F, name)
+        got, want = fn(zones, shifted), fn(zones, shifted, device="cpu")
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes(), name
+
+
+def test_grid_longlatascellid_answers_on_card(cuda):
+    from mosaic_tpu_torch import functions as F
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+
+    rng = np.random.default_rng(5)
+    lon, lat = rng.uniform(-74, -73.9, 5000), rng.uniform(40.7, 40.8, 5000)
+    h3 = H3IndexSystem()
+    got = F.grid_longlatascellid(lon, lat, 9, index=h3)
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    want = h3.point_to_cell(torch.from_numpy(np.stack([lon, lat], -1)).to(cuda), 9)
+    assert torch.equal(got, want)

@@ -303,15 +303,19 @@ def test_convert_carries_a_reference_knn_index(problem, grids):
 
 
 def test_build_needs_system_and_resolution(grids, problem):
-    """An index system is still needed (the context's is item 14); a
-    missing resolution is the resolution analyzer's pick, as the
-    reference's."""
+    """A missing index system is the context's and a missing resolution
+    the resolution analyzer's pick, as the reference's."""
+    from mosaic_tpu_torch import context as TC
+
     rg, pg = grids
     cand = port(problem[0])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        build_knn_index(cand, None, RES, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        SpatialKNN(None, RES, device="cpu")
+    TC.MosaicContext.build(pg)
+    try:
+        assert (build_knn_index(cand, None, RES, device="cpu").fingerprint
+                == build_knn_index(cand, pg, RES, device="cpu").fingerprint)
+        assert SpatialKNN(None, RES, device="cpu").index is pg
+    finally:
+        TC.MosaicContext.reset()
     rkx = ref_build(problem[0], index_system=rg)
     kx = build_knn_index(cand, pg, device="cpu")
     assert kx.resolution == rkx.resolution

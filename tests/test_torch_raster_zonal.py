@@ -237,8 +237,15 @@ def test_unported_options_raise_typed(ixs):
     # mesh= is ported (it raised before): only a count or a Mesh is taken
     with pytest.raises(TypeError, match="mesh="):
         TZ.ZonalEngine(PORT, RES, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TZ.zonal_grid(r, RES, device="cpu")
+    # the context supplies the default index system, as the reference's
+    from mosaic_tpu_torch import context as TC
+
+    TC.MosaicContext.build(PORT)
+    try:
+        assert_equal(TZ.zonal_grid(r, RES, device="cpu"),
+                     TZ.zonal_grid(r, RES, index_system=PORT, device="cpu"))
+    finally:
+        TC.MosaicContext.reset()
 
 
 def test_entry_points_raise_without_cuda(ixs, monkeypatch):
