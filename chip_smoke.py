@@ -209,6 +209,27 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    ``overlay_measures`` bit for bit with one ``zonal_seq_fold`` launch.
    Prints geometries/s, pairs/s, points/s beside phase 6's, pixels/s and
    the phase's launches;
+8p. files in and out (``core/crs*.py``, ``raster/core.py`` IO,
+   ``readers``), under ``FILES_DIR`` (removed): ``from_wgs84`` and
+   ``to_wgs84`` on the torch lane in f64 on the card, the 4M points mapped
+   into each of ``FILES_CRS_SRIDS``' areas of use, held to the numpy lane
+   on the first ``FILES_CRS_CHECK`` within ``FILES_CRS_BANDS`` with the
+   same non-finite rows and no host sync (points/s printed); the raster
+   in UTM 18N at ``FILES_UTM_PIXEL`` m and in EPSG:4326 through
+   ``write_geotiff`` and ``read_raster`` (pixels, geotransform, SRID and
+   nodata bit for bit); the tiled deflate predictor-2 file of
+   ``tests/modis_fixture.py`` decoded to its field; ``read("raster_to_grid")``
+   of the UTM file at ``RES``, ``retileSize`` ``FILES_GRID_TILE``, avg and
+   max, each launching ``zonal_seq_fold``, and of its ``CROP`` middle on
+   the card equal to ``device="cpu"`` and to a numpy f64 host fold of the
+   same cells merged tile by tile as the reader merges; the tiled zones of
+   the read-back EPSG:4326 raster equal to phase 4's bit for bit; phase
+   3's zones through every ``readers.write`` format and ``readers.read``
+   back (bit for bit; a shapefile stores each ring reversed); the zones
+   in UTM 18N as a shapefile with a ``.prj`` read back as SRID 32618 and
+   returned to EPSG:4326 within 2e-7 degrees; the first
+   ``FILES_TESS_ZONES`` read-back zones tessellated equal to phase 3's
+   chips and their 4M ``pip_join`` equal to the in-memory zones' join;
 8d-8f, 8j and 8k run in a process of their own (``--serve-child``; its
    lines' ``t_s`` count from its own start, the parent passes them
    through), started right after phase 3: it loads phase 3's index from
@@ -464,6 +485,27 @@ FN_ORACLE = 2_048           # the first pairs held against the f64 oracle ...
 FN_ORACLE_DIST = 128        # ... and of st_distance (a Python loop a vertex)
 FN_CELL_CPU = 100_000       # points whose card cells are compared with the CPU's
 FN_TESS_ZONES = 64          # zones 8o tessellates again, held to phase 3's chips of them
+FILES_DIR = ".chip_smoke_files"  # 8p's vector files and GeoTIFFs (removed)
+FILES_TESS_ZONES = 64       # read-back zones 8p tessellates and joins
+FILES_CRS_SRIDS = (32618, 27700, 3857, 3067, 5880)  # 8p's device CRS lane
+FILES_CRS_CHECK = 65_536    # points of each code held against the numpy lane
+FILES_UTM_PIXEL = 30.0      # metres, the UTM 18N GeoTIFF's pixel
+FILES_GRID_TILE = 512       # raster_to_grid's retileSize
+#: 8p's torch-lane bands against the numpy lane (the reference's device
+#: bands: tests/test_crs_affine.py, tests/test_crs_proj.py), forward in
+#: projected units, inverse in degrees
+FILES_CRS_BANDS = {27700: (1e-5, 1e-6), 3067: (1e-6, 1e-6), 5880: (1e-6, 1e-5),
+                   32618: (1e-6, 1e-6), 3857: (1e-6, 1e-6)}
+#: WKT1 of EPSG:32618 as GDAL writes it: the shapefile writer emits a .prj
+#: only for 4326, 27700 and 3857
+UTM18N_PRJ = (
+    'PROJCS["WGS 84 / UTM zone 18N",GEOGCS["WGS 84",DATUM["WGS_1984",'
+    'SPHEROID["WGS 84",6378137,298.257223563]],PRIMEM["Greenwich",0],'
+    'UNIT["degree",0.0174532925199433]],PROJECTION["Transverse_Mercator"],'
+    'PARAMETER["latitude_of_origin",0],PARAMETER["central_meridian",-75],'
+    'PARAMETER["scale_factor",0.9996],PARAMETER["false_easting",500000],'
+    'PARAMETER["false_northing",0],UNIT["metre",1],AUTHORITY["EPSG","32618"]]'
+)
 #: where ``--keep-trails DIR`` copies 8m's trails (the card golden's input)
 KEEP_TRAILS = None
 
@@ -1652,6 +1694,260 @@ def functions_phase(ix, table, H3, dev, zones, raw, joined, host_exact, main_pps
     })
     bad = [k for k, v in gates.items() if not v]
     return (f"functions gates failed: {bad}" if bad else None), launches
+
+
+def files_phase(ix, table, H3, dev, zones, raw, raster, zones_want, zone_eng,
+                counted, card):
+    """Phase 8p, files in and out: the device CRS lane on the 4M batch,
+    GeoTIFF written and read back (a UTM 18N copy of the raster and the
+    EPSG:4326 raster itself), the MODIS-like tiled deflate file,
+    ``read("raster_to_grid")`` of the UTM file on the card, the zones of
+    the read-back raster, the zones through every vector writer and
+    reader, a UTM shapefile with its ``.prj``, and a join from read-back
+    zones. Returns (failure message or None, the phase's launches by
+    kernel)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from mosaic_tpu_torch import readers
+    from mosaic_tpu_torch.core import crs
+    from mosaic_tpu_torch.core.tessellate import ChipTable, tessellate
+    from mosaic_tpu_torch.datasets import NYC_BBOX
+    from mosaic_tpu_torch.functions import geometry as FG
+    from mosaic_tpu_torch.raster import Raster, read_raster, write_geotiff
+    from mosaic_tpu_torch.readers.vector import VectorTable
+    from mosaic_tpu_torch.sql import join as J
+
+    spec = importlib.util.spec_from_file_location(
+        "modis_fixture", os.path.join(HERE, "tests", "modis_fixture.py"))
+    modis = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(modis)
+
+    t_phase = time.perf_counter()
+    launches = {k: 0 for k in counted}
+    secs = {}
+    gates = {}
+    d = os.path.join(HERE, FILES_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+
+    def run(name, call):
+        """``call()`` timed (synced) with its launches added to the
+        phase's; the counts are set to 0 just before it."""
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out_ = call()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        got = {k: fn.launches for k, fn in counted.items()}
+        for k, v in got.items():
+            launches[k] += v
+        return out_, got
+
+    # the device CRS lane: the 4M batch mapped into each code's area of
+    # use, forward and inverse in f64 on the card, against the numpy lane
+    # on the first FILES_CRS_CHECK points
+    bx0, by0, bx1, by1 = NYC_BBOX
+    unit = (raw - [bx0, by0]) / [bx1 - bx0, by1 - by0]
+    lane = {}
+    sub = slice(0, FILES_CRS_CHECK)
+    for srid in FILES_CRS_SRIDS:
+        gx0, gy0, gx1, gy1 = crs.crs_bounds(srid, reprojected=False)
+        ll = np.stack([gx0 + unit[:, 0] * (gx1 - gx0), gy0 + unit[:, 1] * (gy1 - gy0)], -1)
+        ll_t = torch.from_numpy(ll).to(dev)
+        crs.to_wgs84(crs.from_wgs84(ll_t, srid, crs.TORCH), srid, crs.TORCH)  # warm
+        en_t, _ = run(f"crs_fwd_{srid}", lambda: crs.from_wgs84(ll_t, srid, crs.TORCH))
+        back_t, _ = run(f"crs_inv_{srid}", lambda: crs.to_wgs84(en_t, srid, crs.TORCH))
+        syncs, first = count_syncs(lambda: crs.to_wgs84(
+            crs.from_wgs84(ll_t, srid, crs.TORCH), srid, crs.TORCH))
+        en_np = crs.from_wgs84(ll[sub], srid, np)
+        inv_t = crs.to_wgs84(torch.from_numpy(en_np).to(dev), srid, crs.TORCH)
+        inv_np = crs.to_wgs84(en_np, srid, np)
+        gaps = []
+        for got, want in ((en_t[sub].cpu().numpy(), en_np), (inv_t.cpu().numpy(), inv_np)):
+            fin = np.isfinite(want)
+            gaps.append((int((np.isfinite(got) != fin).sum()),
+                         float(np.abs(np.where(fin, got - want, 0.0)).max())))
+        fb, ib = FILES_CRS_BANDS[srid]
+        ok = (gaps[0][0] == 0 and gaps[1][0] == 0 and gaps[0][1] <= fb and gaps[1][1] <= ib
+              and en_t.dtype == torch.float64 and en_t.device.type == dev.type)
+        gates[f"crs_{srid}_within_band"] = ok
+        lane[srid] = {
+            "fwd_points_per_s": raw.shape[0] / secs[f"crs_fwd_{srid}"],
+            "inv_points_per_s": raw.shape[0] / secs[f"crs_inv_{srid}"],
+            "fwd_max_gap": gaps[0][1], "inv_max_gap": gaps[1][1],
+            "finite_mismatch": gaps[0][0] + gaps[1][0], "bands": [fb, ib],
+            "host_syncs": syncs, "first_sync": first,
+        }
+    gates["crs_lane_no_host_sync"] = sum(v["host_syncs"] for v in lane.values()) == 0
+
+    # GeoTIFF: the raster in UTM 18N at FILES_UTM_PIXEL metres from the
+    # UTM envelope's upper left of NYC_BBOX, and the EPSG:4326 raster
+    def same_raster(a, b):
+        return (a.data.dtype == b.data.dtype and a.data.shape == b.data.shape
+                and a.data.tobytes() == b.data.tobytes() and a.gt == b.gt
+                and a.srid == b.srid and np.float64(a.nodata).tobytes()
+                == np.float64(b.nodata).tobytes())
+
+    corners = np.array([[bx0, by0], [bx0, by1], [bx1, by0], [bx1, by1]])
+    en = crs.from_wgs84(corners, 32618)
+    utm = Raster(data=raster.data, gt=(float(en[:, 0].min()), FILES_UTM_PIXEL, 0.0,
+                                       float(en[:, 1].max()), 0.0, -FILES_UTM_PIXEL),
+                 srid=32618, nodata=raster.nodata)
+    tif = {"utm": os.path.join(d, "utm.tif"), "wgs84": os.path.join(d, "wgs84.tif")}
+    io_s = {}
+    back = {}
+    for key, r in (("utm", utm), ("wgs84", raster)):
+        t0 = time.perf_counter()
+        write_geotiff(tif[key], r)
+        t1 = time.perf_counter()
+        back[key] = read_raster(tif[key])
+        io_s[key] = {"write_s": t1 - t0, "read_s": time.perf_counter() - t1,
+                     "mb": os.path.getsize(tif[key]) / 1e6}
+        gates[f"geotiff_{key}_round_trip"] = same_raster(back[key], r)
+    mpath = modis.write_modis_like(os.path.join(d, "modis.tif"))
+    t0 = time.perf_counter()
+    m = read_raster(mpath)
+    io_s["modis_read_s"] = time.perf_counter() - t0
+    mwant = modis.modis_like_field()
+    m_valid = float(m.bands[0].mask.mean())
+    gates["modis_decode"] = bool(
+        m.data.dtype == mwant.dtype and m.data.tobytes() == mwant.tobytes()
+        and m.nodata == 32767.0 and abs(m.gt[1] - modis.MODIS_PIXEL) < 1e-3
+        and 0.05 < m_valid < 0.2 and m.metadata().get("PRODUCT") == "SYNTHETIC_MCD43A4")
+
+    # raster_to_grid of the UTM file on the card, then on its middle crop
+    # on the card and the CPU, and against the f64 host fold of the crop
+    def to_grid(path, comb, **kw):
+        return (readers.read("raster_to_grid").option("resolution", RES)
+                .option("combiner", comb).option("retileSize", FILES_GRID_TILE)
+                .load(path, index=H3, **kw))
+
+    grid = {}
+    for comb in ("avg", "max"):
+        grid[comb], gl = run(f"raster_to_grid_{comb}", lambda: to_grid(tif["utm"], comb))
+        gates[f"raster_to_grid_{comb}_launched_zonal_seq_fold"] = gl["zonal_fold"] > 0
+    ucrop = middle(back["utm"], CROP)
+    cpath = os.path.join(d, "utm_crop.tif")
+    write_geotiff(cpath, ucrop)
+    merged = {"avg": {}, "max": {}}
+    for t in ucrop.retile(FILES_GRID_TILE, FILES_GRID_TILE):
+        x, y = t.pixel_centers()
+        ll = crs.transform_points(np.stack([x, y], -1).reshape(-1, 2), 32618, 4326)
+        cells = H3.point_to_cell(torch.from_numpy(ll).to(dev), RES).cpu().numpy()
+        band = t.bands[0]
+        uniq, cnt, s_, _, mx = host_cell_fold(band.values.ravel(), band.mask.ravel(), cells)
+        cntf = cnt.astype(np.float64)
+        avg = s_ / np.maximum(cntf, 1.0)
+        for i in np.nonzero(cnt > 0)[0]:
+            c = int(uniq[i])
+            merged["avg"].setdefault(c, []).append((float(avg[i]) * cntf[i], cntf[i]))
+            merged["max"].setdefault(c, []).append(float(mx[i]))
+    host = {"avg": {c: float(sum(v[0] for v in vs) / sum(v[1] for v in vs))
+                    for c, vs in merged["avg"].items()},
+            "max": {c: float(np.asarray(vs, np.float64).max())
+                    for c, vs in merged["max"].items()}}
+    hexed = lambda m_: {k: v.hex() for k, v in m_.items()}  # noqa: E731
+    for comb in ("avg", "max"):
+        card_crop, _ = run(f"raster_to_grid_{comb}_crop", lambda: to_grid(cpath, comb))
+        cpu_crop, _ = run(f"raster_to_grid_{comb}_crop_cpu",
+                          lambda: to_grid(cpath, comb, device="cpu"))
+        gates[f"raster_to_grid_{comb}_crop_equal_cpu_lane"] = (
+            hexed(card_crop[1]) == hexed(cpu_crop[1]))
+        gates[f"raster_to_grid_{comb}_crop_equal_host_fold"] = (
+            hexed(card_crop[1]) == hexed(host[comb]))
+    gates["raster_to_grid_cells"] = len(grid["avg"][1]) > len(host["avg"]) > 0
+
+    # the zones of the read-back EPSG:4326 raster, against phase 4's call
+    zr, zl = run("zones_tiled_read_back", lambda: zone_eng.zones(back["wgs84"]))
+    gates["zones_read_back_equal_phase4"] = result_rows(zr) == result_rows(zones_want)
+    gates["zones_read_back_launched"] = zl["zonal_tiled"] > 0 and zl["pip_heavy_tiled"] > 0
+
+    # the zones through every writer and back
+    fields = ("ring_offsets", "part_offsets", "geom_offsets", "geom_type", "srid")
+    vt = VectorTable(geometry=zones, columns={"zone_id": np.arange(len(zones), dtype=np.int64)})
+    names = {"geojson": "z.geojson", "geojsonseq": "z.geojsonl", "shapefile": "z.shp",
+             "flatgeobuf": "z.fgb", "geopackage": "z.gpkg", "kml": "z.kml"}
+    vec_s = {}
+    read_back = {}
+    for fmt, name in names.items():
+        p = os.path.join(d, name)
+        t0 = time.perf_counter()
+        readers.write(fmt).save(p, vt)
+        t1 = time.perf_counter()
+        read_back[fmt] = rb = readers.read(fmt).load(p)
+        vec_s[fmt] = {"write_s": t1 - t0, "read_s": time.perf_counter() - t1}
+        g = rb.geometry
+        ids_ok = np.array_equal(np.asarray(rb.columns["zone_id"], np.float64),
+                                np.arange(len(zones), dtype=np.float64))
+        if fmt == "shapefile":  # shells are stored clockwise: each ring reversed
+            ro = zones.ring_offsets
+            ok = all(np.asarray(getattr(g, f)).tobytes() == np.asarray(getattr(zones, f)).tobytes()
+                     for f in fields) and g.xy.shape == zones.xy.shape and all(
+                np.array_equal(g.xy[ro[i]:ro[i + 1]], zones.xy[ro[i]:ro[i + 1]][::-1])
+                for i in range(ro.size - 1))
+        else:
+            ok = same_column(g, zones)
+        gates[f"{fmt}_round_trip"] = bool(ok and ids_ok)
+
+    # UTM 18N zones as a shapefile with a .prj: the SRID comes back through
+    # crs_wkt; back to EPSG:4326 within the round-trip band of
+    # tests/test_crs_affine.py (2e-7 degrees)
+    zu, _ = run("st_transform_32618", lambda: FG.st_transform(zones, 32618))
+    up = os.path.join(d, "z_utm.shp")
+    readers.write("shapefile").save(up, VectorTable(geometry=zu, columns=vt.columns),
+                                    srid=32618)
+    with open(os.path.join(d, "z_utm.prj"), "w") as f:
+        f.write(UTM18N_PRJ)
+    ru = readers.read("shapefile").load(up)
+    gates["utm_prj_srid"] = set(ru.geometry.srid.tolist()) == {32618}
+    wgs, _ = run("st_transform_4326", lambda: FG.st_transform(ru.geometry, 4326))
+    utm_gap = float(np.abs(wgs.xy - read_back["shapefile"].geometry.xy).max())
+    gates["utm_round_trip_within_2e-7"] = utm_gap <= 2e-7
+
+    # a join from read-back zones: FILES_TESS_ZONES of the FlatGeobuf's,
+    # tessellated, against the same zones' chips of phase 3
+    rz = read_back["flatgeobuf"].geometry.slice(0, FILES_TESS_ZONES)
+    t64, _ = run("tessellate_read_back", lambda: tessellate(rz, H3, RES, keep_core_geoms=False))
+    rows = np.nonzero(table.geom_id < FILES_TESS_ZONES)[0]
+    mem = ChipTable(geom_id=table.geom_id[rows], cell_id=table.cell_id[rows],
+                    is_core=table.is_core[rows], chips=table.chips.take(rows),
+                    has_geom=table.has_geom[rows])
+    gates["tessellate_read_back_equal_phase3"] = bool(
+        np.array_equal(t64.cell_id, mem.cell_id) and np.array_equal(t64.is_core, mem.is_core)
+        and np.array_equal(t64.geom_id, mem.geom_id) and same_column(t64.chips, mem.chips))
+    ix_read = J.build_chip_index(t64, device=dev)
+    ix_mem = J.build_chip_index(mem, device=dev)
+    J.pip_join(raw[:1024], None, H3, RES, chip_index=ix_read, probe="adaptive")  # warm
+    joined, jl = run("join_read_back", lambda: J.pip_join(
+        raw, None, H3, RES, chip_index=ix_read, probe="adaptive"))
+    want = J.pip_join(raw, None, H3, RES, chip_index=ix_mem, probe="adaptive")
+    gates["join_read_back_equal_in_memory"] = bool(
+        joined.dtype == want.dtype and np.array_equal(joined, want))
+    gates["join_read_back_launched_pip_heavy_tiled"] = jl["pip_heavy_tiled"] > 0
+    shutil.rmtree(d, ignore_errors=True)
+
+    real_pixels = raster.height * raster.width
+    emit({
+        "phase": "files", "points": int(raw.shape[0]), "crs_check_points": FILES_CRS_CHECK,
+        "crs_lane": lane, "geotiff": io_s, "modis_valid_share": m_valid,
+        "raster_to_grid_cells": {k: len(v[1]) for k, v in grid.items()},
+        "raster_to_grid_pixels_per_s": {
+            k: real_pixels / secs[f"raster_to_grid_{k}"] for k in grid},
+        "crop_cells": len(host["avg"]), "zones_read_back_pixels_per_s":
+            real_pixels / secs["zones_tiled_read_back"],
+        "vector_s": vec_s, "utm_round_trip_max_gap": utm_gap,
+        "join_read_back_points_per_s": raw.shape[0] / secs["join_read_back"],
+        "tessellated_zones": FILES_TESS_ZONES, "heavy_cells_read_back": ix_read.num_heavy_cells,
+        "seconds": secs, "launches": launches,
+        "phase_s": time.perf_counter() - t_phase, "nvidia_smi": card, "gates": gates,
+    })
+    bad = [k for k, v in gates.items() if not v]
+    return (f"files gates failed: {bad}" if bad else None), launches
 
 
 def mesh_devices(dev):
@@ -4667,6 +4963,13 @@ def main() -> int:
     if why:
         return fail(why)
 
+    # 8p. files in and out: the CRS lane, GeoTIFF, the readers and writers
+    why, files_launches = files_phase(ix, table, H3, dev, zones, raw, raster,
+                                      results["zones_tiled"], engines["zones_tiled"],
+                                      counted, card)
+    if why:
+        return fail(why)
+
     # 8d-8f, 8j, 8k. serving, KNN and epochs in a process of its own, as a
     # server runs: the profiler the phases above attached to this process
     # slows every later eager op. The child, started after phase 3, loaded
@@ -4701,7 +5004,9 @@ def main() -> int:
          + serve_launches["knn_serve"] + serve_launches["epochs"]
          + x_launches["pip_heavy_tiled"] + xs_launches["pip_heavy_tiled"]
          + tj["pip_heavy_tiled"] + tz["pip_heavy_tiled"] + serve_launches["serve_tuned"]
-         + mesh_launches["pip_heavy_tiled"] + fn_launches["pip_heavy_tiled"],
+         + mesh_launches["pip_heavy_tiled"] + fn_launches["pip_heavy_tiled"]
+         + files_launches["pip_heavy_tiled"],
+         "launches_files": files_launches["pip_heavy_tiled"],
          "launches_mesh": mesh_launches["pip_heavy_tiled"],
          "launches_functions": fn_launches["pip_heavy_tiled"],
          "launches_tune_join": tj["pip_heavy_tiled"],
@@ -4735,7 +5040,8 @@ def main() -> int:
         {"name": "zonal_tiled", "route": "cuda", "source": zsrc,
          "replaces": "mosaic_tpu/kernels/zonal.py:196",
          "launches": zl["zonal_tiled"] + rs_launches["zonal_tiled"] + tz["zonal_tiled"]
-         + mesh_launches["zonal_tiled"],
+         + mesh_launches["zonal_tiled"] + files_launches["zonal_tiled"],
+         "launches_files": files_launches["zonal_tiled"],
          "launches_mesh": mesh_launches["zonal_tiled"],
          "launches_raster_zones_tiled": zl["zonal_tiled"],
          "launches_tune_zones_128": tz["zonal_tiled"],
@@ -4761,7 +5067,8 @@ def main() -> int:
          + rs_fold_launches["zonal_fold"] + x_launches["zonal_fold"]
          + xg_launches["zonal_fold"] + xs_launches["zonal_fold"]
          + o_launches["zonal_fold"] + mesh_launches["zonal_fold"]
-         + fn_launches["zonal_fold"],
+         + fn_launches["zonal_fold"] + files_launches["zonal_fold"],
+         "launches_files": files_launches["zonal_fold"],
          "launches_mesh": mesh_launches["zonal_fold"],
          "launches_functions": fn_launches["zonal_fold"],
          "launches_expr": x_launches["zonal_fold"],
@@ -4808,4 +5115,5 @@ if __name__ == "__main__":
             p.stop()
             shutil.rmtree(p.dir, ignore_errors=True)
         shutil.rmtree(os.path.join(HERE, OBS_DIR), ignore_errors=True)
+        shutil.rmtree(os.path.join(HERE, FILES_DIR), ignore_errors=True)
     sys.exit(code)

@@ -43,4 +43,47 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-__all__ = ["CELL", "FLOAT", "DeviceUnavailable", "resolve_device", "__version__"]
+# The package's own names are defined before these imports: the modules
+# below import ``resolve_device`` and ``FLOAT`` from here.
+from .core.types import (  # noqa: E402
+    GeometryBuilder,
+    GeometryType,
+    PackedGeometry,
+    PaddedGeometry,
+)
+from .context import MosaicConfig, MosaicContext, index_system_factory  # noqa: E402
+from .runtime.errors import (  # noqa: E402
+    CapacityOverflow,
+    DegradedResult,
+    MosaicRuntimeError,
+    RetryExhausted,
+    TransientDeviceError,
+)
+
+
+def enable_mosaic(index_system="H3", geometry_backend="device", **kwargs):
+    """Build and install the process context, as the reference's
+    ``enable_mosaic`` does."""
+    return MosaicContext.build(index_system, geometry_backend, **kwargs)
+
+
+__all__ = [
+    "CELL",
+    "FLOAT",
+    "CapacityOverflow",
+    "DegradedResult",
+    "DeviceUnavailable",
+    "GeometryBuilder",
+    "GeometryType",
+    "MosaicConfig",
+    "MosaicContext",
+    "MosaicRuntimeError",
+    "PackedGeometry",
+    "PaddedGeometry",
+    "RetryExhausted",
+    "TransientDeviceError",
+    "enable_mosaic",
+    "index_system_factory",
+    "resolve_device",
+    "__version__",
+]

@@ -1,8 +1,8 @@
 """Whole-column affine transforms on packed geometry.
 
 Port of ``mosaic_tpu/core/geometry/affine.py`` (a copy kept
-in the port so that it never imports the JAX package); a reprojection
-to another SRID raises, as the CRS modules are not ported yet.
+in the port so that it never imports the JAX package); reprojection goes
+through the port's own CRS modules (``core/crs*.py``).
 
 Reference analog: `ST_Rotate`/`ST_Scale`/`ST_Translate`
 (`expressions/geometry/ST_Rotate.scala` etc.), which apply a JTS
@@ -64,33 +64,23 @@ def rotate(col: PackedGeometry, theta) -> PackedGeometry:
     return _with_xy(col, np.stack([c * x - s * y, s * x + c * y], axis=-1))
 
 
-class CRSNotPorted(NotImplementedError):
-    """A reprojection between two different SRIDs: the CRS modules
-    (``core/crs*.py``) are not ported yet."""
-
-
-def crs_not_ported(what: str) -> CRSNotPorted:
-    return CRSNotPorted(
-        f"{what} needs the CRS modules, which are not ported yet (ROADMAP "
-        "queue 1, item 14a: CRS)"
-    )
-
-
 def transform_srid(col: PackedGeometry, to_srid: int) -> PackedGeometry:
     """Reproject every geometry to ``to_srid`` (reference: ST_Transform /
     MosaicGeometry.transformCRSXY `core/geometry/MosaicGeometry.scala:102-128`).
 
-    Geometries already in the target SRID pass through untouched, as in
-    the reference. Any other SRID raises :class:`CRSNotPorted` (ROADMAP
-    queue 1, item 14a).
+    Geometries already in the target SRID pass through untouched; mixed-SRID
+    columns are handled group-by-group over the vertex buffer.
     """
+    from .. import crs
+
     xy = col.xy.copy()
     counts = col.vertices_per_geom()
     vert_srid = np.repeat(col.srid, counts)
     for s in np.unique(vert_srid):
         if int(s) == int(to_srid):
             continue
-        raise crs_not_ported(f"reprojecting EPSG:{int(s)} to EPSG:{int(to_srid)}")
+        m = vert_srid == s
+        xy[m] = crs.transform_points(xy[m], int(s), int(to_srid))
     out = _with_xy(col, xy)
     out.srid = np.full_like(col.srid, to_srid)
     return out

@@ -22,8 +22,8 @@ each pair's answer is its own, whatever the chunk.
 
 Geometry-returning functions serialize results back into the input's
 format (WKT in -> WKT out), matching `VectorExpression.serialise`.
-Reprojection to another SRID and ``st_hasvalidcoordinates`` need the CRS
-modules and raise (ROADMAP queue 1, item 14a).
+Reprojection and ``st_hasvalidcoordinates`` go through the port's CRS
+modules (``core/crs*.py``) on the host, as in the reference.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import crs as _crs
 from ..core.geometry import affine as _affine
 from ..core.geometry import hostops as _host
 from ..core.geometry import measures as _meas
@@ -524,16 +525,13 @@ def st_setsrid(geom, srid: int):
 
 
 def st_transform(geom, to_srid: int):
-    """Reproject to ``to_srid`` (reference: ST_Transform via proj4j). Rows
-    already in ``to_srid`` pass through; any other SRID raises
-    :class:`~mosaic_tpu_torch.core.geometry.affine.CRSNotPorted`."""
+    """Reproject to ``to_srid`` (reference: ST_Transform via proj4j)."""
     col, fmt = coerce(geom)
     return like_input(_affine.transform_srid(col, int(to_srid)), fmt)
 
 
 def st_updatesrid(geom, from_srid: int, to_srid: int):
-    """Relabel then reproject (reference: ST_UpdateSRID); equal SRIDs
-    only, as :func:`st_transform`."""
+    """Relabel then reproject (reference: ST_UpdateSRID)."""
     col, fmt = coerce(geom)
     col = _affine.set_srid(col, int(from_srid))
     return like_input(_affine.transform_srid(col, int(to_srid)), fmt)
@@ -541,8 +539,19 @@ def st_updatesrid(geom, from_srid: int, to_srid: int):
 
 def st_hasvalidcoordinates(geom, crs_code, which: str = "bounds") -> np.ndarray:
     """All vertices inside the CRS validity envelope (reference:
-    ST_HasValidCoordinates + CRSBoundsProvider). The envelopes are the CRS
-    modules' (ROADMAP queue 1, item 14a): this raises
-    :class:`~mosaic_tpu_torch.core.geometry.affine.CRSNotPorted`."""
-    to_packed(geom)
-    raise _affine.crs_not_ported(f"st_hasvalidcoordinates({crs_code!r}, {which!r})")
+    ST_HasValidCoordinates + CRSBoundsProvider, `core/crs/`)."""
+    col = to_packed(geom)
+    srid = _crs.parse_crs_code(crs_code)
+    x0, y0, x1, y1 = _crs.crs_bounds(srid, reprojected=(which != "bounds"))
+    out = np.zeros(len(col), dtype=bool)
+    for g in range(len(col)):
+        xy = col.geom_xy(g)
+        if not xy.shape[0]:
+            continue
+        out[g] = bool(
+            (xy[:, 0] >= x0).all()
+            and (xy[:, 0] <= x1).all()
+            and (xy[:, 1] >= y0).all()
+            and (xy[:, 1] <= y1).all()
+        )
+    return out

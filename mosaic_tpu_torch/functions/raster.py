@@ -14,10 +14,10 @@ reference uses ``jax.ops.segment_*``). The median sorts on the host, as
 in the reference. The projections run on the card unless the caller
 passes ``device="cpu"``.
 
-Raster columns are lists of :class:`~mosaic_tpu_torch.raster.Raster`. A
-path is read with `read_raster`, which raises until raster file IO is
-ported (ROADMAP queue 1, item 14b); so does a raster whose SRID is not
-the index's (the CRS modules, item 14a).
+Raster columns are lists of :class:`~mosaic_tpu_torch.raster.Raster` or
+paths, which are read with `read_raster`. A raster whose SRID is not the
+index's has its pixel centres reprojected on the host (``core/crs.py``,
+the numpy lane) before the cells are assigned on the device.
 """
 
 from __future__ import annotations
@@ -195,16 +195,20 @@ def _pixel_cells(
     """(P,) int64 cell id of every pixel center, on ``dev``."""
     import torch
 
-    from ..core.geometry.affine import crs_not_ported
+    from ..core import crs as _crs
 
     x, y = r.pixel_centers()
     srid = raster_srid if raster_srid is not None else (r.srid or 4326)
     xy = np.stack([x, y], axis=-1)
     target = getattr(index, "crs_srid", 4326)
     if target and srid != target:
-        raise crs_not_ported(
-            f"a raster in EPSG:{srid} on an index in EPSG:{target}"
-        )
+        if not _crs.supported(srid):
+            raise ValueError(
+                f"raster SRID {srid} cannot be transformed to the index "
+                f"CRS (EPSG:{target}); pass raster_srid explicitly or use "
+                f"a CUSTOM index in the raster's own CRS"
+            )
+        xy = _crs.transform_points(xy, srid, target)
     cells = index.point_to_cell(torch.as_tensor(xy.reshape(-1, 2), device=dev),
                                 resolution)
     return torch.as_tensor(cells, device=dev).reshape(-1)
@@ -215,7 +219,16 @@ def _raster_to_grid(col, resolution, index, combiner: str, raster_srid=None,
     """Shared pixel->cell group-combine (reference:
     `RasterToGridExpression.rasterTransform:55-72`): returns per raster a
     list (per band) of dicts cell_id -> combined value, over the cells
-    holding at least one valid pixel.
+    holding at least one valid pixel."""
+    return _raster_to_grids(col, resolution, index, (combiner,), raster_srid,
+                            device)[combiner]
+
+
+def _raster_to_grids(col, resolution, index, combiners, raster_srid=None,
+                     device=None) -> dict:
+    """:func:`_raster_to_grid` for several combiners from one pass: the
+    pixel cells are assigned once a raster and folded once a band, so a
+    reader that needs avg and count of a tile pays for one.
 
     avg/count/min/max fold on the device (`zonal_fold_masked`, f64:
     count, the sequential sum in pixel order, min and max of the valid
@@ -225,26 +238,28 @@ def _raster_to_grid(col, resolution, index, combiner: str, raster_srid=None,
     from .. import resolve_device
     from ..kernels.zonal import zonal_fold_masked
 
-    if combiner not in ("avg", "count", "min", "max", "median"):
-        raise ValueError(f"unknown combiner {combiner!r}")
+    for combiner in combiners:
+        if combiner not in ("avg", "count", "min", "max", "median"):
+            raise ValueError(f"unknown combiner {combiner!r}")
     if index is None:
         from ..context import current_context
 
         index = current_context().index_system
     resolution = index.resolution_arg(resolution)
     dev = resolve_device(device)
-    results = []
+    results = {c: [] for c in combiners}
     for r in _rasters(col):
         cells = _pixel_cells(r, resolution, index, raster_srid, dev)
         uniq_t, inv_t = torch.unique(cells, sorted=True, return_inverse=True)
         uniq = uniq_t.cpu().numpy()
         nseg = int(uniq.size)
         inv = None
-        per_band = []
+        per_band = {c: [] for c in combiners}
         for b in r.bands:
             vals = b.values.ravel().astype(np.float64)
             mask = b.mask.ravel()
-            if combiner == "median":
+            outs = {}
+            if "median" in combiners:
                 if inv is None:
                     inv = inv_t.cpu().numpy()
                 out = np.full(nseg, np.nan)
@@ -257,27 +272,32 @@ def _raster_to_grid(col, resolution, index, combiner: str, raster_srid=None,
                     msk = sorted_mask[bounds[s] : bounds[s + 1]]
                     seg = seg[msk]
                     out[s] = np.median(seg) if seg.size else np.nan
-                keep = np.bincount(inv[mask], minlength=nseg) > 0
-            else:
+                outs["median"] = (out, np.bincount(inv[mask], minlength=nseg) > 0)
+            folded = [c for c in combiners if c != "median"]
+            if folded:
                 cnt, s, mn, mx = zonal_fold_masked(
                     torch.as_tensor(vals, device=dev),
                     torch.as_tensor(mask, device=dev), inv_t, nseg,
                     acc_dtype=torch.float64,
                 )
                 cnt = cnt.cpu().numpy().astype(np.float64)
-                if combiner == "count":
-                    out = cnt
-                elif combiner == "avg":
-                    out = s.cpu().numpy() / np.maximum(cnt, 1.0)
-                elif combiner == "min":
-                    out = mn.cpu().numpy()
-                else:
-                    out = mx.cpu().numpy()
                 keep = cnt > 0
-            per_band.append(
-                {int(c): float(o) for c, o, k in zip(uniq, out, keep) if k}
-            )
-        results.append(per_band)
+                for combiner in folded:
+                    if combiner == "count":
+                        out = cnt
+                    elif combiner == "avg":
+                        out = s.cpu().numpy() / np.maximum(cnt, 1.0)
+                    elif combiner == "min":
+                        out = mn.cpu().numpy()
+                    else:
+                        out = mx.cpu().numpy()
+                    outs[combiner] = (out, keep)
+            for combiner, (out, keep) in outs.items():
+                per_band[combiner].append(
+                    {int(c): float(o) for c, o, k in zip(uniq, out, keep) if k}
+                )
+        for combiner in combiners:
+            results[combiner].append(per_band[combiner])
     return results
 
 

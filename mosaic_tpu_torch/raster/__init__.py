@@ -1,8 +1,9 @@
 """Raster subsystem of the port: the dataset/band model, the tile
 pipeline and zonal statistics (port of ``mosaic_tpu/raster``). Pixels
 stay host numpy in band-sequential layout; tiles go to the device for
-cell assignment, the zone probe and the fold. File IO is not ported yet:
-:func:`read_raster` and :func:`write_geotiff` raise."""
+cell assignment, the zone probe and the fold. :func:`read_raster` decodes
+GeoTIFF through the native engine (GRIB2 and NetCDF through the host
+readers); :func:`write_geotiff` writes the reference's bytes."""
 
 from .core import Raster, RasterBand, read_raster, write_geotiff
 from .tiles import (

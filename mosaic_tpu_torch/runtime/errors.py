@@ -118,6 +118,24 @@ class Overloaded(MosaicRuntimeError):
         self.elapsed_s = elapsed_s
 
 
+class RasterDecodeError(MosaicRuntimeError, ValueError):
+    """The native GeoTIFF engine rejected a file.
+
+    Raised by :func:`mosaic_tpu_torch.raster.read_raster` whenever
+    ``mg_tiff_read`` returns a nonzero rc: the rc is mapped to the
+    decoder's failure taxonomy (``native/src/tiff.cpp``) and carried
+    alongside the path, so callers can tell "not a TIFF" from
+    "unsupported layout" from plain IO failure. A decode failure is a
+    property of the bytes on disk, never transient (it is a
+    ``ValueError``, which :func:`is_transient` refuses).
+    """
+
+    def __init__(self, message: str, *, path: str = "", rc: int = 0):
+        super().__init__(message)
+        self.path = path
+        self.rc = rc
+
+
 class EpochLogCorrupt(MosaicRuntimeError):
     """A delta-log record INSIDE the valid prefix failed validation
     (unreadable sidecar, payload checksum mismatch, missing epoch in the

@@ -183,7 +183,10 @@ def test_collection_keeps_the_first_polygonal_member():
     assert col.vertices_per_geom()[2] == 0  # no polygonal member: EMPTY
 
 
-def test_affine_equals_reference_and_other_srids_raise():
+def test_affine_and_transform_srid_equal_reference():
+    """The affine transforms and a reprojection to another SRID (host
+    numpy CRS arithmetic in both packages) equal the reference bit for
+    bit, mixed-SRID columns included."""
     wkts = random_column(seed=5)
     ref, port = RW.from_wkt(wkts), TW.from_wkt(wkts)
     same_column(TA.translate(port, 1.5, -2.25), RA.translate(ref, 1.5, -2.25))
@@ -191,8 +194,13 @@ def test_affine_equals_reference_and_other_srids_raise():
     same_column(TA.rotate(port, 0.3), RA.rotate(ref, 0.3))
     same_column(TA.set_srid(port, 3857), RA.set_srid(ref, 3857))
     same_column(TA.transform_srid(port, 4326), RA.transform_srid(ref, 4326))
-    with pytest.raises(NotImplementedError, match="item 14a"):
-        TA.transform_srid(port, 3857)
+    merc = TA.transform_srid(port, 3857)
+    same_column(merc, RA.transform_srid(ref, 3857))
+    assert not np.array_equal(merc.xy, port.xy)
+    mixed_t, mixed_r = TA.set_srid(port, 4326), RA.set_srid(ref, 4326)
+    mixed_t.srid[::2] = 3857
+    mixed_r.srid[::2] = 3857
+    same_column(TA.transform_srid(mixed_t, 27700), RA.transform_srid(mixed_r, 27700))
 
 
 def test_types_completions_equal_reference():

@@ -15,8 +15,9 @@ the results are compared directly, not through goldens:
 - ``rst_rastertogrid*`` exactly: the fold's sums are sequential in pixel
   order in both packages, on integer-valued pixels.
 The port's device paths run with ``device="cpu"``. The CRS-bound names
-raise `NotImplementedError` naming ROADMAP item 14a, and work where the
-SRIDs are equal, as the reference's do.
+(reprojection to another SRID, the validity envelopes) equal the
+reference's bit for bit: both run the same numpy CRS arithmetic on the
+host.
 """
 
 import dataclasses
@@ -57,7 +58,7 @@ DEVICE_TOL = {
     "st_updatesrid",
 }
 RTOL, ATOL = 1e-9, 1e-12
-#: the names that reach the CRS modules (ROADMAP queue 1, item 14a)
+#: the names that reach the CRS modules
 CRS_BOUND = ("st_transform", "st_updatesrid", "st_hasvalidcoordinates")
 
 #: the side of the BNG plane the shapes are scaled into: the reference's
@@ -172,11 +173,12 @@ def geom_specs(P, e):
         "st_translate": lambda: F.st_centroid(F.st_translate(g, 1.0, 2.0), **d),
         "st_srid": lambda: F.st_srid(g),
         "st_setsrid": lambda: F.st_srid(F.st_setsrid(g, 3857)),
-        # the CRS-bound names on equal SRIDs (other SRIDs: CRS_BOUND)
+        # the CRS-bound names on equal SRIDs (other SRIDs: CRS_BOUND below)
         "st_transform": lambda: F.st_centroid(
             F.st_transform(F.st_setsrid(g, 4326), 4326), **d),
         "st_updatesrid": lambda: F.st_centroid(F.st_updatesrid(g, 3857, 3857), **d),
-        "st_hasvalidcoordinates": None,
+        "st_hasvalidcoordinates": lambda: F.st_hasvalidcoordinates(
+            g, "EPSG:4326"),
     }
 
 
@@ -452,26 +454,55 @@ def test_register_has_exactly_the_reference_names(pkgs):
 
 
 @pytest.mark.parametrize("name", CRS_BOUND)
-def test_crs_bound_names_raise_naming_their_item(pkgs, name):
-    _, _, port, penv = pkgs
-    F, g = port.F, penv["H3"]["geom"]
-    call = {
-        "st_transform": lambda: F.st_transform(F.st_setsrid(g, 4326), 32618),
-        "st_updatesrid": lambda: F.st_updatesrid(g, 4326, 3857),
-        "st_hasvalidcoordinates": lambda: F.st_hasvalidcoordinates(g, "EPSG:4326"),
-    }[name]
-    with pytest.raises(NotImplementedError, match="item 14a"):
-        call()
+def test_crs_bound_names_equal_reference(pkgs, name):
+    """Each CRS-bound name, to another SRID, equals the reference's bit
+    for bit (host numpy CRS arithmetic in both packages)."""
+    ref, renv, port, penv = pkgs
+
+    def calls(P, e):
+        F, g = P.F, e["H3"]["geom"]
+        return {
+            "st_transform": lambda: F.st_transform(F.st_setsrid(g, 4326), 32618),
+            "st_updatesrid": lambda: F.st_updatesrid(g, 4326, 3857),
+            "st_hasvalidcoordinates": lambda: [
+                F.st_hasvalidcoordinates(g, "EPSG:4326"),
+                F.st_hasvalidcoordinates(
+                    F.st_transform(F.st_setsrid(g, 4326), 32618), "EPSG:32618",
+                    "reprojected_bounds"),
+                F.st_hasvalidcoordinates(g, "EPSG:27700"),
+            ],
+        }[name]
+
+    got, want = calls(port, penv)(), calls(ref, renv)()
+    if name == "st_hasvalidcoordinates":
+        assert_same(norm(got), norm(want), False, name)
+        assert np.asarray(want[0]).all() and not np.asarray(want[2]).any()
+        return
+    assert np.array_equal(np.asarray(got.srid), np.asarray(want.srid))
+    assert got.xy.tobytes() == want.xy.tobytes()
+    assert not np.array_equal(got.xy, penv["H3"]["geom"].xy)
 
 
-def test_raster_in_another_crs_and_raster_paths_raise(pkgs, tmp_path):
-    _, _, port, penv = pkgs
+def test_raster_in_another_crs_and_raster_paths_equal_reference(pkgs, tmp_path):
+    """A raster whose SRID is not the index's is reprojected on the host
+    and folds as the reference's does; a raster path is read through the
+    native GeoTIFF decoder in both packages."""
+    ref, renv, port, penv = pkgs
     r = penv["raster"]
-    other = TRaster(data=r.data, gt=r.gt, srid=3857, nodata=r.nodata)
-    with pytest.raises(NotImplementedError, match="item 14a"):
-        port.F.rst_rastertogridavg([other], 5, index=H3IndexSystem(), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        port.F.rst_height(str(tmp_path / "x.tif"))
+    # Web Mercator metres over NYC, so the pixels land on real cells
+    gt = (-8238000.0, 150.0, 0.0, 4980000.0, 0.0, -150.0)
+    other = TRaster(data=r.data, gt=gt, srid=3857, nodata=r.nodata)
+    rother = RRaster(data=r.data, gt=gt, srid=3857, nodata=r.nodata)
+    got = port.F.rst_rastertogridavg([other], 7, index=H3IndexSystem(), device=CPU)
+    want = ref.F.rst_rastertogridavg([rother], 7, index=RH3)
+    assert_same(norm(got), norm(want), False, "rst_rastertogridavg")
+    assert got[0][0]
+    path = str(tmp_path / "x.tif")
+    from mosaic_tpu_torch.raster import write_geotiff
+
+    write_geotiff(path, other)  # the port writes, both packages read
+    assert port.F.rst_height(path) == ref.F.rst_height(path) == [r.height]
+    assert port.F.rst_srid(path) == ref.F.rst_srid(path) == [3857]
 
 
 def test_context_builds_each_index_system_and_validates():

@@ -104,6 +104,13 @@ MODULES = [
     "mosaic_tpu_torch.core.geometry.measures",
     "mosaic_tpu_torch.core.geometry.second",
     "mosaic_tpu_torch.sql.frame",
+    "mosaic_tpu_torch.core.crs",
+    "mosaic_tpu_torch.core.crs_proj",
+    "mosaic_tpu_torch.core.crs_wkt",
+    "mosaic_tpu_torch.readers",
+    "mosaic_tpu_torch.readers.vector",
+    "mosaic_tpu_torch.readers.raster_grid",
+    "mosaic_tpu_torch.interop",
 ]
 
 #: the ops plane's command-line tools, run as ``python -m`` runs them
@@ -204,6 +211,54 @@ def test_function_surface_leaves_jax_and_reference_out():
         env=env, cwd=str(ROOT), timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_file_io_modules_leave_jax_and_reference_out():
+    """The CRS engine, the readers, the interop boundary and the raster
+    package (with its GeoTIFF IO), imported alone, then a transform, a
+    GeoTIFF round trip and a registry lookup."""
+    code = (
+        "import sys, tempfile, numpy as np\n"
+        "import mosaic_tpu_torch.core.crs as crs, mosaic_tpu_torch.core.crs_proj, "
+        "mosaic_tpu_torch.core.crs_wkt, mosaic_tpu_torch.readers as R, "
+        "mosaic_tpu_torch.interop, mosaic_tpu_torch.raster as RA\n"
+        "crs.from_wgs84(np.array([[-74.0, 40.7]]), 32618)\n"
+        "d = tempfile.mkdtemp()\n"
+        "RA.write_geotiff(d + '/a.tif', RA.Raster(data=np.zeros((1, 2, 2), np.uint8), "
+        "gt=(0.0, 1.0, 0.0, 0.0, 0.0, -1.0), srid=4326))\n"
+        "assert RA.read_raster(d + '/a.tif').width == 2\n"
+        "R.read('geojson'); R.write('shapefile')\n"
+        "assert 'jax' not in sys.modules and 'mosaic_tpu' not in sys.modules"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=env, cwd=str(ROOT), timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_top_level_names_hold_the_references():
+    """The port's ``__all__`` holds every name of the reference's, each
+    bound, and ``enable_mosaic`` builds and installs a context."""
+    import mosaic_tpu
+    import mosaic_tpu_torch
+    from mosaic_tpu_torch import context as TC
+
+    assert set(mosaic_tpu.__all__) <= set(mosaic_tpu_torch.__all__)
+    for name in mosaic_tpu_torch.__all__:
+        assert hasattr(mosaic_tpu_torch, name), name
+    for name in ("CELL", "FLOAT", "DeviceUnavailable", "resolve_device"):
+        assert name in mosaic_tpu_torch.__all__
+    try:
+        ctx = mosaic_tpu_torch.enable_mosaic("H3")
+        assert isinstance(ctx, mosaic_tpu_torch.MosaicContext)
+        assert TC.current_context() is ctx and ctx.index_system.name == "H3"
+        ctx = mosaic_tpu_torch.enable_mosaic("BNG", geometry_backend="oracle")
+        assert ctx.config.geometry_backend == "oracle"
+    finally:
+        TC.MosaicContext.reset()
+    assert issubclass(mosaic_tpu_torch.RetryExhausted, mosaic_tpu_torch.MosaicRuntimeError)
 
 
 def test_obs_tool_clis_leave_jax_and_reference_out(tmp_path):

@@ -1297,3 +1297,64 @@ def test_grid_longlatascellid_answers_on_card(cuda):
     assert got.device.type == "cuda" and got.dtype == torch.int64
     want = h3.point_to_cell(torch.from_numpy(np.stack([lon, lat], -1)).to(cuda), 9)
     assert torch.equal(got, want)
+
+
+#: the reference's device bands of the CRS lane (tests/test_crs_affine.py,
+#: tests/test_crs_proj.py): forward in projected units, inverse in degrees
+CRS_BANDS = {32618: (1e-6, 1e-6), 27700: (1e-5, 1e-6), 3857: (1e-6, 1e-6),
+             3067: (1e-6, 1e-6), 5880: (1e-6, 1e-5), 2154: (1e-6, 1e-6),
+             3035: (1e-6, 1e-6), 3413: (1e-6, 1e-6)}
+
+
+@pytest.mark.parametrize("srid", sorted(CRS_BANDS))
+def test_crs_torch_lane_on_card_holds_the_numpy_band_without_host_sync(cuda, srid):
+    """`from_wgs84`/`to_wgs84` with ``xp=crs.TORCH`` on f64 CUDA tensors:
+    within the reference's bands of the numpy lane, the same non-finite
+    rows, and no host synchronisation (sync debug mode "error")."""
+    from mosaic_tpu_torch.core import crs
+
+    x0, y0, x1, y1 = crs.crs_bounds(srid, reprojected=False)
+    rng = np.random.default_rng(srid)
+    ll = np.stack([rng.uniform(x0, x1, 4096), rng.uniform(y0, min(y1, 89.5), 4096)], -1)
+    ll_t = torch.from_numpy(ll).to(cuda)
+    en_np = crs.from_wgs84(ll, srid)
+    en_np_t = torch.from_numpy(en_np).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        en_t = crs.from_wgs84(ll_t, srid, crs.TORCH)
+        inv_t = crs.to_wgs84(en_np_t, srid, crs.TORCH)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert en_t.device.type == "cuda" and en_t.dtype == torch.float64
+    fb, ib = CRS_BANDS[srid]
+    for got, want, band in ((en_t, en_np, fb), (inv_t, crs.to_wgs84(en_np, srid), ib)):
+        got = got.cpu().numpy()
+        fin = np.isfinite(want)
+        assert np.array_equal(np.isfinite(got), fin)
+        assert np.abs(np.where(fin, got - want, 0.0)).max() <= band
+
+
+def test_raster_to_grid_on_card_equals_cpu(cuda, tmp_path):
+    """`readers.raster_to_grid` of a UTM 18N GeoTIFF (retiled, pixel
+    centres reprojected on the host) on the card equals ``device="cpu"``
+    bit for bit, for every combiner, and launches `zonal_seq_fold`."""
+    from mosaic_tpu_torch import readers
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+    from mosaic_tpu_torch.datasets import synthetic_raster
+    from mosaic_tpu_torch.raster import Raster, write_geotiff
+
+    r = synthetic_raster(300, 260, seed=6)
+    path = str(tmp_path / "utm.tif")
+    write_geotiff(path, Raster(data=r.data, gt=(575000.0, 30.0, 0.0, 4520000.0, 0.0, -30.0),
+                               srid=32618, nodata=r.nodata))
+    h3 = H3IndexSystem()
+    for comb in ("avg", "min", "max", "median", "count"):
+        before = TZ.zonal_fold.launches
+        got = readers.raster_to_grid(path, 9, comb, index=h3, tile_size=128)
+        if comb != "median":
+            assert TZ.zonal_fold.launches > before
+        want = readers.raster_to_grid(path, 9, comb, index=h3, tile_size=128, device="cpu")
+        assert {k: float(v).hex() for k, v in got[1].items()} == {
+            k: float(v).hex() for k, v in want[1].items()}, comb
+        assert len(got[1]) > 10
