@@ -195,7 +195,7 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    the CPU on ``FN_CELL_CPU`` points and each differing point's margin
    printed); ``MosaicFrame.set_index_resolution`` (``grid_tessellate``)
    of the first ``FN_TESS_ZONES`` zones equal to phase 3's chips of them
-   (a quarter: the whole set takes ~20 s again), the phase 3 cells'
+   (a sixteenth: the whole set takes ~20 s again), the phase 3 cells'
    ``grid_format_cellid`` / ``grid_parse_cellid`` round trip; a frame
    carrying phase 3's chips joins: ``point_in_polygon_join`` of the 4M
    points under ``MOSAIC_TUNE_PROBE=adaptive`` equal to phase 6's join,
@@ -219,9 +219,10 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    ``write_geotiff`` and ``read_raster`` (pixels, geotransform, SRID and
    nodata bit for bit); the tiled deflate predictor-2 file of
    ``tests/modis_fixture.py`` decoded to its field; ``read("raster_to_grid")``
-   of the UTM file at ``RES``, ``retileSize`` ``FILES_GRID_TILE``, avg and
-   max, each launching ``zonal_seq_fold``, and of its ``CROP`` middle on
-   the card equal to ``device="cpu"`` and to a numpy f64 host fold of the
+   of the UTM file at ``RES``, ``retileSize`` ``FILES_GRID_TILE``, avg,
+   and of its ``CROP`` middle avg and max, each launching
+   ``zonal_seq_fold``, on the card equal to ``device="cpu"`` and to a
+   numpy f64 host fold of the
    same cells merged tile by tile as the reader merges; the tiled zones of
    the read-back EPSG:4326 raster equal to phase 4's bit for bit; phase
    3's zones through every ``readers.write`` format and ``readers.read``
@@ -230,6 +231,21 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    returned to EPSG:4326 within 2e-7 degrees; the first
    ``FILES_TESS_ZONES`` read-back zones tessellated equal to phase 3's
    chips and their 4M ``pip_join`` equal to the in-memory zones' join;
+8q. the last modules (``utils``, ``viz.py``, ``tools/chaos_sweep.py``):
+   ``utils.benchmark`` of the warm 4M adaptive ``pip_join`` on phase 3's
+   index, each trial bracketed by CUDA events (gate: the median is at
+   least the trials' median event time); ``utils.device_trace`` around
+   one join under ``utils.annotate`` (gate: the Chrome trace names
+   ``pip_heavy_kernel`` and the annotation); ``viz.plot_cells`` of
+   ``VIZ_CELLS`` of phase 3's cells (gate: the page's FeatureCollection
+   holds one polygon a cell); the chaos sweep on the card, in this
+   process, over the 25 registered fault sites (gates: every site holds
+   its contract, none degrades, the environment is unchanged), then
+   ``pip_join.device`` at full width (phase 3's index, the 4M batch,
+   clean and with one injected fault, bit for bit) and ``raster.zonal``
+   (tiled lane) on the crop, a typed error and then the clean answer;
+   the sweep and the two sites together launch ``pip_heavy_tiled``,
+   ``zonal_tiled`` and ``zonal_seq_fold`` (``launches_chaos``);
 8d-8f, 8j and 8k run in a process of their own (``--serve-child``; its
    lines' ``t_s`` count from its own start, the parent passes them
    through), started right after phase 3: it loads phase 3's index from
@@ -479,18 +495,21 @@ MESH_STREAM = 1 << 20       # points of each of 8n's 3 stream batches
 MESH_REQUESTS = 200         # 8n's served requests, 1-1,024 rows each
 MESH_LADDER = (64, 1024)    # 8n's serving ladder
 MESH_SEED = 23
-FN_PAIRS = 65_536           # 8o's row pairs of the pair predicates
+FN_PAIRS = 16_384           # 8o's row pairs of the pair predicates
 FN_PAIRS_CPU = 1_024        # the first pairs, held against the CPU bit for bit
 FN_ORACLE = 2_048           # the first pairs held against the f64 oracle ...
 FN_ORACLE_DIST = 128        # ... and of st_distance (a Python loop a vertex)
 FN_CELL_CPU = 100_000       # points whose card cells are compared with the CPU's
-FN_TESS_ZONES = 64          # zones 8o tessellates again, held to phase 3's chips of them
+FN_TESS_ZONES = 16          # zones 8o tessellates again, held to phase 3's chips of them
 FILES_DIR = ".chip_smoke_files"  # 8p's vector files and GeoTIFFs (removed)
-FILES_TESS_ZONES = 64       # read-back zones 8p tessellates and joins
+FILES_TESS_ZONES = 16       # read-back zones 8p tessellates and joins
 FILES_CRS_SRIDS = (32618, 27700, 3857, 3067, 5880)  # 8p's device CRS lane
 FILES_CRS_CHECK = 65_536    # points of each code held against the numpy lane
 FILES_UTM_PIXEL = 30.0      # metres, the UTM 18N GeoTIFF's pixel
 FILES_GRID_TILE = 512       # raster_to_grid's retileSize
+UTILS_DIR = ".chip_smoke_utils"  # 8q's trace and map page (removed)
+BENCH_TRIALS = 5            # 8q's utils.benchmark trials of the warm 4M join
+VIZ_CELLS = 2_000           # phase 3's cells 8q draws with viz.plot_cells
 #: 8p's torch-lane bands against the numpy lane (the reference's device
 #: bands: tests/test_crs_affine.py, tests/test_crs_proj.py), forward in
 #: projected units, inverse in degrees
@@ -798,7 +817,7 @@ def dispatch_contention(core, pts) -> dict:
     for name, target, reps in (("alone", None, 20), ("ticker_2250hz_80us", ticker, 20),
                                ("busy_python_thread", busy, 2)):
         stop.clear()
-        th = threading.Thread(target=target, daemon=True) if target else None
+        th = threading.Thread(target=target, daemon=True) if target else None  # lint: thread-context-adoption-ok (a GIL-contention thread: it runs no mosaic code)
         if th:
             th.start()
         out[name] = dispatch_ms(core, pts, reps)
@@ -1827,10 +1846,11 @@ def files_phase(ix, table, H3, dev, zones, raw, raster, zones_want, zone_eng,
                 .option("combiner", comb).option("retileSize", FILES_GRID_TILE)
                 .load(path, index=H3, **kw))
 
+    # (the whole raster's avg only: max runs on the crop, as its host CRS
+    # transform of 25 tiles took 6.5 s)
     grid = {}
-    for comb in ("avg", "max"):
-        grid[comb], gl = run(f"raster_to_grid_{comb}", lambda: to_grid(tif["utm"], comb))
-        gates[f"raster_to_grid_{comb}_launched_zonal_seq_fold"] = gl["zonal_fold"] > 0
+    grid["avg"], gl = run("raster_to_grid_avg", lambda: to_grid(tif["utm"], "avg"))
+    gates["raster_to_grid_avg_launched_zonal_seq_fold"] = gl["zonal_fold"] > 0
     ucrop = middle(back["utm"], CROP)
     cpath = os.path.join(d, "utm_crop.tif")
     write_geotiff(cpath, ucrop)
@@ -1853,7 +1873,8 @@ def files_phase(ix, table, H3, dev, zones, raw, raster, zones_want, zone_eng,
                     for c, vs in merged["max"].items()}}
     hexed = lambda m_: {k: v.hex() for k, v in m_.items()}  # noqa: E731
     for comb in ("avg", "max"):
-        card_crop, _ = run(f"raster_to_grid_{comb}_crop", lambda: to_grid(cpath, comb))
+        card_crop, cl = run(f"raster_to_grid_{comb}_crop", lambda: to_grid(cpath, comb))
+        gates[f"raster_to_grid_{comb}_crop_launched_zonal_seq_fold"] = cl["zonal_fold"] > 0
         cpu_crop, _ = run(f"raster_to_grid_{comb}_crop_cpu",
                           lambda: to_grid(cpath, comb, device="cpu"))
         gates[f"raster_to_grid_{comb}_crop_equal_cpu_lane"] = (
@@ -1948,6 +1969,154 @@ def files_phase(ix, table, H3, dev, zones, raw, raster, zones_want, zone_eng,
     })
     bad = [k for k, v in gates.items() if not v]
     return (f"files gates failed: {bad}" if bad else None), launches
+
+
+def utilities_phase(ix, table, H3, dev, raw, crop, counted, card):
+    """Phase 8q, the last modules on the card: ``utils.benchmark`` of the
+    warm 4M adaptive ``pip_join`` (each trial's CUDA-event time beside
+    it), ``utils.device_trace`` around one such join (its Chrome trace
+    must name the heavy kernel), ``viz.plot_cells`` of ``VIZ_CELLS`` of
+    phase 3's cells, and the chaos sweep
+    (``mosaic_tpu_torch/tools/chaos_sweep.py``) over every registered
+    fault site on the card, in this process, then ``pip_join.device`` at
+    full width (phase 3's index, the 4M batch, clean and with one injected
+    fault, bit for bit) and ``raster.zonal`` (tiled lane) on the crop.
+    Returns (failure message or None, the benchmark's and trace's
+    launches, the sweep's and full-width sites' launches, by kernel)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from mosaic_tpu_torch import utils as U
+    from mosaic_tpu_torch import viz
+    from mosaic_tpu_torch.raster.zonal import zonal_zones
+    from mosaic_tpu_torch.sql import join as J
+    from mosaic_tpu_torch.tools import chaos_sweep as CS
+
+    t_phase = time.perf_counter()
+    gates = {}
+    secs = {}
+    d = os.path.join(HERE, UTILS_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counted.items()}
+
+    def join():
+        return J.pip_join(raw, None, H3, RES, chip_index=ix, probe="adaptive")
+
+    # utils.benchmark: every trial's join bracketed by CUDA events, so each
+    # trial's host seconds stand beside its device-timeline seconds
+    ev_ms = []
+
+    def timed_join():
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out_ = join()
+        e.record()
+        ev_ms.append((s, e))
+        return out_
+
+    join()  # warm
+    zero()
+    t0 = time.perf_counter()
+    bench = U.benchmark(timed_join, trials=BENCH_TRIALS, warmup=1)
+    secs["benchmark"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    trial_ms = sorted(s.elapsed_time(e) for s, e in ev_ms[1:])
+    event_median_ms = trial_ms[len(trial_ms) // 2]
+    gates["benchmark_median_at_least_cuda_event_time"] = (
+        bench["median_s"] * 1e3 >= event_median_ms)
+
+    # utils.device_trace around one join, with an annotated region
+    t0 = time.perf_counter()
+    with U.device_trace(os.path.join(d, "trace"), device=dev) as prof:
+        with U.annotate("chip_smoke.8q.join"):
+            traced = join()
+    secs["device_trace"] = time.perf_counter() - t0
+    util_launches = read()
+    with open(prof.trace_path) as f:
+        trace_text = f.read()
+    trace_kernels = sorted(k for k in KERNEL_OPS["pip_heavy_tiled"] if k in trace_text)
+    gates["trace_names_pip_heavy_kernel"] = "pip_heavy_kernel" in trace_text
+    gates["trace_names_the_annotation"] = "chip_smoke.8q.join" in trace_text
+    gates["traced_join_equal"] = bool(np.array_equal(traced, join()))
+    gates["benchmark_and_trace_launched_pip_heavy_tiled"] = (
+        util_launches["pip_heavy_tiled"] >= BENCH_TRIALS + 2)
+
+    # viz.plot_cells of VIZ_CELLS of phase 3's cells, the fallback page
+    cells = np.unique(table.cell_id)[:VIZ_CELLS]
+    t0 = time.perf_counter()
+    page = viz.plot_cells(cells, index=H3, path=os.path.join(d, "cells.html"))
+    secs["plot_cells"] = time.perf_counter() - t0
+    with open(page) as f:
+        html = f.read()
+    head = "const fc = "
+    fc = json.loads(html[html.index(head) + len(head):].split(";\n", 1)[0])
+    gates["plot_cells_feature_count"] = len(fc["features"]) == cells.size == VIZ_CELLS
+    gates["plot_cells_polygons"] = all(
+        ft["geometry"]["type"] == "Polygon" for ft in fc["features"])
+
+    # the chaos sweep over every registered site on the card, then the two
+    # sites at full width; counts set to 0 just before, read just after
+    env_before = dict(os.environ)
+    zero()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        sweep, rc = CS.run_sweep(device=str(dev))
+    secs["chaos_sweep"] = time.perf_counter() - t0
+    out = sweep["detail"].get("outcomes", {})
+    gates["chaos_sweep_clean"] = rc == 0 and not sweep["detail"].get("failures")
+    gates["chaos_every_registered_site"] = (
+        sweep["value"] == sweep["detail"].get("registered") == len(out) == 25)
+    gates["chaos_no_degraded_on_card"] = all(
+        r["outcome"] != "degraded" for r in out.values())
+    gates["chaos_environment_unchanged"] = dict(os.environ) == env_before
+
+    t0 = time.perf_counter()
+    wide = {}
+    clean_join = join()
+    r = CS.one_shot("pip_join.device", join, CS.arr_same, clean=clean_join)
+    gates["full_width_pip_join_bit_equal"] = (
+        r["outcome"] == "identical" and CS.arr_same(join(), clean_join))
+    wide["pip_join.device"] = r
+
+    def zones():
+        return zonal_zones(crop, ix, H3, RES, lane="tiled", device=dev)
+
+    clean_zones = zones()
+    r = CS.one_shot("raster.zonal", zones, CS.zonal_same, clean=clean_zones)
+    gates["full_width_raster_zonal_typed_then_serves"] = (
+        r["outcome"] in ("typed", "identical")
+        and CS.zonal_same(zones(), clean_zones))
+    wide["raster.zonal"] = r
+    secs["full_width_sites"] = time.perf_counter() - t0
+    chaos_launches = read()
+    for k in ("pip_heavy_tiled", "zonal_tiled", "zonal_fold"):
+        gates[f"chaos_launched_{k}"] = chaos_launches[k] > 0
+    shutil.rmtree(d, ignore_errors=True)
+
+    emit({
+        "phase": "utilities", "benchmark": bench, "benchmark_trials_cuda_event_ms": trial_ms,
+        "benchmark_event_median_ms": event_median_ms,
+        "trace_mb": len(trace_text) / 1e6, "trace_kernels": trace_kernels,
+        "viz_cells": int(cells.size), "viz_page_mb": len(html) / 1e6,
+        "chaos": {"value": sweep["value"], "registered": sweep["detail"].get("registered"),
+                  "outcomes": out, "failures": sweep["detail"].get("failures"),
+                  "error": sweep["detail"].get("error")},
+        "full_width_sites": wide, "seconds": secs,
+        "launches_utils": util_launches, "launches_chaos": chaos_launches,
+        "phase_s": time.perf_counter() - t_phase, "nvidia_smi": card, "gates": gates,
+    })
+    bad = [k for k, v in gates.items() if not v]
+    return (f"utilities gates failed: {bad}" if bad else None), util_launches, chaos_launches
 
 
 def mesh_devices(dev):
@@ -2263,7 +2432,7 @@ class OpsScraper:
             while not self._stop.wait(OBS_SCRAPE_S):
                 self.scrape("during")
 
-        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread = threading.Thread(target=loop, daemon=True)  # lint: thread-context-adoption-ok (scrapes the ops server over HTTP: it runs no mosaic code)
         self._thread.start()
 
     def finish(self) -> None:
@@ -2551,7 +2720,7 @@ def serve_phases(ix, H3, dev, ix2, ix2_s, profile_root):
                     errors.append((i, repr(e)[:200]))
                 lat[i] = time.perf_counter() - t_start[i]
 
-        threads = [threading.Thread(target=client, daemon=True)
+        threads = [threading.Thread(target=client, daemon=True)  # lint: thread-context-adoption-ok (a load client: the engine's batcher adopts each request's context)
                    for _ in range(SERVE_CLIENTS)]
         t0 = time.perf_counter()
         for t in threads:
@@ -2673,7 +2842,7 @@ def serve_phases(ix, H3, dev, ix2, ix2_s, profile_root):
             i += 1
             time.sleep(0.001)
 
-    th = threading.Thread(target=streamer, daemon=True)
+    th = threading.Thread(target=streamer, daemon=True)  # lint: thread-context-adoption-ok (a load client: the engine's batcher adopts each request's context)
     th.start()
     time.sleep(0.3)
     t0 = time.perf_counter()
@@ -2855,7 +3024,7 @@ def serve_phases(ix, H3, dev, ix2, ix2_s, profile_root):
             with lock:
                 futures.append(f)
 
-    threads = [threading.Thread(target=tenant_load, args=(t,), daemon=True)
+    threads = [threading.Thread(target=tenant_load, args=(t,), daemon=True)  # lint: thread-context-adoption-ok (a load client: the router's batchers adopt each request's context)
                for t in range(TENANTS)]
     import concurrent.futures as cf
 
@@ -3182,7 +3351,7 @@ def knn_phase(ix, H3, dev, kx, build_s):
 
     eng._dispatch_mixed = counted_mixed
     K.pip_heavy_tiled.launches = 0
-    threads = [threading.Thread(target=client, daemon=True) for _ in range(SERVE_CLIENTS)]
+    threads = [threading.Thread(target=client, daemon=True) for _ in range(SERVE_CLIENTS)]  # lint: thread-context-adoption-ok (a load client: the engine's batcher adopts each request's context)
     with telemetry.capture() as loop_events, GcPauses() as gcp:
         t0 = time.perf_counter()
         for th in threads:
@@ -3455,7 +3624,7 @@ def epoch_phase(prep, H3, dev, ekw):
             cv.notify_all()
         return mem, res
 
-    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)  # lint: thread-context-adoption-ok (a load client: the router's batchers adopt each request's context)
                for c in range(SERVE_CLIENTS)]
     K.pip_heavy_tiled.launches = 0
     epochs, pub = [], [(0.0, 0.0)]
@@ -3711,7 +3880,7 @@ class ServeProcess:
              self.result_path],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, bufsize=1)
         self.last = "none"
-        self.pump = threading.Thread(target=self._pump, daemon=True)
+        self.pump = threading.Thread(target=self._pump, daemon=True)  # lint: thread-context-adoption-ok (pumps the serving process's stdout: it runs no mosaic code)
         self.pump.start()
 
     def _pump(self):
@@ -4970,6 +5139,12 @@ def main() -> int:
     if why:
         return fail(why)
 
+    # 8q. the last modules: utils, viz and the chaos sweep on the card
+    why, util_launches, chaos_launches = utilities_phase(ix, table, H3, dev, raw, crop,
+                                                         counted, card)
+    if why:
+        return fail(why)
+
     # 8d-8f, 8j, 8k. serving, KNN and epochs in a process of its own, as a
     # server runs: the profiler the phases above attached to this process
     # slows every later eager op. The child, started after phase 3, loaded
@@ -5005,7 +5180,10 @@ def main() -> int:
          + x_launches["pip_heavy_tiled"] + xs_launches["pip_heavy_tiled"]
          + tj["pip_heavy_tiled"] + tz["pip_heavy_tiled"] + serve_launches["serve_tuned"]
          + mesh_launches["pip_heavy_tiled"] + fn_launches["pip_heavy_tiled"]
-         + files_launches["pip_heavy_tiled"],
+         + files_launches["pip_heavy_tiled"] + util_launches["pip_heavy_tiled"]
+         + chaos_launches["pip_heavy_tiled"],
+         "launches_chaos": chaos_launches["pip_heavy_tiled"],
+         "launches_utils": util_launches["pip_heavy_tiled"],
          "launches_files": files_launches["pip_heavy_tiled"],
          "launches_mesh": mesh_launches["pip_heavy_tiled"],
          "launches_functions": fn_launches["pip_heavy_tiled"],
@@ -5034,13 +5212,16 @@ def main() -> int:
          "tile_bound_by": ht["bound_by"], "tile_points": ht["points"]},
         {"name": "pip_zone", "route": "cuda", "source": src,
          "replaces": "mosaic_tpu/kernels/pip.py:245", "launches": zone_launches,
+         "launches_chaos": chaos_launches["pip_zone"],
          "match": zone_ok, "max_abs_err": zone_err,
          "ms": zone_dev_ms, "wrapper_ms": zone_ms, "plain_ms": zone_plain_ms,
          "bound_ms": zone_bound, "bound_by": zone_by, "library_ms": None},
         {"name": "zonal_tiled", "route": "cuda", "source": zsrc,
          "replaces": "mosaic_tpu/kernels/zonal.py:196",
          "launches": zl["zonal_tiled"] + rs_launches["zonal_tiled"] + tz["zonal_tiled"]
-         + mesh_launches["zonal_tiled"] + files_launches["zonal_tiled"],
+         + mesh_launches["zonal_tiled"] + files_launches["zonal_tiled"]
+         + chaos_launches["zonal_tiled"],
+         "launches_chaos": chaos_launches["zonal_tiled"],
          "launches_files": files_launches["zonal_tiled"],
          "launches_mesh": mesh_launches["zonal_tiled"],
          "launches_raster_zones_tiled": zl["zonal_tiled"],
@@ -5067,7 +5248,9 @@ def main() -> int:
          + rs_fold_launches["zonal_fold"] + x_launches["zonal_fold"]
          + xg_launches["zonal_fold"] + xs_launches["zonal_fold"]
          + o_launches["zonal_fold"] + mesh_launches["zonal_fold"]
-         + fn_launches["zonal_fold"] + files_launches["zonal_fold"],
+         + fn_launches["zonal_fold"] + files_launches["zonal_fold"]
+         + chaos_launches["zonal_fold"],
+         "launches_chaos": chaos_launches["zonal_fold"],
          "launches_files": files_launches["zonal_fold"],
          "launches_mesh": mesh_launches["zonal_fold"],
          "launches_functions": fn_launches["zonal_fold"],
@@ -5116,4 +5299,5 @@ if __name__ == "__main__":
             shutil.rmtree(p.dir, ignore_errors=True)
         shutil.rmtree(os.path.join(HERE, OBS_DIR), ignore_errors=True)
         shutil.rmtree(os.path.join(HERE, FILES_DIR), ignore_errors=True)
+        shutil.rmtree(os.path.join(HERE, UTILS_DIR), ignore_errors=True)
     sys.exit(code)

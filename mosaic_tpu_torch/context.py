@@ -110,8 +110,14 @@ class MosaicContext:
         ctx = cls(cfg, idx)
         with cls._lock:
             cls._instance = ctx
-        # the reference registers the kepler notebook magic here, best
-        # effort; viz is not ported yet (ROADMAP queue 1, item 14c)
+        # the reference's enable_mosaic registers the kepler magic
+        # (`python/mosaic/api/enable.py:13-68`); best-effort here too
+        try:
+            from .viz import register_kepler_magic
+
+            register_kepler_magic()
+        except Exception:  # lint: broad-except-ok (notebooks only, never fatal)
+            pass
         return ctx
 
     @classmethod

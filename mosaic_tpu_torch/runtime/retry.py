@@ -11,8 +11,12 @@ fallback.
 
 Every caller in the port uses the default :class:`RetryPolicy` (3 tries,
 0.05 s first backoff, 2 s ceiling, 60 s budget); the reference's
-``MOSAIC_RETRY_*`` environment knobs are not ported until a caller needs
-other values.
+``MOSAIC_RETRY_ATTEMPTS``/``_BASE_S``/``_MAX_S``/``_BUDGET_S`` knobs are
+not ported until a caller needs other values. One knob is read, as the
+reference reads it:
+
+- ``MOSAIC_RETRY_SEED``  seed the backoff jitter (default: entropy), so
+  a retry schedule is reproducible run to run (see :func:`_jitter_rng`)
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import logging
+import os
 import random
 import time as _time
 from typing import Callable, Iterator
@@ -42,12 +47,32 @@ class RetryPolicy:
     jitter: float = 0.25
 
 
+def _jitter_rng(rng: "random.Random | None") -> "random.Random":
+    """The jitter source: an injected ``rng`` wins; else a fresh
+    ``random.Random(MOSAIC_RETRY_SEED)`` when the env knob is set (each
+    schedule restarts the sequence: deterministic under test; a value
+    that is not an integer seeds by its text); else the module-level
+    entropy-seeded generator."""
+    if rng is not None:
+        return rng
+    seed = os.environ.get("MOSAIC_RETRY_SEED")
+    if seed is not None:
+        try:
+            return random.Random(int(seed))
+        except ValueError:
+            return random.Random(seed)
+    return random  # the module (duck-typed: exposes .random())
+
+
 def backoff_delays(
     policy: RetryPolicy, rng: "random.Random | None" = None
 ) -> Iterator[float]:
-    """The policy's backoff schedule (one delay per retry, jittered by
-    ``rng``, else by the module-level entropy-seeded generator)."""
-    r = random if rng is None else rng  # the module exposes .random()
+    """The policy's backoff schedule (one delay per retry, jittered).
+
+    ``rng`` injects the jitter source; without it, ``MOSAIC_RETRY_SEED``
+    makes every schedule identical (see :func:`_jitter_rng`).
+    """
+    r = _jitter_rng(rng)
     delay = policy.base_delay_s
     while True:
         scale = 1.0 + policy.jitter * (2.0 * r.random() - 1.0)

@@ -125,7 +125,7 @@ def guard(site: str, fn, *args, default_s: float | None = None, **kwargs):
             done.set()
 
     t0 = time.monotonic()
-    worker = threading.Thread(
+    worker = threading.Thread(  # lint: thread-context-adoption-ok (plans stay caller-side: maybe_fail/planned_stall run pre-dispatch, and adopting in the worker would double-count nested sites against exact injection budgets)
         target=work, name=f"mosaic-watchdog:{site}", daemon=True
     )
     worker.start()

@@ -1358,3 +1358,89 @@ def test_raster_to_grid_on_card_equals_cpu(cuda, tmp_path):
         assert {k: float(v).hex() for k, v in got[1].items()} == {
             k: float(v).hex() for k, v in want[1].items()}, comb
         assert len(got[1]) > 10
+
+
+def test_benchmark_waits_for_the_card(cuda):
+    """`utils.benchmark` synchronises the device of every CUDA tensor in a
+    trial's result, nested in a tuple, a list, a dict, a dataclass or a
+    ``.metrics`` holder: each trial's host time covers the kernel the
+    trial launched (a ~10 ms `torch.cuda._sleep`), which a host clock
+    without the wait would not."""
+    import dataclasses
+
+    from mosaic_tpu_torch import utils as U
+
+    @dataclasses.dataclass
+    class Box:
+        t: object
+
+    class Holder:
+        def __init__(self, t):
+            self.metrics = {"t": t}
+
+    wraps = (lambda t: t, lambda t: (1, t), lambda t: [{"a": t}], Box, Holder)
+    for wrap in wraps:
+        ev = []
+
+        def fn():
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            torch.cuda._sleep(20_000_000)
+            x = torch.ones(4, device=cuda)
+            e.record()
+            ev.append((s, e))
+            return wrap(x)
+
+        stats = U.benchmark(fn, trials=3, warmup=1)
+        torch.cuda.synchronize()
+        device_ms = sorted(s.elapsed_time(e) for s, e in ev[1:])
+        assert device_ms[0] > 1.0
+        assert stats["median_s"] * 1e3 >= device_ms[1], wrap
+
+
+def test_device_trace_names_the_heavy_kernel(cuda, tmp_path):
+    """`utils.device_trace` (the card by default) writes a Chrome trace
+    under its directory that names the heavy kernel a traced adaptive
+    join launched, and the region `utils.annotate` marked."""
+    from mosaic_tpu_torch import utils as U
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+    from mosaic_tpu_torch.core.tessellate import tessellate
+    from mosaic_tpu_torch.sql import join as TJ
+
+    h3 = H3IndexSystem()
+    zones = synthetic_zones(4, 4, bbox=BBOX, verts=256)
+    ix = TJ.build_chip_index(tessellate(zones, h3, 9, keep_core_geoms=False), device=cuda)
+    pts = np.random.default_rng(5).uniform(BBOX[:2], BBOX[2:], (50_000, 2))
+    TJ.pip_join(pts, None, h3, 9, chip_index=ix, probe="adaptive")  # warm
+    before = TP.pip_heavy_tiled.launches
+    with U.device_trace(str(tmp_path)) as prof:
+        with U.annotate("mosaic.traced_join"):
+            got = TJ.pip_join(pts, None, h3, 9, chip_index=ix, probe="adaptive")
+    assert TP.pip_heavy_tiled.launches == before + 1
+    assert prof.trace_path.startswith(str(tmp_path))
+    with open(prof.trace_path) as f:
+        text = f.read()
+    assert "pip_heavy_kernel" in text and "mosaic.traced_join" in text
+    np.testing.assert_array_equal(
+        got, TJ.pip_join(pts, None, h3, 9, chip_index=ix, probe="scatter"))
+
+
+def test_chaos_sweep_on_card_holds_every_site(cuda):
+    """The chaos sweep on the card: every registered fault site holds its
+    contract with the CPU's outcome (`docs/TORCH_ARCHITECTURE.md`), and
+    none degrades — past the budget the card raises."""
+    from mosaic_tpu_torch.tools import chaos_sweep as CS
+
+    line, rc = CS.run_sweep(device="cuda")
+    detail = line["detail"]
+    assert rc == 0, detail
+    assert line["value"] == detail["registered"] == 25
+    assert not detail["failures"] and not detail["missing_drivers"]
+    got = {site: r["outcome"] for site, r in detail["outcomes"].items()}
+    typed = {"epoch.apply", "epoch.compact", "epoch.publish", "raster.decode",
+             "raster.zonal", "router.admit", "router.evict", "router.swap",
+             "serve.admit", "serve.batch", "stream.prefetch"}
+    want = {site: "typed" if site in typed else "identical" for site in got}
+    want["stream.admit"] = "contained"
+    assert got == want

@@ -39,6 +39,7 @@ from mosaic_tpu.core.index import GridConf as RefConf
 from mosaic_tpu.core.tessellate import tessellate as ref_tessellate
 from mosaic_tpu.runtime import faults as ref_faults
 from mosaic_tpu.runtime.retry import RetryPolicy as RefRetryPolicy
+from mosaic_tpu.runtime.retry import backoff_delays as ref_backoff
 from mosaic_tpu.sql import join as RJ
 from mosaic_tpu.sql import stream as RS
 from mosaic_tpu_torch.core.index import CustomIndexSystem, GridConf
@@ -466,9 +467,9 @@ def test_snapshot_precedes_resume_in_event_order(sj, ring, clean, tmp_path):
 
 
 def test_backoff_jitter_deterministic_under_seed():
-    """The port has no ``MOSAIC_RETRY_SEED`` knob (every caller uses the
-    constant policy): a seeded ``rng`` makes the jittered delays
-    reproducible."""
+    """A seeded ``rng`` makes the jittered delays reproducible; so does
+    the ``MOSAIC_RETRY_SEED`` knob, which the port reads as the
+    reference does (`test_retry_seed_knob_matches_the_reference`)."""
     pol = RetryPolicy(base_delay_s=0.1, max_delay_s=1.0, jitter=0.5)
     d1 = backoff_delays(pol, rng=random.Random(1234))
     d2 = backoff_delays(pol, rng=random.Random(1234))
@@ -476,6 +477,26 @@ def test_backoff_jitter_deterministic_under_seed():
     d3 = backoff_delays(pol, rng=random.Random(9))
     d4 = backoff_delays(pol, rng=random.Random(9))
     assert [next(d3) for _ in range(5)] == [next(d4) for _ in range(5)]
+
+
+@pytest.mark.parametrize("seed", ["1234", "seed-text"])
+def test_retry_seed_knob_matches_the_reference(monkeypatch, seed):
+    """Under ``MOSAIC_RETRY_SEED`` each schedule restarts one seeded
+    sequence: the port's first eight delays equal the reference's bit for
+    bit, for an integer seed and for one that seeds by its text."""
+    monkeypatch.setenv("MOSAIC_RETRY_SEED", seed)
+    pol = RetryPolicy(base_delay_s=0.1, max_delay_s=1.0, jitter=0.5)
+    ref_pol = RefRetryPolicy(base_delay_s=0.1, max_delay_s=1.0, jitter=0.5)
+    port, ref = backoff_delays(pol), ref_backoff(ref_pol)
+    got = [next(port) for _ in range(8)]
+    want = [next(ref) for _ in range(8)]
+    assert np.array(got).tobytes() == np.array(want).tobytes()
+    again = backoff_delays(pol)
+    assert [next(again) for _ in range(8)] == got
+    # an injected rng still wins over the knob
+    d = backoff_delays(pol, rng=random.Random(9))
+    e = backoff_delays(pol, rng=random.Random(9))
+    assert [next(d) for _ in range(8)] == [next(e) for _ in range(8)] != got
 
 
 # ------------------------------------------------- pipelined executor
