@@ -246,6 +246,23 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    (tiled lane) on the crop, a typed error and then the clean answer;
    the sweep and the two sites together launch ``pip_heavy_tiled``,
    ``zonal_tiled`` and ``zonal_seq_fold`` (``launches_chaos``);
+8r. the last gaps on the card (``models/core.py``, the retry knobs), on
+   phase 3's index and the 4M batch: a ``BinaryTransformer`` whose
+   ``right`` is the ``ChipIndex`` runs ``MODELS_ITERATIONS`` steps, step
+   i the adaptive ``pip_join`` of the i-th 1M slice, folding
+   ``torch.bincount(ids + 1, minlength=257)`` into a state of CUDA
+   tensors, each step checkpointed by a ``CheckpointManager`` under
+   ``MODELS_DIR`` (removed). Gates: the final counts equal those of one
+   4M join bit for bit; ``load()`` holds one part an iteration with
+   ``iteration`` 1-4, each equal to that iteration's state; the index is
+   threaded unchanged; an ``IterativeTransformer`` over the same steps
+   stops where the reference's rule says (the first step whose matched
+   total reaches the second step's plus one). Then one transient fault at
+   ``pip_join.device`` on the 4M join: under ``MOSAIC_RETRY_ATTEMPTS=1``
+   it raises ``RetryExhausted`` after one attempt with no degradation;
+   under ``=2`` it answers the clean join's bits with one
+   ``transient_retry``; the environment is as before. The phase's
+   launches by kernel are ``launches_models``;
 8d-8f, 8j and 8k run in a process of their own (``--serve-child``; its
    lines' ``t_s`` count from its own start, the parent passes them
    through), started right after phase 3: it loads phase 3's index from
@@ -508,6 +525,8 @@ FILES_CRS_CHECK = 65_536    # points of each code held against the numpy lane
 FILES_UTM_PIXEL = 30.0      # metres, the UTM 18N GeoTIFF's pixel
 FILES_GRID_TILE = 512       # raster_to_grid's retileSize
 UTILS_DIR = ".chip_smoke_utils"  # 8q's trace and map page (removed)
+MODELS_DIR = ".chip_smoke_models"  # 8r's checkpoints (removed)
+MODELS_ITERATIONS = 4       # 8r's transformer steps, one 1M slice of the 4M batch each
 BENCH_TRIALS = 5            # 8q's utils.benchmark trials of the warm 4M join
 VIZ_CELLS = 2_000           # phase 3's cells 8q draws with viz.plot_cells
 #: 8p's torch-lane bands against the numpy lane (the reference's device
@@ -2117,6 +2136,166 @@ def utilities_phase(ix, table, H3, dev, raw, crop, counted, card):
     })
     bad = [k for k, v in gates.items() if not v]
     return (f"utilities gates failed: {bad}" if bad else None), util_launches, chaos_launches
+
+
+def models_phase(ix, H3, dev, raw, n_zones, counted, card):
+    """Phase 8r, the last gaps on the card: the iteration skeletons of
+    ``models/core.py`` over the adaptive join of phase 3's index, with
+    a ``CheckpointManager`` recording a state of CUDA tensors, then the
+    ``MOSAIC_RETRY_ATTEMPTS`` knob on the 4M join with one transient fault
+    at ``pip_join.device``. Returns (failure message or None, the phase's
+    launches by kernel)."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from mosaic_tpu_torch.models import (
+        BinaryTransformer,
+        CheckpointManager,
+        IterativeTransformer,
+    )
+    from mosaic_tpu_torch.runtime import faults, telemetry
+    from mosaic_tpu_torch.runtime.errors import DegradedResult, RetryExhausted
+    from mosaic_tpu_torch.sql import join as J
+
+    t_phase = time.perf_counter()
+    gates = {}
+    secs = {}
+    d = os.path.join(HERE, MODELS_DIR)
+    shutil.rmtree(d, ignore_errors=True)
+    step_n = N_POINTS // MODELS_ITERATIONS
+    n_bins = n_zones + 1
+    for fn in counted.values():
+        fn.launches = 0
+
+    def join(pts, index=ix):
+        return J.pip_join(pts, None, H3, RES, chip_index=index, probe="adaptive")
+
+    def bincount(ids):
+        return torch.bincount(torch.as_tensor(ids, device=dev).long() + 1, minlength=n_bins)
+
+    rights = []
+
+    def join_step(left, right, i):
+        rights.append(right)
+        ids = join(raw[(i - 1) * step_n:i * step_n], right)
+        c = left["counts"] + bincount(ids)
+        return {"counts": c, "matched": c[1:].sum()}
+
+    start = {"counts": torch.zeros(n_bins, dtype=torch.int64, device=dev),
+             "matched": torch.zeros((), dtype=torch.int64, device=dev)}
+    states = []
+
+    def recorded(left, right, i):
+        states.append(join_step(left, right, i))
+        return states[-1]
+
+    ck = CheckpointManager(d, overwrite=True)
+    bt = BinaryTransformer(recorded, should_stop=lambda prev, cur: False,
+                           max_iterations=MODELS_ITERATIONS, right=ix, checkpoint=ck)
+    t0 = time.perf_counter()
+    final = bt.transform(start)
+    torch.cuda.synchronize()
+    secs["binary_transformer"] = time.perf_counter() - t0
+    transformer_launches = {k: fn.launches for k, fn in counted.items()}
+    t0 = time.perf_counter()
+    clean = join(raw)
+    secs["join_4m"] = time.perf_counter() - t0
+    want = bincount(clean)
+    gates["transformer_counts_equal_one_4m_join"] = bool(torch.equal(final["counts"], want))
+    gates["transformer_iterations_run"] = bt.iterations_run == MODELS_ITERATIONS
+    gates["transformer_right_threaded_unchanged"] = (
+        len(rights) == MODELS_ITERATIONS and all(r is ix for r in rights))
+    gates["transformer_state_on_card"] = all(
+        v.device.type == "cuda" for v in final.values())
+    gates["transformer_launched_pip_heavy_tiled"] = (
+        transformer_launches["pip_heavy_tiled"] >= MODELS_ITERATIONS)
+
+    t0 = time.perf_counter()
+    loaded = ck.load()
+    parts = sorted(glob.glob(os.path.join(d, "part-*.npz")))
+    gates["checkpoint_one_part_an_iteration"] = len(parts) == MODELS_ITERATIONS
+    gates["checkpoint_iterations"] = (
+        loaded.get("iteration", np.zeros(0)).tolist() == list(range(1, MODELS_ITERATIONS + 1)))
+    same_parts = len(parts) == len(states)
+    for part, st in zip(parts, states):
+        with np.load(part) as z:
+            same_parts &= (
+                sorted(z.files) == ["counts", "iteration", "matched"]
+                and np.array_equal(z["counts"], st["counts"].cpu().numpy())
+                and np.array_equal(z["matched"], np.atleast_1d(st["matched"].cpu().numpy())))
+    gates["checkpoint_parts_equal_each_state"] = bool(same_parts)
+    secs["checkpoint_check"] = time.perf_counter() - t0
+
+    # the reference's stopping rule: the first step whose state meets
+    # should_stop(prev, state); the threshold is the matched total after
+    # the second step plus one
+    matched = [int(st["matched"]) for st in states]
+    threshold = matched[1] + 1
+    stop_at = next((i + 1 for i, m in enumerate(matched) if m >= threshold),
+                   MODELS_ITERATIONS)
+    it = IterativeTransformer(lambda s, i: join_step(s, ix, i),
+                              should_stop=lambda prev, cur: int(cur["matched"]) >= threshold,
+                              max_iterations=MODELS_ITERATIONS)
+    t0 = time.perf_counter()
+    stopped = it.iterate(start)
+    secs["iterative_transformer"] = time.perf_counter() - t0
+    gates["iterative_stops_where_the_rule_says"] = (
+        it.iterations_run == stop_at < MODELS_ITERATIONS
+        and torch.equal(stopped["counts"], states[stop_at - 1]["counts"]))
+    ck.delete()
+    gates["checkpoint_deleted"] = not os.path.exists(d)
+
+    # MOSAIC_RETRY_ATTEMPTS at full width, one transient fault each
+    env_before = dict(os.environ)
+    prev = os.environ.get("MOSAIC_RETRY_ATTEMPTS")
+    knob = {}
+    t0 = time.perf_counter()
+    for attempts in ("1", "2"):
+        os.environ["MOSAIC_RETRY_ATTEMPTS"] = attempts
+        try:
+            with telemetry.capture() as ev, faults.transient_errors(
+                    1, sites=("pip_join.device",)) as plan:
+                try:
+                    out, err = join(raw), None
+                except RetryExhausted as e:
+                    out, err = None, e
+        finally:
+            if prev is None:
+                del os.environ["MOSAIC_RETRY_ATTEMPTS"]
+            else:
+                os.environ["MOSAIC_RETRY_ATTEMPTS"] = prev
+        names = [e["event"] for e in ev]
+        knob[attempts] = {
+            "trips": plan.trips, "error": type(err).__name__ if err else None,
+            "attempts": getattr(err, "attempts", None),
+            "events": {n: names.count(n) for n in sorted(set(names)) if n in FAULT_EVENTS},
+        }
+        if attempts == "1":
+            gates["knob_1_raises_after_one_attempt"] = (
+                err is not None and err.attempts == 1 and len(plan.trips) == 1)
+            gates["knob_1_no_degradation"] = "degraded" not in names
+        else:
+            gates["knob_2_answers_the_clean_bits"] = (
+                err is None and not isinstance(out, DegradedResult)
+                and out.dtype == clean.dtype and np.array_equal(out, clean))
+            gates["knob_2_one_transient_retry"] = names.count("transient_retry") == 1
+    secs["retry_knobs"] = time.perf_counter() - t0
+    gates["environment_unchanged"] = dict(os.environ) == env_before
+    launches = {k: fn.launches for k, fn in counted.items()}
+    shutil.rmtree(d, ignore_errors=True)
+
+    emit({
+        "phase": "models", "iterations": MODELS_ITERATIONS, "slice_points": step_n,
+        "matched_by_iteration": matched, "stop_threshold": threshold,
+        "stopped_at": it.iterations_run, "expected_stop": stop_at,
+        "retry_knob": knob, "seconds": secs,
+        "launches_transformer": transformer_launches, "launches_models": launches,
+        "phase_s": time.perf_counter() - t_phase, "nvidia_smi": card, "gates": gates,
+    })
+    bad = [k for k, v in gates.items() if not v]
+    return (f"models gates failed: {bad}" if bad else None), launches
 
 
 def mesh_devices(dev):
@@ -5145,6 +5324,11 @@ def main() -> int:
     if why:
         return fail(why)
 
+    # 8r. the last gaps: the iteration skeletons and the retry knobs
+    why, models_launches = models_phase(ix, H3, dev, raw, len(zones), counted, card)
+    if why:
+        return fail(why)
+
     # 8d-8f, 8j, 8k. serving, KNN and epochs in a process of its own, as a
     # server runs: the profiler the phases above attached to this process
     # slows every later eager op. The child, started after phase 3, loaded
@@ -5181,7 +5365,8 @@ def main() -> int:
          + tj["pip_heavy_tiled"] + tz["pip_heavy_tiled"] + serve_launches["serve_tuned"]
          + mesh_launches["pip_heavy_tiled"] + fn_launches["pip_heavy_tiled"]
          + files_launches["pip_heavy_tiled"] + util_launches["pip_heavy_tiled"]
-         + chaos_launches["pip_heavy_tiled"],
+         + chaos_launches["pip_heavy_tiled"] + models_launches["pip_heavy_tiled"],
+         "launches_models": models_launches["pip_heavy_tiled"],
          "launches_chaos": chaos_launches["pip_heavy_tiled"],
          "launches_utils": util_launches["pip_heavy_tiled"],
          "launches_files": files_launches["pip_heavy_tiled"],
@@ -5300,4 +5485,5 @@ if __name__ == "__main__":
         shutil.rmtree(os.path.join(HERE, OBS_DIR), ignore_errors=True)
         shutil.rmtree(os.path.join(HERE, FILES_DIR), ignore_errors=True)
         shutil.rmtree(os.path.join(HERE, UTILS_DIR), ignore_errors=True)
+        shutil.rmtree(os.path.join(HERE, MODELS_DIR), ignore_errors=True)
     sys.exit(code)

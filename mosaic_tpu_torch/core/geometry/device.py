@@ -44,6 +44,18 @@ class DeviceGeometry:
     def __len__(self):
         return self.geom_type.shape[0]
 
+    @property
+    def vert_mask(self) -> torch.Tensor:
+        """(G, R, V) True for real vertices (excludes closing + pad)."""
+        idx = torch.arange(self.verts.shape[2], dtype=torch.int32, device=self.verts.device)
+        return idx[None, None, :] < self.ring_len[:, :, None]
+
+    @property
+    def ring_mask(self) -> torch.Tensor:
+        """(G, R) True for the rings each geometry has."""
+        idx = torch.arange(self.verts.shape[1], dtype=torch.int32, device=self.verts.device)
+        return idx[None, :] < self.n_rings[:, None]
+
 
 def recenter_shift(padded: PaddedGeometry) -> np.ndarray:
     """The f64 origin ``to_device(recenter=True)`` subtracts: the midpoint

@@ -24,6 +24,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 from . import constants as C
 from . import hexmath as hm
@@ -368,6 +369,25 @@ def cell_center_frame(cells, xp=np):
     return face, x, y, res
 
 
+def cell_to_owned_fijk(cells, xp=np):
+    """cells -> (face, i, j, k, res) INTEGER lattice coords on the owning
+    face. Note pentagon-distorted children are not exactly lattice-aligned;
+    use :func:`cell_center_frame` for exact centers.
+
+    A tensor goes through the host path (the pentagon repair is host
+    numpy, as for `H3IndexSystem.cell_center`) and comes back as int64
+    tensors on its device."""
+    if isinstance(cells, torch.Tensor):
+        out = cell_to_owned_fijk(cells.detach().cpu().numpy(), np)
+        return tuple(
+            torch.as_tensor(np.asarray(a, dtype=np.int64), device=cells.device)
+            for a in out
+        )
+    face, x, y, res = cell_center_frame(cells, xp)
+    i, j, k = hm.hex2d_to_ijk(x, y, xp)
+    return face, i, j, k, res
+
+
 def _unfold_to_owning_face(face, x, y, res, xp=np):
     """Unfold home-face hex2d coords onto the owning face by exact planar
     lattice transforms across triangle edges (replaces the C library's
@@ -679,6 +699,16 @@ def cell_boundary(cells, xp=np):
         lats.append(la)
         lngs.append(lo)
     return xp.stack(lats, -1), xp.stack(lngs, -1)
+
+
+def resolution(cells, xp=np):
+    """(N,) int64 resolution of each id; a tensor stays on its device."""
+    return hm.astype((hm.astype(cells, np.int64) >> C.RES_OFFSET) & 0xF, np.int64)
+
+
+def base_cell(cells, xp=np):
+    """(N,) int64 base cell of each id; a tensor stays on its device."""
+    return (hm.astype(cells, np.int64) >> C.BASE_CELL_OFFSET) & 0x7F
 
 
 def is_pentagon_cell(cells, xp=np):

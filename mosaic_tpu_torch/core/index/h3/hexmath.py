@@ -168,6 +168,7 @@ class TorchNamespace:
     round = staticmethod(torch.round)
     sin = staticmethod(torch.sin)
     cos = staticmethod(torch.cos)
+    arctan2 = staticmethod(torch.atan2)
 
 
 def _f(table, like, xp):
@@ -191,6 +192,16 @@ def geo_to_vec3(lat, lng, xp=np):
 _FACE_CENTER_VEC3 = geo_to_vec3(
     C.FACE_CENTER_GEO[:, 0], C.FACE_CENTER_GEO[:, 1]
 )  # (20, 3)
+
+
+def geo_azimuth(lat1, lng1, lat2, lng2, xp=np):
+    """Initial azimuth (radians, clockwise from north) of the great circle
+    from (lat1, lng1) to (lat2, lng2)."""
+    return xp.arctan2(
+        xp.cos(lat2) * xp.sin(lng2 - lng1),
+        xp.cos(lat1) * xp.sin(lat2)
+        - xp.sin(lat1) * xp.cos(lat2) * xp.cos(lng2 - lng1),
+    )
 
 
 def geo_az_distance(lat, lng, az, r, xp=np):
@@ -415,6 +426,22 @@ def nearest_face(lat, lng, xp=np):
             + v[..., 2, None] * fc[None, :, 2]
         )
     return xp.argmax(dots, axis=-1), xp.clip(xp.max(dots, axis=-1), -1.0, 1.0)
+
+
+def select_rows(idx, table, n_rows: int, xp):
+    """``table[idx]``: rows of a small constant table, shaped
+    ``idx.shape + table.shape[1:]`` in ``table.dtype``, on ``idx``'s device.
+
+    The reference builds a where-chain over the ``n_rows`` rows because a
+    data-dependent gather serializes on the TPU; on the card a gather is
+    one indexed load, so the port indexes the table (kept on the device by
+    :meth:`TorchNamespace.asarray`). ``idx`` must lie in ``[0, n_rows)``;
+    ``n_rows`` is kept for the reference's signature.
+    """
+    tab = np.asarray(table)
+    if xp is np:
+        return tab[np.asarray(idx)]
+    return xp.asarray(tab)[idx.long()]
 
 
 _COS_AP7 = float(np.cos(C.AP7_ROT_RADS))

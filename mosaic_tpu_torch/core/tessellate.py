@@ -71,6 +71,9 @@ class ChipTable:
     def __len__(self) -> int:
         return int(self.geom_id.shape[0])
 
+    def core_count(self) -> int:
+        return int(self.is_core.sum())
+
 
 # --------------------------------------------------------------------------
 # host geometry helpers (float64 exact-ish path)

@@ -123,8 +123,9 @@ def guarded_call(
     Runs ``fn(*args, **kwargs)`` under the ``site`` watchdog deadline
     (per-site ``MOSAIC_WATCHDOG_<SITE>`` beats global ``MOSAIC_WATCHDOG_S``
     beats ``default_s``; the site doubles as the fault-injection hook),
-    retried on transient failures per ``policy`` (the default
-    :class:`~mosaic_tpu_torch.runtime.retry.RetryPolicy` when None); past the budget it degrades through
+    retried on transient failures per ``policy`` (env-tuned
+    ``MOSAIC_RETRY_*``, :meth:`~mosaic_tpu_torch.runtime.retry.RetryPolicy.from_env`,
+    when None); past the budget it degrades through
     ``fallback`` (:class:`DegradedResult`) or raises
     :class:`RetryExhausted`. ``retry=False`` keeps only the watchdog.
     """

@@ -1,3 +1,3 @@
-from . import pip
+from . import pip, zonal
 
-__all__ = ["pip"]
+__all__ = ["pip", "zonal"]

@@ -30,8 +30,8 @@ device (the card unless ``device="cpu"``); there is no jit, so nothing is
 compiled per tile shape; a tile with no pixel to fold skips its device
 fold (its partial is empty either way). :meth:`ZonalEngine.map` and
 :meth:`ZonalEngine.warmup_expr` run fused expression trees
-(`mosaic_tpu_torch/expr`). ``zonal_grid(index_system=None)`` raises
-``NotImplementedError`` naming the ROADMAP item that brings it.
+(`mosaic_tpu_torch/expr`). ``zonal_grid(index_system=None)`` takes the active context's index
+system, as the reference's does.
 ``mesh=`` (or the ``MOSAIC_MESH`` knob) shards the zones probe over a
 `parallel.mesh.Mesh` with the chip index replicated, as the reference's:
 a tile's pixel count must divide over the mesh, and the fold

@@ -9,14 +9,19 @@ value wrapped as :class:`DegradedResult`. Only errors that
 errors never are (see `runtime/errors.py`), so they never reach a
 fallback.
 
-Every caller in the port uses the default :class:`RetryPolicy` (3 tries,
-0.05 s first backoff, 2 s ceiling, 60 s budget); the reference's
-``MOSAIC_RETRY_ATTEMPTS``/``_BASE_S``/``_MAX_S``/``_BUDGET_S`` knobs are
-not ported until a caller needs other values. One knob is read, as the
-reference reads it:
+Env knobs, read as the reference reads them: the first four at policy
+construction (:meth:`RetryPolicy.from_env`, i.e. per call that passes no
+policy), a malformed value falling back to its default:
 
-- ``MOSAIC_RETRY_SEED``  seed the backoff jitter (default: entropy), so
+- ``MOSAIC_RETRY_ATTEMPTS``  max tries including the first (default 3)
+- ``MOSAIC_RETRY_BASE_S``    first backoff delay seconds (default 0.05)
+- ``MOSAIC_RETRY_MAX_S``     backoff ceiling seconds (default 2.0)
+- ``MOSAIC_RETRY_BUDGET_S``  total wall-clock budget seconds (default 60)
+- ``MOSAIC_RETRY_SEED``      seed the backoff jitter (default: entropy), so
   a retry schedule is reproducible run to run (see :func:`_jitter_rng`)
+
+The knobs are host-side and read before any device work of the call, so
+no CUDA graph capture reads them.
 """
 
 from __future__ import annotations
@@ -33,6 +38,13 @@ from . import telemetry
 from .errors import DegradedResult, RetryExhausted, is_transient
 
 
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except ValueError:
+        return default
+
+
 @dataclasses.dataclass(frozen=True)
 class RetryPolicy:
     """Bounded exponential backoff: attempt *n* sleeps
@@ -45,6 +57,15 @@ class RetryPolicy:
     timeout_s: float = 60.0
     growth: float = 2.0
     jitter: float = 0.25
+
+    @classmethod
+    def from_env(cls) -> "RetryPolicy":
+        return cls(
+            max_attempts=int(_env_float("MOSAIC_RETRY_ATTEMPTS", 3)),
+            base_delay_s=_env_float("MOSAIC_RETRY_BASE_S", 0.05),
+            max_delay_s=_env_float("MOSAIC_RETRY_MAX_S", 2.0),
+            timeout_s=_env_float("MOSAIC_RETRY_BUDGET_S", 60.0),
+        )
 
 
 def _jitter_rng(rng: "random.Random | None") -> "random.Random":
@@ -100,7 +121,7 @@ def call_with_retry(
     raised chaining the last error. Every retry and the degradation emit
     structured telemetry.
     """
-    policy = policy or RetryPolicy()
+    policy = policy or RetryPolicy.from_env()
     name = label or getattr(fn, "__name__", "call")
     delays = backoff_delays(policy, rng=rng)
     t0 = _time.monotonic()

@@ -353,6 +353,7 @@ def intersects_join(
     resolution: int,
     left_chips: ChipTable | None = None,
     right_chips: ChipTable | None = None,
+    backend: str = "device",
     device=None,
 ) -> np.ndarray:
     """(P, 2) int64 — distinct (left_row, right_row) pairs that intersect.
@@ -362,19 +363,28 @@ def intersects_join(
     without a predicate, the rest run one row-wise exact intersects over
     the border-chip geometry pairs (chips are clipped to their cell, so
     chip-level intersection within a shared cell is exact for the
-    geometry-level predicate), batched on ``device`` (the card unless
-    ``device="cpu"``) in f64 under ``guarded_call`` at the
-    ``overlay.predicate`` site; it answers as the host oracle
+    geometry-level predicate) under ``guarded_call`` at the
+    ``overlay.predicate`` site.
+
+    ``backend="device"`` (the default; the reference's is ``"oracle"``)
+    batches the predicate on ``device`` (the card unless ``device="cpu"``)
+    in f64; it answers as the host oracle
     `core.geometry.oracle.pair_intersects` does. Past the retry budget a
     call on the CPU degrades to that oracle (the result is a flagged
-    ``DegradedResult``); on the card it raises.
+    ``DegradedResult``); on the card it raises. ``backend="oracle"`` (or
+    ``"native"``, as in the reference) runs that f64 host oracle itself,
+    with no fallback. Any other value raises ``ValueError``.
 
     Known degenerate case (cell-equality joins generally, including the
     reference's): a pair whose intersection has zero area and lies
     EXACTLY on a cell boundary of an axis-aligned grid (BNG/CUSTOM) can
     tessellate into disjoint cell sets and produce no candidate.
     """
-    dev = resolve_device(device)
+    if backend not in ("device", "oracle", "native"):
+        raise ValueError(
+            f"backend must be 'device', 'oracle' or 'native', got {backend!r}"
+        )
+    dev = resolve_device(device) if backend == "device" else None
     lt = (
         left_chips
         if left_chips is not None
@@ -408,10 +418,13 @@ def intersects_join(
         # pair intersects iff ANY of its shared-cell chip pairs does
         a = lt.chips.take(lrows[need])
         b = rt.chips.take(rrows[need])
-        res = _dispatch.guarded_call(
-            "overlay.predicate", _device_pair_intersects, a, b, dev,
-            fallback=(lambda: pair_intersects(a, b)) if dev.type == "cpu" else None,
-        )
+        if dev is None:
+            res = _dispatch.guarded_call("overlay.predicate", pair_intersects, a, b)
+        else:
+            res = _dispatch.guarded_call(
+                "overlay.predicate", _device_pair_intersects, a, b, dev,
+                fallback=(lambda: pair_intersects(a, b)) if dev.type == "cpu" else None,
+            )
         if isinstance(res, DegradedResult):
             degraded = res
         hit[need] = np.asarray(res)

@@ -1444,3 +1444,88 @@ def test_chaos_sweep_on_card_holds_every_site(cuda):
     want = {site: "typed" if site in typed else "identical" for site in got}
     want["stream.admit"] = "contained"
     assert got == want
+
+
+def test_binary_transformer_checkpoints_card_state(cuda, tmp_path):
+    """A `BinaryTransformer` over a `ChipIndex` on the card: its state of
+    CUDA tensors is checkpointed through the host each step, and the final
+    counts equal one join's."""
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+    from mosaic_tpu_torch.core.tessellate import tessellate
+    from mosaic_tpu_torch.models import BinaryTransformer, CheckpointManager
+    from mosaic_tpu_torch.sql import join as TJ
+
+    h3 = H3IndexSystem()
+    zones = synthetic_zones(3, 3, bbox=BBOX)
+    ix = TJ.build_chip_index(tessellate(zones, h3, 7), device=cuda)
+    pts = np.random.default_rng(6).uniform(BBOX[:2], BBOX[2:], (3_000, 2))
+
+    def step(left, right, i):
+        ids = TJ.pip_join(pts[(i - 1) * 1_000:i * 1_000], None, h3, 7, chip_index=right)
+        return {"counts": left["counts"] + torch.bincount(
+            torch.as_tensor(ids, device=cuda).long() + 1, minlength=10)}
+
+    ck = CheckpointManager(str(tmp_path / "ck"))
+    bt = BinaryTransformer(step, should_stop=lambda p, c: False, max_iterations=3,
+                           right=ix, checkpoint=ck)
+    out = bt.transform({"counts": torch.zeros(10, dtype=torch.int64, device=cuda)})
+    want = torch.bincount(torch.as_tensor(
+        TJ.pip_join(pts, None, h3, 7, chip_index=ix), device=cuda).long() + 1, minlength=10)
+    assert out["counts"].device.type == cuda.type and torch.equal(out["counts"], want)
+    loaded = ck.load()
+    assert loaded["iteration"].tolist() == [1, 2, 3]
+    assert np.array_equal(loaded["counts"][-10:], want.cpu().numpy())
+
+
+def test_last_gap_helpers_stay_on_the_card(cuda):
+    """`vert_mask`, `ring_mask`, H3's `resolution`/`base_cell`,
+    `select_rows` and `cell_to_owned_fijk` answer on the card with the
+    CPU's values."""
+    from mosaic_tpu_torch.core.index import H3
+    from mosaic_tpu_torch.core.index.h3 import core as HC
+    from mosaic_tpu_torch.core.index.h3 import hexmath as HM
+
+    col = synthetic_zones(2, 2, bbox=BBOX)
+    g, c = pack_to_device(col, device=cuda), pack_to_device(col, device="cpu")
+    for name in ("vert_mask", "ring_mask"):
+        m = getattr(g, name)
+        assert m.device.type == cuda.type and torch.equal(m.cpu(), getattr(c, name))
+    pts = np.random.default_rng(7).uniform(BBOX[:2], BBOX[2:], (4_096, 2))
+    cells = np.concatenate([H3.point_to_cell(pts[r::16], r) for r in range(16)])
+    xp = HM.TorchNamespace(cuda)
+    t = torch.as_tensor(cells, device=cuda)
+    for fn in ("resolution", "base_cell"):
+        got = getattr(HC, fn)(t, xp)
+        assert got.device.type == cuda.type
+        assert np.array_equal(got.cpu().numpy(), getattr(HC, fn)(cells))
+    fijk = HC.cell_to_owned_fijk(t, xp)
+    for a, b in zip(fijk, HC.cell_to_owned_fijk(cells)):
+        assert a.device.type == cuda.type and np.array_equal(a.cpu().numpy(), b)
+    table = np.random.default_rng(8).random((20, 3))
+    idx = torch.as_tensor(cells % 20, device=cuda)
+    rows = HM.select_rows(idx, table, 20, xp)
+    assert rows.device.type == cuda.type
+    assert np.array_equal(rows.cpu().numpy(), table[cells % 20])
+
+
+def test_retry_attempts_knob_on_the_card(cuda, monkeypatch):
+    """``MOSAIC_RETRY_ATTEMPTS=1``: one transient fault exhausts the join
+    on the card after one attempt; ``=2``: it answers the clean bits."""
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+    from mosaic_tpu_torch.core.tessellate import tessellate
+    from mosaic_tpu_torch.runtime import RetryExhausted, faults, telemetry
+    from mosaic_tpu_torch.sql import join as TJ
+
+    h3 = H3IndexSystem()
+    ix = TJ.build_chip_index(tessellate(synthetic_zones(3, 3, bbox=BBOX), h3, 7), device=cuda)
+    pts = np.random.default_rng(9).uniform(BBOX[:2], BBOX[2:], (2_000, 2))
+    clean = TJ.pip_join(pts, None, h3, 7, chip_index=ix)
+    monkeypatch.setenv("MOSAIC_RETRY_ATTEMPTS", "1")
+    with telemetry.capture() as ev, faults.transient_errors(1, sites=("pip_join.device",)):
+        with pytest.raises(RetryExhausted) as ei:
+            TJ.pip_join(pts, None, h3, 7, chip_index=ix)
+    assert ei.value.attempts == 1 and "degraded" not in [e["event"] for e in ev]
+    monkeypatch.setenv("MOSAIC_RETRY_ATTEMPTS", "2")
+    with faults.transient_errors(1, sites=("pip_join.device",)):
+        again = TJ.pip_join(pts, None, h3, 7, chip_index=ix)
+    assert np.array_equal(again, clean)

@@ -348,6 +348,27 @@ class TestResilience:
         assert eng.metrics()["degraded"] == 1
         assert any(e["event"] == "degraded" for e in events)
 
+    def test_retry_attempts_knob_degrades_after_two_on_the_cpu(
+        self, index, grid, monkeypatch
+    ):
+        """The reference's case (`tests/test_serve.py`): under
+        ``MOSAIC_RETRY_ATTEMPTS=2`` the dispatch degrades after two
+        attempts."""
+        monkeypatch.setenv("MOSAIC_RETRY_ATTEMPTS", "2")
+        monkeypatch.setenv("MOSAIC_RETRY_BASE_S", "0.01")
+        pts = rand_points(np.random.default_rng(23), 70)
+        with make_engine(index, grid) as eng:
+            eng.warmup()
+            with telemetry.capture() as events, faults.transient_errors(
+                10, sites=("serve.dispatch",)
+            ):
+                out = eng.join(pts, deadline_s=30.0)
+        assert isinstance(out, DegradedResult)
+        assert out.attempts == 2
+        np.testing.assert_array_equal(np.asarray(out), ref_join(pts, grid, index))
+        assert eng.metrics()["degraded"] == 1
+        assert [e["attempt"] for e in events if e["event"] == "transient_retry"] == [1, 2]
+
     def test_batch_fault_site_fails_the_batch_futures(self, index, grid):
         from mosaic_tpu_torch.runtime.errors import TransientDeviceError
 
