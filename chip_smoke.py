@@ -263,6 +263,29 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    under ``=2`` it answers the clean join's bits with one
    ``transient_retry``; the environment is as before. The phase's
    launches by kernel are ``launches_models``;
+8s. the program store (``dispatch/programs.py``), after 8n: a
+   ``ServeEngine`` over phase 3's index with 8d's ladder and
+   ``program_store`` under ``RELAUNCH_DIR`` warms up and exports two
+   entries a rung and the ``pip`` library (gate: exactly those exports,
+   no nvcc build). A relaunch process (``--relaunch-child``) then runs
+   from a copy of ``mosaic_tpu_torch/`` without ``kernels/.build/``, with
+   no nvcc on its ``PATH`` and ``CUDA_HOME`` an empty directory, beside
+   this process's phases 8o-8r. Its gates: the package and build directory are
+   the copy's, nvcc is not found, warming an engine from the store loads
+   every entry the parent exported and exports none, the ``pip`` library
+   is bound from the store, no nvcc build; 200 requests of 8d's mix (1-
+   1,024 rows) each equal ``pip_join`` in that process bit for bit,
+   launching ``pip_heavy_tiled`` (``launches_relaunch``), and the kernel
+   equals ``pip_heavy_plain`` on the inputs of one top-rung dispatch.
+   Its line gives the seconds from its start to the store bound, its
+   warmup, graph captures and first answer, beside phase 2's nvcc build
+   seconds. Meanwhile this process runs three refusals on copies of the
+   store: a flipped byte in the ``pip`` payload
+   (``program_store_corrupt_skipped``, the entry exported again, then a
+   clean load), a sidecar naming another card
+   (``program_store_mismatch``, exported again), and a core on 8n's
+   4-shard mesh (``program_store_refused``); every answer equals
+   ``pip_join``;
 8d-8f, 8j and 8k run in a process of their own (``--serve-child``; its
    lines' ``t_s`` count from its own start, the parent passes them
    through), started right after phase 3: it loads phase 3's index from
@@ -451,6 +474,11 @@ PROFILE_CROP = 512         # side of the crop's middle that the profiler traces
 RUNS_DIR = ".chip_smoke_runs"  # run directories of the durable phases (removed)
 CHILD_TIMEOUT_S = 600       # the serving process after go (8d-8f, 8j, 8k)
 SERVE_DIR = ".chip_smoke_serve"  # the serving process's index, result and epoch log (removed)
+RELAUNCH_DIR = ".chip_smoke_relaunch"  # 8s's store and the package copy it relaunches (removed)
+RELAUNCH_REQUESTS = 200     # 8s's requests, 8d's mix of 1-1,024 rows
+RELAUNCH_SEED = 29
+RELAUNCH_TIMEOUT_S = 300    # the relaunch process, from its start
+REFUSAL_LADDER = (64, 1024)  # the refusal cores' ladder: 5 of 8d's rungs
 # serving (8d-8f): the reference serve bench's settings
 # (tools/serve_bench.py defaults) and SERVE_TENANT_r16.json's traffic
 SERVE_LADDER = (64, 16384)  # --min-bucket, --max-bucket
@@ -4133,6 +4161,360 @@ def serve_process(serving, ix, H3):
     return served
 
 
+# ------------------------------------------------------------------- 8s
+
+
+def serve_requests(seed: int, count: int) -> list:
+    """``count`` requests of 8d's mix: 1-1,024 rows each, uniform over
+    the bbox."""
+    import numpy as np
+
+    from mosaic_tpu_torch.datasets import NYC_BBOX as bbox
+
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(SERVE_ROWS[0], SERVE_ROWS[1] + 1, count)
+    return [rng.uniform(bbox[:2], bbox[2:], (int(n), 2)) for n in sizes]
+
+
+def store_engine(ix, H3, store):
+    """8d's engine over ``ix`` (adaptive probe, 8d's ladder, window,
+    queue and deadline) with the program store ``store`` bound."""
+    from mosaic_tpu_torch.datasets import NYC_BBOX
+    from mosaic_tpu_torch.dispatch import BucketLadder
+    from mosaic_tpu_torch.serve import ServeEngine
+
+    return ServeEngine(
+        ix, H3, RES, probe="adaptive", program_store=store,
+        ladder=BucketLadder(*SERVE_LADDER), max_batch_rows=SERVE_MAX_BATCH,
+        max_wait_s=SERVE_WINDOW_S, queue_capacity=SERVE_QUEUE,
+        default_deadline_s=SERVE_DEADLINE_S, bounds=NYC_BBOX,
+    )
+
+
+def no_nvcc_env(run_dir: str) -> dict:
+    """The environment of a process that cannot build a kernel: no
+    directory that holds nvcc on ``PATH``, ``CUDA_HOME`` an empty
+    directory, no ``PYTHONPATH``."""
+    empty = os.path.join(run_dir, "no_cuda")
+    os.makedirs(empty, exist_ok=True)
+    path = os.pathsep.join(
+        d for d in os.environ.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc"))
+    )
+    env = dict(os.environ, PATH=path, CUDA_HOME=empty)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def relaunch_child(index_path: str, store: str, result_path: str, spawned_at: str) -> int:
+    """The relaunch process of 8s (``chip_smoke.py --relaunch-child INDEX
+    STORE RESULT SPAWNED_AT``), run from a copy of the package without its
+    build directory and with no nvcc: loads phase 3's index, warms 8d's
+    engine from the program store, serves ``RELAUNCH_REQUESTS`` requests
+    and holds each against ``pip_join``, and the kernel against its plain
+    version on one top-rung dispatch. Writes its gates, counts and
+    seconds (from ``SPAWNED_AT``, the parent's clock at the start) to
+    ``RESULT`` (JSON)."""
+    t_spawn = float(spawned_at)
+    entered_s = time.time() - t_spawn
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    out = {"error": None, "in": "import"}
+    try:
+        import mosaic_tpu_torch
+        from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+        from mosaic_tpu_torch.kernels import _build
+        from mosaic_tpu_torch.kernels import pip as K
+        from mosaic_tpu_torch.runtime.errors import DegradedResult, KernelCompileError
+        from mosaic_tpu_torch.sql import join as J
+
+        gates = {
+            "package_is_the_copy": os.path.dirname(os.path.abspath(mosaic_tpu_torch.__file__))
+            == os.path.join(HERE, "mosaic_tpu_torch"),
+            "no_build_dir_at_start": not _build.BUILD_DIR.exists(),
+        }
+        try:
+            _build.nvcc_path()
+            gates["nvcc_not_found"] = False
+        except KernelCompileError:
+            gates["nvcc_not_found"] = True
+        imported_s = time.time() - t_spawn
+        out["in"] = "index"
+        dev = torch.device(DEVICE)
+        H3 = H3IndexSystem()
+        with np.load(index_path) as z:
+            ix = J.ChipIndex.from_arrays(dict(z), device=dev)
+        torch.cuda.synchronize()
+        index_s = time.time() - t_spawn
+        out["in"] = "store"
+        eng = store_engine(ix, H3, store)
+        eng.core.load_kernels()
+        bound_s = time.time() - t_spawn
+        out["in"] = "warmup"
+        t0 = time.perf_counter()
+        warm = eng.warmup()
+        warmup_s = time.perf_counter() - t0
+        out["in"] = "serve"
+        reqs = serve_requests(RELAUNCH_SEED, RELAUNCH_REQUESTS)
+        K.pip_heavy_tiled.launches = 0
+        answers, errors, first_s = [], [], None
+        t0 = time.perf_counter()
+        for r in reqs:
+            try:
+                answers.append(eng.submit(r).result(timeout=30))
+            except Exception as e:  # lint: broad-except-ok (every failure is listed and gated)
+                answers.append(None)
+                errors.append(repr(e)[:200])
+            if first_s is None:
+                first_s = time.time() - t_spawn
+        serve_s = time.perf_counter() - t0
+        launches = K.pip_heavy_tiled.launches
+        m = eng.metrics()
+        out["in"] = "check"
+        want = J.pip_join(np.concatenate(reqs), None, H3, RES, chip_index=ix,
+                          probe="scatter", recheck=False)
+        want = np.split(want, np.cumsum([len(r) for r in reqs])[:-1])
+        equal = not errors and all(
+            a is not None and not isinstance(a, DegradedResult) and np.array_equal(a, w)
+            for a, w in zip(answers, want))
+        # the kernel on the top rung: one dispatch run eagerly, its inputs
+        # captured at the wrapper, held against the plain version
+        padded, _ = eng.ladder.pad(np.concatenate(reqs)[:eng.ladder.max_bucket])
+        captured, real = [], K.pip_heavy_tiled
+
+        def capture(*a, **kw):
+            captured.append((a, kw))
+            return real(*a, **kw)
+
+        capture.launches = 0
+        K.pip_heavy_tiled = capture
+        try:
+            eng.core.probe_staged(*eng.core.stage(padded))
+        finally:
+            K.pip_heavy_tiled = real
+        a, kw = captured[0]
+        kb, kn = real(*a, **kw)
+        pb, pn = K.pip_heavy_plain(*a, **kw)
+        torch.cuda.synchronize()
+        kernel_equal = torch.equal(kb, pb) and (kn is None) == (pn is None) and (
+            kn is None or torch.equal(kn, pn))
+        max_err = int((kb.long() - pb.long()).abs().max()) if kb.numel() else 0
+        eng.close()
+        rungs = len(eng.ladder.buckets)
+        gates.update({
+            "loaded_every_entry_exported_none": warm.get("aot") == {
+                "loaded": 2 * rungs + 1, "exported": 0, "fallback": 0},
+            "library_bound_from_store": _build.ORIGINS.get("pip") == "store",
+            "no_nvcc_build": _build.nvcc_builds() == 0 and warm["backend_compiles"] == 0,
+            "equal_to_pip_join": equal,
+            "no_cold_compile_shed_or_degraded": m["cold_compiles"] == 0 and m["shed"] == 0
+            and m["degraded"] == 0,
+            "launched_pip_heavy_tiled": launches > 0,
+            "kernel_equals_plain": kernel_equal,
+        })
+        out.update({
+            "in": "done", "gates": gates, "aot": warm.get("aot"), "launches": launches,
+            "max_abs_err": max_err, "kernel_rows": int(a[0].shape[0]),
+            "requests": len(reqs), "points": int(sum(len(r) for r in reqs)),
+            "errors": errors[:3], "batches": m["batches"],
+            "nvcc_builds": _build.nvcc_builds(), "origin": _build.ORIGINS.get("pip"),
+            "seconds": {
+                "start_to_main": entered_s, "start_to_imported": imported_s,
+                "start_to_index": index_s, "start_to_store_bound": bound_s,
+                "warmup": warmup_s, "graph_capture": eng.core.capture_seconds,
+                "start_to_first_answer": first_s, "serve_loop": serve_s,
+            },
+        })
+    except Exception as e:  # lint: broad-except-ok (every failure goes to the result, which the parent gates)
+        out["error"] = repr(e)[:500]
+    with open(result_path, "w") as fh:
+        json.dump(out, fh)
+    return 1 if out["error"] or not all(out.get("gates", {}).values()) else 0
+
+
+class RelaunchProcess:
+    """8s: export 8d's ladder to a program store in this process, then
+    start the relaunch process from a copy of the package without its
+    build directory and without nvcc; it runs beside this process's
+    phases until :meth:`finish`."""
+
+    def __init__(self, ix, H3, run_dir: str):
+        from mosaic_tpu_torch.dispatch import BucketLadder, ProgramStore, backend_compiles
+
+        shutil.rmtree(run_dir, ignore_errors=True)
+        os.makedirs(run_dir)
+        self.dir = run_dir
+        self.store = os.path.join(run_dir, "programs")
+        self.proc = None
+        b0 = backend_compiles()
+        t0 = time.perf_counter()
+        with store_engine(ix, H3, self.store) as eng:
+            warm = eng.warmup()
+            capture_s = eng.core.capture_seconds
+        export_s = time.perf_counter() - t0
+        rungs = len(BucketLadder(*SERVE_LADDER).buckets)
+        self.exported = 2 * rungs + 1
+        keys = ProgramStore(self.store).keys()
+        gates = {
+            "exported_two_a_rung_and_the_library": warm.get("aot") == {
+                "loaded": 0, "exported": self.exported, "fallback": 0},
+            "entries_on_disk": len(keys) == self.exported,
+            "no_nvcc_build": backend_compiles() == b0,
+        }
+        emit({"phase": "store_export", "rungs": rungs, "aot": warm.get("aot"),
+              "entries": len(keys), "warmup_s": export_s, "graph_capture_s": capture_s,
+              "store_bytes": sum(os.path.getsize(os.path.join(self.store, n))
+                                 for n in os.listdir(self.store)),
+              "gates": gates})
+        self.failed = [g for g, v in gates.items() if not v]
+
+    def start(self, index_path: str) -> None:
+        """Start the relaunch process from a copy of the package made
+        without its build directory, in an environment without nvcc."""
+        app = os.path.join(self.dir, "app")
+        shutil.copytree(os.path.join(HERE, "mosaic_tpu_torch"),
+                        os.path.join(app, "mosaic_tpu_torch"),
+                        ignore=shutil.ignore_patterns(".build", "__pycache__"))
+        shutil.copy2(os.path.abspath(__file__), app)
+        self.result_path = os.path.join(self.dir, "relaunch_result.json")
+        self.out_path = os.path.join(self.dir, "relaunch.out")
+        self.t_start = time.time()
+        with open(self.out_path, "w") as fh:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.join(app, "chip_smoke.py"), "--relaunch-child",
+                 index_path, self.store, self.result_path, repr(self.t_start)],
+                env=no_nvcc_env(self.dir), cwd=app, stdout=fh, stderr=subprocess.STDOUT)
+
+    def finish(self, build_s: float, card: str) -> tuple:
+        """Wait for the relaunch process and print the ``relaunch`` line:
+        (failure message or None, its ``pip_heavy_tiled`` launches)."""
+        left = RELAUNCH_TIMEOUT_S - (time.time() - self.t_start)
+        try:
+            rc = self.proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            rc = None
+        self.stop()
+        try:
+            with open(self.result_path) as fh:
+                res = json.load(fh)
+        except (OSError, ValueError) as exc:
+            res = {"error": f"no result from the relaunch process: {exc!r}", "in": "start"}
+        with open(self.out_path) as fh:
+            tail = fh.read()[-1500:]
+        gates = dict(res.get("gates") or {})
+        gates["loaded_what_the_parent_exported"] = (res.get("aot") or {}).get(
+            "loaded") == self.exported
+        emit({"phase": "relaunch", "card": card, "rc": rc, "in": res.get("in"),
+              "error": res.get("error"), "seconds": res.get("seconds"),
+              "nvcc_build_s_phase_2": build_s, "aot": res.get("aot"),
+              "exported_by_parent": self.exported, "nvcc_builds": res.get("nvcc_builds"),
+              "library_origin": res.get("origin"), "requests": res.get("requests"),
+              "points": res.get("points"), "batches": res.get("batches"),
+              "pip_heavy_tiled_launches": res.get("launches"),
+              "kernel_rows": res.get("kernel_rows"), "max_abs_err": res.get("max_abs_err"),
+              "errors": res.get("errors"), "gates": gates,
+              "output_tail": tail if rc or res.get("error") else None})
+        if rc is None:
+            return f"the relaunch process passed its {RELAUNCH_TIMEOUT_S} s limit", 0
+        if rc or res.get("error"):
+            return f"the relaunch process failed in {res.get('in')}: {res.get('error')}", 0
+        bad = [g for g, v in gates.items() if not v]
+        return (f"relaunch gates failed: {bad}" if bad else None), res.get("launches", 0)
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+        if self.proc is not None:
+            self.proc.wait()
+
+
+#: the relaunch process of 8s, stopped however main() ends
+RELAUNCHING = []
+
+
+def store_refusals(ix, H3, dev, store: str, run_dir: str) -> str | None:
+    """8s in this process: three refusals on copies of the exported
+    store, each core's answers held against ``pip_join``. Prints the
+    ``store_refusals`` line; returns a failure message or None."""
+    import numpy as np
+
+    from mosaic_tpu_torch.datasets import NYC_BBOX, random_points
+    from mosaic_tpu_torch.dispatch import (
+        BucketLadder, DispatchCore, ProgramStore, data_mesh, programs,
+    )
+    from mosaic_tpu_torch.runtime import telemetry
+    from mosaic_tpu_torch.sql import join as J
+
+    t_all = time.perf_counter()
+    lad = BucketLadder(*REFUSAL_LADDER)
+    rungs = len(lad.buckets)
+    pts = random_points(1024, NYC_BBOX, seed=RELAUNCH_SEED)
+    want = J.pip_join(pts, None, H3, RES, chip_index=ix, probe="scatter", recheck=False)
+    lib = programs.library_key("pip")
+
+    def run(root, **kw):
+        """(warmup report or None, the store's refusal and fallback events,
+        answers equal, core)"""
+        with telemetry.capture() as events:
+            core = DispatchCore(ix, H3, RES, probe="adaptive", ladder=lad,
+                                program_store=root, **kw)
+            w = core.warmup() if "mesh" not in kw else None
+            got = core.execute(pts)
+        core.release_graphs()
+        names = [e["event"] for e in events
+                 if str(e.get("event", "")).startswith("program_store")
+                 and e["event"] not in ("program_store_loaded", "program_store_saved")]
+        return w, names, np.array_equal(got, want), core
+
+    corrupt = os.path.join(run_dir, "corrupt")
+    shutil.copytree(store, corrupt)
+    payload = os.path.join(corrupt, f"prog-{lib}.bin")
+    with open(payload, "rb") as fh:
+        blob = bytearray(fh.read())
+    blob[len(blob) // 2] ^= 0xFF
+    with open(payload, "wb") as fh:
+        fh.write(bytes(blob))
+    w1, ev1, eq1, _ = run(corrupt)
+    w1b, ev1b, eq1b, _ = run(corrupt)
+
+    mismatch = os.path.join(run_dir, "mismatch")
+    shutil.copytree(store, mismatch)
+    sidecar = os.path.join(mismatch, f"prog-{lib}.json")
+    with open(sidecar) as fh:
+        doc = json.load(fh)
+    doc["env"]["device_kind"] = "another card"
+    with open(sidecar, "w") as fh:
+        json.dump(doc, fh)
+    w2, ev2, eq2, _ = run(mismatch)
+
+    keys_before = ProgramStore(corrupt).keys()
+    _, ev3, eq3, meshed = run(corrupt, mesh=data_mesh(devices=mesh_devices(dev)))
+    gates = {
+        "corrupt_skipped_and_exported_again": "program_store_corrupt_skipped" in ev1
+        and w1["aot"] == {"loaded": 2 * rungs, "exported": 1, "fallback": 0},
+        "healed_store_loads_clean": w1b["aot"] == {
+            "loaded": 2 * rungs + 1, "exported": 0, "fallback": 0}
+        and "program_store_corrupt_skipped" not in ev1b,
+        "mismatch_refused_and_exported_again": "program_store_mismatch" in ev2
+        and w2["aot"] == {"loaded": 2 * rungs, "exported": 1, "fallback": 0},
+        "mesh_refused": ev3 == ["program_store_refused"] and meshed._programs is None
+        and ProgramStore(corrupt).keys() == keys_before,
+        "answers_equal_pip_join": eq1 and eq1b and eq2 and eq3,
+        "no_nvcc_build": w1["backend_compiles"] == 0 and w2["backend_compiles"] == 0,
+    }
+    emit({"phase": "store_refusals", "ladder": list(REFUSAL_LADDER),
+          "corrupt": {"aot": w1["aot"], "events": ev1}, "healed": {"aot": w1b["aot"]},
+          "mismatch": {"aot": w2["aot"], "events": ev2}, "mesh": {"events": ev3},
+          "seconds": time.perf_counter() - t_all, "gates": gates})
+    bad = [g for g, v in gates.items() if not v]
+    return f"store refusal gates failed: {bad}" if bad else None
+
+
 def main() -> int:
     import torch
 
@@ -5304,6 +5686,19 @@ def main() -> int:
     if why:
         return fail(why)
 
+    # 8s. the program store: export 8d's ladder, start the relaunch process
+    # (it runs beside 8o-8r), then the three refusals in this process
+    t8s = time.perf_counter()
+    relaunch = RelaunchProcess(ix, H3, os.path.join(HERE, RELAUNCH_DIR))
+    RELAUNCHING.append(relaunch)
+    if relaunch.failed:
+        return fail(f"store export gates failed: {relaunch.failed}")
+    relaunch.start(os.path.join(SERVING[0].dir, "serve_index.npz"))
+    why = store_refusals(ix, H3, dev, relaunch.store, relaunch.dir)
+    if why:
+        return fail(why)
+    store_main_s = time.perf_counter() - t8s
+
     # 8o. the function surface through MosaicContext.build("H3").functions
     why, fn_launches = functions_phase(ix, table, H3, dev, zones, raw, out, host_exact,
                                        main_pps, raster, crop, x_out["overlay"],
@@ -5326,6 +5721,14 @@ def main() -> int:
 
     # 8r. the last gaps: the iteration skeletons and the retry knobs
     why, models_launches = models_phase(ix, H3, dev, raw, len(zones), counted, card)
+    if why:
+        return fail(why)
+
+    # 8s (cont.): the relaunch process's result
+    t0 = time.perf_counter()
+    why, relaunch_launches = relaunch.finish(build_s, card)
+    store_main_s += time.perf_counter() - t0
+    emit({"phase": "store_cost", "main_process_s": store_main_s})
     if why:
         return fail(why)
 
@@ -5365,7 +5768,9 @@ def main() -> int:
          + tj["pip_heavy_tiled"] + tz["pip_heavy_tiled"] + serve_launches["serve_tuned"]
          + mesh_launches["pip_heavy_tiled"] + fn_launches["pip_heavy_tiled"]
          + files_launches["pip_heavy_tiled"] + util_launches["pip_heavy_tiled"]
-         + chaos_launches["pip_heavy_tiled"] + models_launches["pip_heavy_tiled"],
+         + chaos_launches["pip_heavy_tiled"] + models_launches["pip_heavy_tiled"]
+         + relaunch_launches,
+         "launches_relaunch": relaunch_launches,
          "launches_models": models_launches["pip_heavy_tiled"],
          "launches_chaos": chaos_launches["pip_heavy_tiled"],
          "launches_utils": util_launches["pip_heavy_tiled"],
@@ -5474,12 +5879,14 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve-child"]:
         sys.exit(serve_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--relaunch-child"]:
+        sys.exit(relaunch_child(*sys.argv[2:6]))
     if sys.argv[1:2] == ["--keep-trails"]:
         KEEP_TRAILS = os.path.abspath(sys.argv[2])
     try:
         code = main()
     finally:
-        for p in SERVING:
+        for p in SERVING + RELAUNCHING:
             p.stop()
             shutil.rmtree(p.dir, ignore_errors=True)
         shutil.rmtree(os.path.join(HERE, OBS_DIR), ignore_errors=True)

@@ -5,11 +5,11 @@ signature (`bucket.py`), the registry of bounded caches, ``guarded_call``
 (the watchdog/retry/degradation composition every device call goes
 through), :class:`DispatchCore` with warmup and freeze, the resident-core
 cache :func:`core_for` (`core.py`), the pipelined execution core of the
-durable stream and raster scan (`pipeline.py`), and what stands in for
-the reference's program store (`programs.py`). The data-parallel
-placement (`data_mesh`, `resolve_mesh`, `sharded_pointwise`) lives in
-`core.py` over `parallel.mesh`; the program store is not ported
-(`programs.py`).
+durable stream and raster scan (`pipeline.py`), and the program store
+(`programs.py`: the built kernel libraries and the per-rung program
+manifests as durable artifacts, so a relaunch binds them without nvcc).
+The data-parallel placement (`data_mesh`, `resolve_mesh`,
+`sharded_pointwise`) lives in `core.py` over `parallel.mesh`.
 """
 
 from .bucket import (
@@ -44,7 +44,14 @@ from .pipeline import (
     execute_pipeline,
     resolve_window,
 )
-from .programs import resolve_program_store
+from .programs import (
+    ProgramFingerprintMismatch,
+    ProgramStore,
+    ProgramStoreCorrupt,
+    backend_fingerprint,
+    program_key,
+    resolve_program_store,
+)
 
 __all__ = [
     "BucketLadder",
@@ -53,8 +60,12 @@ __all__ = [
     "DEFAULT_WINDOW",
     "DispatchCore",
     "PipelineStats",
+    "ProgramFingerprintMismatch",
+    "ProgramStore",
+    "ProgramStoreCorrupt",
     "SnapshotWriter",
     "backend_compiles",
+    "backend_fingerprint",
     "bounded_cache",
     "cache_stats",
     "cache_view",
@@ -67,6 +78,7 @@ __all__ = [
     "guarded_call",
     "join_cache_view",
     "mesh_key",
+    "program_key",
     "register_cache",
     "resolve_mesh",
     "resolve_program_store",

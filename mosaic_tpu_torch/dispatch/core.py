@@ -60,9 +60,15 @@ What differs from the reference, and why:
   devices; its device list may repeat a device (a logical mesh), while
   :func:`data_mesh` over the platform's devices refuses more than there
   are, as the reference's does;
-- ``program_store=`` raises ``NotImplementedError`` (`dispatch/programs.py`);
-  the reference's "meshed core refuses the store" event has nothing to
-  refuse.
+- ``program_store=`` (or ``MOSAIC_PROGRAM_STORE``) binds the program
+  store (`dispatch/programs.py`): per rung the reference's ``cells`` and
+  ``join`` entries, JSON manifests of the rung's statics and of the kernel
+  library the probe launches, and that library's bytes as an entry of its
+  own, so a relaunch binds it without nvcc. A refused entry takes the nvcc
+  path and is exported again; nothing falls back to a plain torch
+  version. A meshed core refuses the store (``program_store_refused``),
+  as the reference's does. The rungs' CUDA graphs are captured at warmup
+  either way: a graph cannot be stored.
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ import functools
 import gc
 import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -80,10 +87,12 @@ from .. import FLOAT
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from ..parallel import mesh as _mesh
+from ..runtime import checkpoint as _checkpoint
 from ..runtime import telemetry as _telemetry, watchdog as _watchdog
 from ..runtime.retry import call_with_retry
+from . import programs as _programs
 from .bucket import BucketLadder, backend_compiles, dispatch_signature, mesh_key
-from .programs import resolve_program_store
+from .programs import core_program_statics, program_key, resolve_program_store
 
 __all__ = [
     "DispatchCore",
@@ -480,7 +489,6 @@ class DispatchCore:
         on_cold_compile=None,
         program_store=None,
     ):
-        resolve_program_store(program_store)
         m = _join_mod()
         self.index = index
         self.index_system = index_system
@@ -528,6 +536,22 @@ class DispatchCore:
         #: the rungs' captured probes (CUDA only, `_graph_run`): keyed by
         #: bucket, or by (bucket, shard) under a mesh
         self._graphs: dict = {}
+        #: seconds this core spent capturing graphs (a store-warmed core
+        #: still captures every rung)
+        self.capture_seconds = 0.0
+        # the program store (dispatch/programs.py): explicit arg beats
+        # the MOSAIC_PROGRAM_STORE knob. A meshed core refuses it, as the
+        # reference's does (recorded, never silent).
+        self._programs = resolve_program_store(program_store)
+        if self._programs is not None and self.mesh is not None:
+            _telemetry.record(
+                "program_store_refused", reason="mesh",
+                devices=self.mesh.size,
+            )
+            self._programs = None
+        self._aot: dict = {}  # bucket -> (cells manifest, join manifest) | None
+        self._aot_libraries: set = set()  # libraries bound through the store
+        self.aot_stats = {"loaded": 0, "exported": 0, "fallback": 0}
 
     # ------------------------------------------------------- accounting
 
@@ -581,6 +605,74 @@ class DispatchCore:
             and self.probe in ("adaptive", "adaptive-heavy")
             and self.index.num_heavy_cells > 0
         )
+
+    def kernel_libraries(self) -> list[str]:
+        """The kernel libraries the probe launches: ``["pip"]`` when it
+        reaches ``pip_heavy_tiled``, else none."""
+        return ["pip"] if self._uses_kernel() else []
+
+    # ------------------------------------------------------ AOT programs
+
+    def _index_fingerprint(self) -> str:
+        """Restart-stable identity of the index for program-store keys
+        (`runtime.checkpoint.index_identity`: the cells fingerprint, with
+        an epochal index's epoch token folded in, so two epochs never
+        share a key)."""
+        if getattr(self, "_index_fp", None) is None:
+            self._index_fp = _checkpoint.index_identity(self.index)
+        return self._index_fp
+
+    def _epoch_meta(self) -> dict:
+        """Epoch provenance for program-store sidecars (empty for
+        build-once indexes): what `ProgramStore.gc_superseded` keys on."""
+        series = getattr(self.index, "epoch_series", None)
+        if not series:
+            return {}
+        return {
+            "index_series": series,
+            "index_epoch": int(getattr(self.index, "epoch", 0)),
+        }
+
+    def _aot_bundle(self, bucket: int):
+        """The bucket's ``(cells, join)`` manifests: loaded from the
+        program store when valid entries exist, otherwise exported, the
+        libraries they name bound first. Any other failure records
+        ``program_store_fallback`` and leaves the bucket on the nvcc path
+        (`kernels._build.load` at the first launch)."""
+        if bucket in self._aot:
+            return self._aot[bucket]
+        with _trace.span("dispatch.aot", bucket=bucket):
+            try:
+                bundle = self._load_or_export(bucket)
+            except Exception as e:  # lint: broad-except-ok (the store is an optimization: ANY failure in it must leave the dispatch on the nvcc path, not take it down)
+                _telemetry.record(
+                    "program_store_fallback", bucket=bucket,
+                    error=repr(e)[:200],
+                )
+                self.aot_stats["fallback"] += 1
+                bundle = None
+        self._aot[bucket] = bundle
+        return bundle
+
+    def _load_or_export(self, bucket: int):
+        fp = self._index_fingerprint()
+        out = []
+        for kind, libs in (("cells", ()), ("join", self.kernel_libraries())):
+            statics = core_program_statics(self, bucket, kind)
+            out.append(_programs.one_program(
+                self._programs, program_key(fp, kind, **statics),
+                _programs.manifest(kind, statics, libs),
+                {"kind": kind, "bucket": bucket, **self._epoch_meta()},
+                self.aot_stats, self._bind_library,
+            ))
+        return tuple(out)
+
+    def _bind_library(self, name: str) -> None:
+        """Kernel library ``name`` through the store, once per core: bound
+        from its entry, or built by nvcc and exported."""
+        if name not in self._aot_libraries:
+            self._aot_libraries.add(name)
+            _programs.bind_library(self._programs, name, self.aot_stats)
 
     # ---------------------------------------------------------- execute
 
@@ -661,6 +753,10 @@ class DispatchCore:
                 signatures=len(self._signatures),
             )
         try:
+            if self._programs is not None:
+                # binds the rung's kernel library from the store before
+                # the probe's first launch could start nvcc
+                self._aot_bundle(bucket)
             with _device_locks(self._lock_devices), _device_scope(
                 self._stage_device
             ):
@@ -736,12 +832,14 @@ class DispatchCore:
             # invalidate it (`torch.cuda.graph` collects once before it)
             gc_was_enabled = gc.isenabled()
             gc.disable()
+            t0 = time.perf_counter()
             try:
                 with _build.captured_launches() as launches, torch.cuda.graph(
                     graph, capture_error_mode="thread_local"
                 ):
                     gout = self._shard_probe(pts, shifted, index)
             finally:
+                self.capture_seconds += time.perf_counter() - t0
                 if gc_was_enabled:
                     gc.enable()
             self._graphs[key] = {
@@ -785,20 +883,36 @@ class DispatchCore:
     # ----------------------------------------------------------- warmup
 
     def load_kernels(self) -> list[str]:
-        """Build (once per machine) and bind the kernel library the probe
-        launches, so no request pays for it; [] when none is launched."""
-        if not self._uses_kernel():
+        """Bind the kernel library the probe launches, so no request pays
+        for it: from the program store when one is bound (exported there
+        when it lacks it), else built once per machine; [] when none is
+        launched."""
+        names = self.kernel_libraries()
+        if not names:
             return []
         from ..kernels import _build
 
-        _build.load("pip")
-        return ["pip"]
+        for name in names:
+            if self._programs is not None:
+                try:
+                    self._bind_library(name)
+                except Exception as e:  # lint: broad-except-ok (the store is an optimization: any failure in it leaves the library to the nvcc path below)
+                    _telemetry.record(
+                        "program_store_fallback", library=name,
+                        error=repr(e)[:200],
+                    )
+                    self.aot_stats["fallback"] += 1
+            _build.load(name)
+        return names
 
     def warmup(self) -> dict:
         """Bind the kernel library, run every ladder rung once against the
         resident index (first launches, the caching allocator), then
         freeze the signature set. Returns ``{"buckets", "seconds",
-        "signatures", "backend_compiles"}`` (nvcc builds started)."""
+        "signatures", "backend_compiles"}`` (nvcc builds started), plus
+        ``"aot"`` (entries loaded, exported, fallen back) with a program
+        store bound and ``"aot_gc"`` (superseded entries dropped) when the
+        index is an epochal one's."""
         t0 = backend_compiles()
         with _telemetry.capture() as events, _trace.span(
             "dispatch.warmup", buckets=len(self.ladder.buckets),
@@ -823,6 +937,15 @@ class DispatchCore:
             "signatures": len(self._signatures),
             "backend_compiles": backend_compiles() - t0,
         }
+        if self._programs is not None:
+            out["aot"] = dict(self.aot_stats)
+            em = self._epoch_meta()
+            if em:
+                # this core IS the current epoch: entries exported for
+                # earlier epochs of its series can never be loaded again
+                out["aot_gc"] = self._programs.gc_superseded(
+                    em["index_series"], em["index_epoch"]
+                )
         _telemetry.record("dispatch_warmup", **out)
         return out
 

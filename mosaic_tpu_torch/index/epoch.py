@@ -57,8 +57,10 @@ engine's ``hot_swap`` the refreshed profile AND the epochal index's own
 resolution, so the explicit layer wins over the profile's
 ``resolution``. The reference passes the profile alone, and its engine
 then serves at the resolution the analyzer picked, which the index was
-not built at (ROADMAP queue 3). There is no program store whose entries
-an epoch could key (`dispatch/programs.py`).
+not built at (ROADMAP queue 3). A published index carries
+``epoch_series``, ``epoch`` and ``epoch_token``: the program store folds
+the token into its keys and drops a series' superseded epochs
+(`dispatch/programs.py`, `DispatchCore.warmup`'s ``aot_gc``).
 """
 
 from __future__ import annotations

@@ -5,7 +5,11 @@ interface and loaded with ``ctypes`` — no PyTorch headers, so a build
 takes seconds. Libraries go to ``kernels/.build/`` (ignored by git),
 named by a hash of the source and flags, and are built on first use:
 nothing is compiled when the package is imported. :func:`load_all`
-builds every missing library at once, one nvcc process per source.
+builds every missing library at once, one nvcc process per source. A
+library may instead come from a program store (`dispatch/programs.py`):
+:func:`bind_payload` writes the stored bytes to the library's path and
+binds them before :func:`compile_libraries` would start nvcc, so a
+machine without the CUDA toolkit launches the kernels it was given.
 
 Flags: ``sm_90a`` (Hopper), ``-fmad=false`` so that no multiply-add is
 contracted, IEEE division and square root, no fast math — the kernels are
@@ -19,6 +23,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 from pathlib import Path
@@ -83,6 +88,9 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _NVCC_JOBS = 0
 #: compiler output (ptxas register/shared-memory report) per library
 BUILD_LOGS: dict[str, str] = {}
+#: where each bound library came from: "nvcc" (built by this process),
+#: "disk" (built before, found under BUILD_DIR) or "store" (`bind_payload`)
+ORIGINS: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -99,10 +107,16 @@ def nvcc_path() -> str:
     )
 
 
-def library_path(name: str) -> Path:
+def source_hash(name: str) -> str:
+    """The hash of library ``name``'s source and the nvcc flags: its
+    build's identity (the library's file name, a store entry's key)."""
     src = SOURCES[name]
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
+    return key.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}_{source_hash(name)}.so"
 
 
 def nvcc_builds() -> int:
@@ -149,13 +163,14 @@ def compile_libraries(names) -> None:
         raise KernelCompileError("\n".join(failed))
 
 
-def _bind(name: str) -> ctypes.CDLL:
+def _bind(name: str, origin: str | None = None) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(library_path(name)))
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = RESTYPES.get(fn, ctypes.c_int)
     _LIBS[name] = lib
+    ORIGINS[name] = origin or ("nvcc" if name in BUILD_LOGS else "disk")
     return lib
 
 
@@ -177,6 +192,67 @@ def load_all() -> dict[str, ctypes.CDLL]:
         for name in missing:
             _bind(name)
         return dict(_LIBS)
+
+
+def library_bytes(name: str) -> bytes:
+    """The bytes of the built library ``name`` (what a store keeps)."""
+    return library_path(name).read_bytes()
+
+
+def check_shared_object(payload: bytes) -> None:
+    """Raise ``ValueError`` unless ``payload`` is a whole ELF64 shared
+    object: its header, program and section header tables, and every
+    loadable segment lie inside it. ``dlopen`` maps a truncated library's
+    segments past the end of the file, and the first read there kills the
+    process with SIGBUS instead of failing."""
+    if len(payload) < 64 or payload[:5] != b"\x7fELF\x02":
+        raise ValueError("not an ELF64 object")
+    end = "<" if payload[5] == 1 else ">"
+    e_type, = struct.unpack_from(end + "H", payload, 16)
+    phoff, shoff = struct.unpack_from(end + "QQ", payload, 32)
+    phentsize, phnum, shentsize, shnum = struct.unpack_from(end + "HHHH", payload, 54)
+    if e_type != 3:  # ET_DYN
+        raise ValueError(f"ELF type {e_type} is not a shared object")
+    if phoff + phnum * phentsize > len(payload) or shoff + shnum * shentsize > len(payload):
+        raise ValueError("truncated: a header table lies past the end")
+    for i in range(phnum):
+        p_type, = struct.unpack_from(end + "I", payload, phoff + i * phentsize)
+        offset, = struct.unpack_from(end + "Q", payload, phoff + i * phentsize + 8)
+        filesz, = struct.unpack_from(end + "Q", payload, phoff + i * phentsize + 32)
+        if p_type == 1 and offset + filesz > len(payload):  # PT_LOAD
+            raise ValueError("truncated: a loadable segment lies past the end")
+
+
+def bind_payload(name: str, payload: bytes) -> ctypes.CDLL:
+    """Bind library ``name`` from ``payload``, the bytes of a build of
+    the same source and flags, and start no nvcc job: the payload is
+    written to the library's path (temp file, then ``os.replace``) and
+    loaded there. A library this process has bound already stays bound;
+    ``payload`` must then be the bound file's bytes. Raises ``ValueError``
+    when the payload is not a whole shared object
+    (:func:`check_shared_object`) or not the bound build, ``OSError`` when
+    it does not load, and ``AttributeError`` when it lacks an entry point
+    of ``SIGNATURES[name]``."""
+    check_shared_object(payload)
+    with _LOCK:
+        out = library_path(name)
+        if name in _LIBS:
+            if out.read_bytes() != payload:
+                raise ValueError(
+                    f"library {name!r} is bound from another build in this process"
+                )
+            return _LIBS[name]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        tmp.write_bytes(payload)
+        os.replace(tmp, out)
+        try:
+            return _bind(name, "store")
+        except (OSError, AttributeError):
+            _LIBS.pop(name, None)
+            ORIGINS.pop(name, None)
+            out.unlink(missing_ok=True)
+            raise
 
 
 def check(rc: int, what: str) -> None:

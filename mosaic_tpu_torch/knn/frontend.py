@@ -46,7 +46,12 @@ disk grows by one round a ring (:class:`_Rings`) where the reference
 starts ``k_loop(k)`` over from the seed (a row does not depend on the
 other rows, so the cells are the same); a ring lane degraded in more than one iteration (CPU only) keeps
 its first ``DegradedResult`` where the reference's ``degraded or d``
-tests an array's truth and raises; ``program_store=`` raises. ``mesh=``
+tests an array's truth and raises. ``program_store=`` (or
+``MOSAIC_PROGRAM_STORE``) keeps the reference's ``knn_cells`` and
+``knn_pairs`` entries, one a rung, as JSON manifests of their statics:
+the pair program is eager torch and launches no hand-written kernel, so
+they name no kernel library; a meshed frontend refuses the store
+(``program_store_refused``), as the reference's does. ``mesh=``
 (a device count, a `parallel.mesh.Mesh`, or None for the ``MOSAIC_MESH``
 knob) shards every pair batch over the mesh with the candidate column
 replicated (:func:`_sharded_point_pairs`), bit for bit the single-device
@@ -70,12 +75,16 @@ from ..dispatch import (
     resolve_mesh,
     resolve_program_store,
 )
+from ..dispatch import programs as _programs
 from ..dispatch.core import _device_scope
 from ..obs import trace as _trace
 from ..runtime import telemetry as _telemetry
 from ..runtime.errors import DegradedResult
+from ..utils import get_logger
 from .index import KNNIndex
 from .oracle import host_pair_distances
+
+logger = get_logger(__name__)
 
 #: default pair ladder: 256 covers a handful of interactive queries'
 #: first rings, 16k is one comfortable cover dispatch; bigger pair sets
@@ -300,7 +309,6 @@ class KNNFrontend:
                 "KNNFrontend needs a non-empty candidate index (warmup "
                 "dispatches pair batches against candidate row 0)"
             )
-        resolve_program_store(program_store)
         self.kx = kx
         self.lane = lane
         self.pair_ladder = pair_ladder or DEFAULT_PAIR_LADDER
@@ -323,6 +331,17 @@ class KNNFrontend:
         self._warmed: "frozenset | None" = None
         self._cold_compiles = 0
         self._on_cold_compile = on_cold_compile
+        # the program store mirrors DispatchCore's: explicit arg beats the
+        # MOSAIC_PROGRAM_STORE knob; a meshed frontend refuses it
+        self._programs = resolve_program_store(program_store)
+        if self._programs is not None and self.mesh is not None:
+            _telemetry.record(
+                "program_store_refused", reason="mesh",
+                devices=self.mesh.size,
+            )
+            self._programs = None
+        self._aot: dict = {}  # (kind, bucket) -> manifest | None
+        self.aot_stats = {"loaded": 0, "exported": 0, "fallback": 0}
         self.stats = {
             "queries": 0,
             "pairs": 0,
@@ -365,6 +384,44 @@ class KNNFrontend:
                 )
         return True
 
+    # ----------------------------------------------------- AOT programs
+
+    def _aot_program(self, kind: str, bucket: int):
+        """The (kind, bucket) program's manifest, loaded from the store or
+        exported; any failure other than the store's typed refusals
+        records ``program_store_fallback``."""
+        key = (kind, bucket)
+        if key in self._aot:
+            return self._aot[key]
+        with _trace.span("knn.aot", kind=kind, bucket=bucket):
+            try:
+                doc = self._load_or_export(kind, bucket)
+            except Exception as e:  # lint: broad-except-ok (the store is an optimization: ANY failure in it must leave the frontend serving, not take it down)
+                _telemetry.record(
+                    "program_store_fallback", bucket=bucket,
+                    error=repr(e)[:200],
+                )
+                self.aot_stats["fallback"] += 1
+                doc = None
+        self._aot[key] = doc
+        return doc
+
+    def _load_or_export(self, kind: str, bucket: int):
+        if kind == "cells":
+            statics = {"bucket": bucket, "resolution": int(self.kx.resolution)}
+        else:
+            statics = {
+                "bucket": bucket,
+                "dtype": str(self._dtype).removeprefix("torch."),
+            }
+        return _programs.one_program(
+            self._programs,
+            _programs.program_key(self.kx.fingerprint, f"knn_{kind}", **statics),
+            _programs.manifest(f"knn_{kind}", statics),
+            {"kind": f"knn_{kind}", "bucket": bucket},
+            self.aot_stats, None,
+        )
+
     # ---------------------------------------------------- device entries
 
     def _cells_bucket(self, padded: np.ndarray) -> np.ndarray:
@@ -372,6 +429,8 @@ class KNNFrontend:
         coordinates, the shared `cells_prog` callable)."""
         b = padded.shape[0]
         self._note("cells", b)
+        if self._programs is not None:
+            self._aot_program("cells", b)
         fn = cells_prog(self.kx.index_system, self.kx.resolution, "cells")
         with _device_scope(self.device):
             dev = torch.from_numpy(np.ascontiguousarray(padded, dtype=np.float64))
@@ -403,6 +462,8 @@ class KNNFrontend:
         self._note("pairs", b)
         self.stats["pairs"] += m
         self.stats["pairs_padded"] += b
+        if self._programs is not None:
+            self._aot_program("pairs", b)
         with _trace.span("knn.pairs", bucket=b, pairs=m), _device_scope(self.device):
             qdev = torch.from_numpy(np.ascontiguousarray(qxy, dtype=np.float64))
             rdev = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64))
@@ -720,6 +781,7 @@ class KNNFrontend:
             "row_buckets": len(self.row_ladder.buckets),
             "pair_buckets": len(self.pair_ladder.buckets),
             "backend_compiles": backend_compiles() - c0,
+            "aot": dict(self.aot_stats),
         }
         _telemetry.record("knn_warmup", **report)
         return report
@@ -740,4 +802,5 @@ class KNNFrontend:
             "knn_voronoi_fallback": self.stats["voronoi_fallback"],
             "knn_signatures": len(self._signatures),
             "knn_cold_compiles": self._cold_compiles,
+            "knn_aot": dict(self.aot_stats),
         }

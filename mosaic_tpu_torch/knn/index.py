@@ -35,6 +35,9 @@ from ..core.tessellate import tessellate
 from ..core.types import GeometryType, PackedGeometry
 from ..core.geometry.affine import translate
 from ..functions.geometry import DEVICE_DTYPE
+from ..utils import get_logger
+
+logger = get_logger(__name__)
 
 
 @dataclasses.dataclass

@@ -34,7 +34,11 @@ What differs from the reference, and why:
   host oracle (`DegradedResult`); on the card the batch's futures raise
   `RetryExhausted` and no work moves to the CPU — KNN batches included
   (`knn/frontend.py`);
-- ``program_store=`` raises (`dispatch/programs.py`). ``mesh=`` (or the
+- ``program_store=`` (or ``MOSAIC_PROGRAM_STORE``) binds the program
+  store (`dispatch/programs.py`) as the reference's does: the core, a
+  hot swap's new core and the KNN frontend built from a ``knn=`` index
+  share it, and ``warmup()`` reports its ``"aot"`` counts; a store-warmed
+  engine binds its kernel library without nvcc. ``mesh=`` (or the
   ``MOSAIC_MESH`` knob) places every dispatch data parallel over a
   `parallel.mesh.Mesh` with the index replicated, as the reference's:
   the answers are the single-device bits, a hot swap keeps the mesh, and
@@ -58,8 +62,7 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from ..dispatch import BucketLadder, DispatchCore, cells_prog
-from ..dispatch.programs import resolve_program_store
+from ..dispatch import BucketLadder, DispatchCore, cells_prog, resolve_program_store
 from ..obs import trace as _trace
 from ..runtime import quarantine as _quarantine, telemetry as _telemetry
 from ..runtime.errors import DegradedResult
@@ -138,7 +141,6 @@ class ServeEngine:
         knn=None,
         knn_lane: str | None = None,
     ):
-        resolve_program_store(program_store)
         self.index = index
         self.index_system = index_system
         self.resolution = index_system.resolution_arg(resolution)
@@ -169,18 +171,25 @@ class ServeEngine:
         # batches in flight on each core (the batcher's snapshots): a core
         # a hot_swap replaced frees its CUDA graphs when its last one ends
         self._holds: dict = {}
+        # the core owns probe/lookup resolution, caps, signature
+        # accounting, the guarded execute path and (with a store bound:
+        # explicit arg or MOSAIC_PROGRAM_STORE) the program store that
+        # makes warmup a load, not a build
+        self.program_store = resolve_program_store(program_store)
         self.core = DispatchCore(
             index, index_system, resolution, ladder=self.ladder,
             writeback=self.writeback, lookup=knobs["lookup"],
             probe=knobs["probe"], cell_dtype=cell_dtype, mesh=mesh,
             on_cold_compile=self._on_cold_compile,
+            program_store=self.program_store,
         )
         self.probe = self.core.probe
         self.lookup = self.core.lookup
         self.mesh = self.core.mesh
         # optional KNN frontend riding the same queue and batcher: a
-        # KNNIndex builds a fresh frontend sharing the engine's
-        # cold-compile tripwire; a KNNFrontend is adopted as it is
+        # KNNIndex builds a fresh frontend sharing the engine's mesh,
+        # program store and cold-compile tripwire; a KNNFrontend is
+        # adopted as it is
         self.knn_lane = knobs["knn_lane"]
         self.knn = self._build_knn(knn, self.knn_lane)
         self.admission = AdmissionController(
@@ -276,8 +285,10 @@ class ServeEngine:
         batch per rung, so the first real request at any admitted shape
         finds the library bound and the allocator primed. Returns
         ``{"buckets", "seconds", "signatures", "backend_compiles"}``
-        (nvcc builds started) and ``"rung_seconds"``, and ``"knn"`` (the
-        frontend's warmup) when the engine serves KNN; after this, any
+        (nvcc builds started) and ``"rung_seconds"``, ``"aot"`` (the
+        program store's loads, exports and fallbacks) when a store is
+        bound, and ``"knn"`` (the frontend's warmup) when the engine
+        serves KNN; after this, any
         dispatch that still introduces a new signature is counted in
         ``metrics()["cold_compiles"]`` (and emits ``serve_compile``)."""
         from ..dispatch import backend_compiles
@@ -307,6 +318,8 @@ class ServeEngine:
             "backend_compiles": backend_compiles() - t0,
             "rung_seconds": rungs,
         }
+        if self.program_store is not None:
+            out["aot"] = dict(self.core.aot_stats)
         if knn_stats is not None:
             out["knn"] = knn_stats
         # the event keys rungs by string, as JSON does: a trail written
@@ -375,6 +388,7 @@ class ServeEngine:
                 writeback=new_writeback, lookup=knobs["lookup"],
                 probe=knobs["probe"], cell_dtype=self.cell_dtype,
                 mesh=self.mesh, on_cold_compile=self._on_cold_compile,
+                program_store=self.program_store,
             )
             stats = core.warmup()  # runs every rung, then freezes
             new_knn = self.knn
@@ -440,9 +454,9 @@ class ServeEngine:
     # --------------------------------------------------------- dispatch
 
     def _build_knn(self, knn, lane):
-        """Wrap a KNNIndex in a frontend sharing the engine's mesh and
-        cold-compile tripwire; pass a ready-made frontend through
-        unchanged; None stays None."""
+        """Wrap a KNNIndex in a frontend sharing the engine's mesh,
+        program store and cold-compile tripwire; pass a ready-made
+        frontend through unchanged; None stays None."""
         if knn is None:
             return None
         from ..knn.frontend import KNNFrontend
@@ -456,6 +470,7 @@ class ServeEngine:
             )
         return KNNFrontend(
             knn, lane=lane or "ring", mesh=self.mesh,
+            program_store=self.program_store,
             on_cold_compile=self._on_cold_compile,
         )
 

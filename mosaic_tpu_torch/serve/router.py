@@ -14,10 +14,11 @@ Registering or reviving a tenant past the bound evicts one resident
 tenant's engine under the ``router.evict`` fault/watchdog site —
 health-aware: unhealthy tenants (`obs/health.py`) lose residency first,
 then never-warmed engines, then the least recently used; the evicted
-tenant stays registered and is revived on its next submit. A revival
-builds nothing: the kernel library is built once per machine and bound
-once per process, so its warmup makes zero nvcc builds, and after it
-zero cold compiles.
+tenant stays registered and is revived on its next submit. With a
+:class:`~mosaic_tpu_torch.dispatch.programs.ProgramStore` bound
+(``program_store=`` or ``MOSAIC_PROGRAM_STORE``), every tenant's engine
+shares it and a revival's warmup is a store load: zero exports, zero
+nvcc builds, and after it zero cold compiles.
 
 Fault sites: ``router.admit`` (submit path), ``router.evict``,
 ``router.swap`` — on the runtime's faults/watchdog machinery
@@ -34,11 +35,9 @@ load one from a profile store (``profile_root=``); a corrupt or
 mismatched store records ``router_profile_fallback`` and the tenant
 serves untuned, as the reference's does.
 
-What differs from the reference: there is no program store
-(`dispatch/programs.py`: ``program_store=`` raises), and
-``advance_epoch(reprofile=True)`` keeps the engine at the epochal
-index's resolution whatever the profile recommends
-(`index/epoch.py EpochalIndex.publish`). A tenant whose engine serves
+What differs from the reference: ``advance_epoch(reprofile=True)``
+keeps the engine at the epochal index's resolution whatever the profile
+recommends (`index/epoch.py EpochalIndex.publish`). A tenant whose engine serves
 KNN (``add_tenant(..., knn=...)``) takes :meth:`ServeRouter.submit_knn`.
 """
 
@@ -48,8 +47,7 @@ import os
 import threading
 import time
 
-from ..dispatch import guarded_call
-from ..dispatch.programs import resolve_program_store
+from ..dispatch import guarded_call, resolve_program_store
 from ..obs import health as _health
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
@@ -107,8 +105,8 @@ class _Tenant:
 class ServeRouter:
     """Tenant-keyed front door over per-tenant :class:`ServeEngine`\\ s.
 
-    >>> router = ServeRouter(h3, max_resident=2)
-    >>> router.add_tenant("acme", acme_index, 9)
+    >>> router = ServeRouter(h3, program_store="/data/programs")
+    >>> router.add_tenant("acme", acme_index, 9, profile_root="/data/acme")
     >>> fut = router.submit("acme", points)
     """
 
@@ -123,10 +121,9 @@ class ServeRouter:
         engine_defaults: dict | None = None,
         health_monitor=None,
     ):
-        resolve_program_store(program_store)
         self.index_system = index_system
         self.max_resident = resolve_max_resident(max_resident)
-        self.program_store = None
+        self.program_store = resolve_program_store(program_store)
         self.default_deadline_s = default_deadline_s
         self.queue_capacity = queue_capacity
         self.engine_defaults = dict(engine_defaults or {})
@@ -217,7 +214,8 @@ class ServeRouter:
         ):
             t.engine = ServeEngine(
                 t.index, self.index_system, t.resolution,
-                profile=t.profile, **t.engine_kw,
+                profile=t.profile, program_store=self.program_store,
+                **t.engine_kw,
             )
             stats = t.engine.warmup()
         t.revivals += 1

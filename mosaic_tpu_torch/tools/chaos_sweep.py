@@ -583,17 +583,15 @@ def drive_serve_dispatch():
 
 
 def _mk_router():
-    """The reference's router less its program store: the port has none
-    (``program_store=`` raises), so every tenant builds its kernels from
-    the one nvcc cache."""
     from mosaic_tpu_torch.dispatch import BucketLadder
     from mosaic_tpu_torch.serve import ServeRouter
 
-    return ServeRouter(grid(), engine_defaults={
-        "ladder": BucketLadder(64, 256),
-        "bounds": BBOX,
-        "max_wait_s": 0.01,
-    })
+    return ServeRouter(grid(), program_store=tmpdir("router-store"),
+                       engine_defaults={
+                           "ladder": BucketLadder(64, 256),
+                           "bounds": BBOX,
+                           "max_wait_s": 0.01,
+                       })
 
 
 @driver("router.admit")

@@ -16,11 +16,11 @@ zones, indexed by each package from the same WKT. Contracts:
 3. **Exactness.** A core's rows equal the port's `pip_join` (f32 cells,
    its default) and, with f64 cells, the reference's f64 host oracle
    (tolerance 0).
-4. What the port does not carry raises a typed ``NotImplementedError``
-   naming its ROADMAP entry: ``program_store=`` and
-   ``MOSAIC_PROGRAM_STORE`` (queue 3, the program store). ``mesh=`` is
-   carried: a meshed core answers the single-device rows, and a device
-   count asks for real devices (one on the CPU).
+4. What once raised is carried: ``program_store=`` and
+   ``MOSAIC_PROGRAM_STORE`` bind the program store (a second core warms
+   from it; its own tests are `tests/test_torch_programs.py`), and a
+   meshed core answers the single-device rows, a device count asking for
+   real devices (one on the CPU).
 """
 
 import numpy as np
@@ -341,14 +341,27 @@ class TestNotPorted:
         a = dispatch.core_for(index, CUSTOM, RES, ladder=ladder, mesh=mesh)
         assert a.mesh is mesh and a is not dispatch.core_for(index, CUSTOM, RES, ladder=ladder)
 
-    def test_program_store_names_queue_3(self, index, tmp_path):
-        with pytest.raises(NotImplementedError, match="queue 3"):
-            dispatch.DispatchCore(index, CUSTOM, RES, program_store=str(tmp_path))
+    def test_program_store_names_queue_3(self, index, tmp_path, points):
+        """``program_store=`` is ported (it raised naming queue 3 before):
+        the first core exports its rungs, a second one warms from them and
+        answers the same rows."""
+        ladder = BucketLadder(64, 1024)
+        first = dispatch.DispatchCore(index, CUSTOM, RES, ladder=ladder,
+                                      program_store=str(tmp_path))
+        assert first.warmup()["aot"] == {"loaded": 0, "exported": 10, "fallback": 0}
+        second = dispatch.DispatchCore(index, CUSTOM, RES, ladder=ladder,
+                                       program_store=str(tmp_path))
+        assert second.warmup()["aot"] == {"loaded": 10, "exported": 0, "fallback": 0}
+        np.testing.assert_array_equal(second.execute(points), first.execute(points))
 
     def test_program_store_env_names_queue_3(self, index, tmp_path, monkeypatch):
+        """``MOSAIC_PROGRAM_STORE`` binds the same store (it raised before)."""
         monkeypatch.setenv("MOSAIC_PROGRAM_STORE", str(tmp_path))
-        with pytest.raises(NotImplementedError, match="MOSAIC_PROGRAM_STORE"):
-            dispatch.DispatchCore(index, CUSTOM, RES)
+        ladder = BucketLadder(64, 1024)
+        dispatch.DispatchCore(index, CUSTOM, RES, ladder=ladder).warmup()
+        core = dispatch.DispatchCore(index, CUSTOM, RES, ladder=ladder)
+        assert core._programs.root == str(tmp_path)
+        assert core.warmup()["aot"] == {"loaded": 10, "exported": 0, "fallback": 0}
 
 
 class TestDeviceLock:

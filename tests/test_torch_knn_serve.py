@@ -8,8 +8,8 @@ f64 oracle and the REFERENCE engine's served answers on the same seeded
 requests; PIP rows of a mixed batch keep their solo bits.
 
 Not mirrored: the reference's convex-share tune routing
-(`TestTuneRouting`, ROADMAP queue 1 item 13) and the AOT part of
-`TestBatchModelCache` (the program store is not ported).
+(`TestTuneRouting`, ROADMAP queue 1 item 13) and `TestBatchModelCache`.
+The frontend's program-store entries are `tests/test_torch_programs.py`'s.
 """
 
 import time

@@ -4,9 +4,10 @@ and the dispatch core's resident-core cache, on the CPU.
 Mirrors `tests/test_router.py` on its fixture (the custom grid
 `GridConf(-180, 180, -90, 90, 2, 10, 10)` at resolution 3, index A's
 three zones and index B's one box). The reference's router tests bind an
-AOT program store; the port has none (``program_store=`` raises), so its
-revival contract is "zero nvcc builds and, after its warmup, zero cold
-compiles" instead of "warms from the store". Contracts:
+AOT program store; these run without one, so their revival contract is
+"zero nvcc builds and, after its warmup, zero cold compiles"; a revival
+that warms from a bound store is `TestNotPorted` here and
+`tests/test_torch_programs.py`. Contracts:
 
 - per-tenant engines: an aggressor flooding its own tiny quota cannot
   shed a single victim request, and sheds are accounted to the tenant
@@ -17,7 +18,7 @@ compiles" instead of "warms from the store". Contracts:
   the answer after the swap the new one's, with zero cold compiles;
 - the ``router.admit``, ``router.evict`` and ``router.swap`` fault sites;
 - `_CoreCache` order and stats; the health monitor's state machine;
-- what the port does not carry raises naming its ROADMAP entry.
+- what once raised is carried: the program store and tenant profiles.
 """
 
 import threading
@@ -362,9 +363,19 @@ class TestFaultSites:
 
 
 class TestNotPorted:
-    def test_program_store_names_queue_3(self, grid, tmp_path):
-        with pytest.raises(NotImplementedError, match="queue 3"):
-            ServeRouter(grid, program_store=str(tmp_path))
+    def test_program_store_names_queue_3(self, grid, index_a, tmp_path):
+        """``program_store=`` is ported (it raised naming queue 3 before):
+        each tenant's engine shares the router's store, and a revival
+        warms from it, building nothing."""
+        pts = rand_points(np.random.default_rng(12), 64)
+        with make_router(grid, max_resident=1, program_store=str(tmp_path)) as router:
+            assert router.add_tenant("a", index_a, RES)["aot"]["exported"] == 6
+            stats = router.add_tenant("b", index_a, RES)
+            assert stats["aot"] == {"loaded": 6, "exported": 0, "fallback": 0}
+            assert stats["backend_compiles"] == 0
+            np.testing.assert_array_equal(router.join("a", pts),
+                                          ref_join(pts, grid, index_a))
+            assert router._tenants["a"].engine.program_store is router.program_store
 
     @pytest.mark.parametrize("kw", [dict(probe="adaptive"), dict(root=True)],
                              ids=["profile", "profile_root"])

@@ -618,13 +618,28 @@ class TestNotPorted:
     # its two refusals went with them; the ids keep the other cases' names
     # mesh= is ported: its case (it raised NotImplementedError naming item
     # 12 before) now asks for 2 real devices, which the CPU does not have,
-    # and a logical 2-device mesh serves the single-device answers
+    # and a logical 2-device mesh serves the single-device answers.
+    # program_store= is ported: its case (it raised naming queue 3 before)
+    # binds a store under the test's directory, which a second engine
+    # warms from
     @pytest.mark.parametrize("kw,exc,item", [
         pytest.param(dict(mesh=2), ValueError, "devices", id="kw3-item 12"),
-        pytest.param(dict(program_store="/nonexistent"), NotImplementedError,
-                     "queue 3", id="kw4-queue 3"),
+        pytest.param(dict(program_store="tmp_path"), None, "queue 3", id="kw4-queue 3"),
     ])
-    def test_engine_arguments_raise_naming_their_item(self, index, grid, kw, exc, item):
+    def test_engine_arguments_raise_naming_their_item(self, index, grid, kw, exc, item,
+                                                      tmp_path):
+        if "program_store" in kw:
+            pts = rand_points(np.random.default_rng(4), 300)
+            with make_engine(index, grid, program_store=str(tmp_path)) as eng:
+                assert eng.warmup()["aot"]["exported"] == 2 * len(eng.ladder.buckets)
+            with make_engine(index, grid, program_store=str(tmp_path)) as eng:
+                w = eng.warmup()
+                assert w["aot"] == {"loaded": 2 * len(eng.ladder.buckets),
+                                    "exported": 0, "fallback": 0}
+                np.testing.assert_array_equal(
+                    eng.join(pts, deadline_s=30.0), ref_join(pts, grid, index)
+                )
+            return
         with pytest.raises(exc, match=item):
             make_engine(index, grid, **kw)
         if "mesh" in kw:

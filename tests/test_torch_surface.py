@@ -48,18 +48,14 @@ _CHECK_REP = (
     "shard_map replication checking, off where a pallas_call has no "
     "replication rule; the port's mesh lanes check no replication"
 )
+_EXECUTABLE = (
+    "a jax-compiled XLA executable object and the live call prototypes "
+    "its PyTreeDefs are rebuilt from; the port's stored program is a "
+    "kernel library, serialized and bound by its name"
+)
 _DONATE = (
     "jax buffer donation of the resident ring; torch tensors are "
     "reused in place, so there is nothing to donate"
-)
-_STORE = (
-    "the serialized-XLA-executable program store; the port's only build "
-    "is nvcc, cached on disk (ROADMAP queue 3, not carried over; "
-    "`dispatch/programs.py` raises NotImplementedError)"
-)
-_LOGGER = (
-    "a module logger of the JAX package's `utils.get_logger`; the port's "
-    "modules log through `logging.getLogger` where they log"
 )
 
 #: "<module path>:<name>" -> why the port does not carry it. A name is a
@@ -88,20 +84,9 @@ EXCLUDED: dict[str, str] = {
         "concatenates whatever outputs each shard returns"
     ),
     "parallel/dist_overlay.py:geom_specs(row=)": _SHARD_MAP,
-    "dispatch/programs.py:ProgramStore": _STORE,
-    "dispatch/programs.py:ProgramStoreCorrupt": _STORE,
-    "dispatch/programs.py:ProgramFingerprintMismatch": _STORE,
-    "dispatch/programs.py:VERSION": _STORE,
-    "dispatch/programs.py:backend_fingerprint": _STORE,
-    "dispatch/programs.py:core_program_statics": _STORE,
-    "dispatch/programs.py:deserialize_compiled": _STORE,
-    "dispatch/programs.py:program_key": _STORE,
-    "dispatch/programs.py:serialize_compiled": _STORE,
-    "dispatch/__init__.py:ProgramStore": _STORE,
-    "dispatch/__init__.py:ProgramStoreCorrupt": _STORE,
-    "dispatch/__init__.py:ProgramFingerprintMismatch": _STORE,
-    "dispatch/__init__.py:backend_fingerprint": _STORE,
-    "dispatch/__init__.py:program_key": _STORE,
+    "dispatch/programs.py:serialize_compiled(compiled=)": _EXECUTABLE,
+    "dispatch/programs.py:deserialize_compiled(example_args=)": _EXECUTABLE,
+    "dispatch/programs.py:deserialize_compiled(out_aval=)": _EXECUTABLE,
     "analysis/rules/purity.py:jit_purity": (
         "the rule over jax.jit-traced bodies; the port's counterpart is "
         "`capture_purity`, over CUDA graph captures"
@@ -110,8 +95,6 @@ EXCLUDED: dict[str, str] = {
         "the jit-traced function finder; the port's counterpart is "
         "`captured_nodes`"
     ),
-    "knn/frontend.py:logger": _LOGGER,
-    "knn/index.py:logger": _LOGGER,
 }
 
 
