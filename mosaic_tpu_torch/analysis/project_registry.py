@@ -105,7 +105,7 @@ def scan_module(rel: str, tree: ast.AST) -> dict[str, set[str]]:
             s = const_str(node.args[0])
             if s:
                 out["fault_sites"].add(s)
-        elif tail in ("span", "start_span") and node.args:
+        elif tail in ("span", "start_span", "stage_span") and node.args:
             s = name_or_wildcard(node.args[0])
             if s:
                 out["spans"].add(s)

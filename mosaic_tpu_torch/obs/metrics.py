@@ -12,6 +12,11 @@ Three metric kinds, Prometheus-compatible:
 - :class:`Histogram` — bucketed distribution + sum + count
   (``serve.request_seconds``).
 
+Beyond the reference, the bridge folds every span event that carries
+``device_s`` (a device-timed stage, `obs/trace.py stage_span`) into
+``trace.stage_device_seconds{stage}`` and ``trace.stage_points{stage}``;
+they grow only while stage timing is on.
+
 Recording cost: one ``threading.Lock`` acquire and a dict update per
 observation. :func:`snapshot` returns one plain JSON-able dict;
 `obs/export.py` renders it as Prometheus text exposition.
@@ -305,6 +310,11 @@ def _on_event(evt: dict) -> None:
             counter("obs.compile_count").inc(kind="stream")
         if evt.get("stage") == "join_loop" and "points_per_sec" in evt:
             gauge("stream.points_per_sec").set(evt["points_per_sec"])
+    elif ev == "span" and "device_s" in evt:
+        # a device-timed stage span (`obs/trace.py stage_span`)
+        stage = evt.get("name", "")
+        counter("trace.stage_device_seconds").inc(evt["device_s"], stage=stage)
+        counter("trace.stage_points").inc(evt.get("points") or 0, stage=stage)
 
 
 def install_bridge() -> None:

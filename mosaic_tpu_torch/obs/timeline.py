@@ -25,6 +25,11 @@ Both clocks are the same process-wide monotonic clock, so intervals
 from different threads land on one shared time axis; ``seq`` breaks
 ties for deterministic ordering.
 
+The stage spans of `obs/trace.py` (recorded only while stage timing is
+on) split a ``pip_join`` call into its copies (transfer), its numpy
+shift and cast (host_callback) and its device stages, and give a
+stream run's loop and its wait on the fold pull to device.
+
 Classification
 --------------
 :data:`CLASS_RULES` maps stage keys (``trace_report.stage_key``
@@ -77,6 +82,8 @@ CLASS_RULES: tuple = (
     ("transfer", "span.dispatch.transfer.d2h"),
     ("transfer", "span.stream.ring_build"),
     ("transfer", "stream_stage.ring_build"),
+    ("transfer", "span.join.pip.h2d"),
+    ("transfer", "span.join.pip.d2h"),
     # -- queue_wait: admitted but not yet in a forming batch
     ("queue_wait", "serve_stage.queue_wait"),
     # -- host_callback: host-side work the device waits out
@@ -93,6 +100,7 @@ CLASS_RULES: tuple = (
     ("host_callback", "stream_stage.pipeline_flush"),
     ("host_callback", "quarantine_stage.*"),
     ("host_callback", "recheck_narrow"),
+    ("host_callback", "span.join.pip.prepare"),
     # -- device: the useful work everything above steals from
     #    (the pipeline drain is the bounded window's one blocking pull:
     #    the wall it spends is device execution the host waits out)
@@ -105,6 +113,12 @@ CLASS_RULES: tuple = (
     ("device", "span.raster.tile"),
     ("device", "span.raster.assign"),
     ("device", "span.join.pip"),
+    ("device", "span.join.pip.cells"),
+    ("device", "span.join.pip.counts"),
+    ("device", "span.join.pip.probe"),
+    ("device", "span.stream.assign"),
+    ("device", "span.stream.join"),
+    ("device", "span.stream.fold_pull"),
     ("device", "span.join.probe.*"),
     ("device", "serve_stage.dispatch"),
     ("device", "serve_stage.batch"),

@@ -1319,6 +1319,14 @@ def pip_join(
     (pass ``batch_size=0`` to force the unbatched path past a profile's
     recommendation).
 
+    While stage timing is on (`obs/trace.py stage_timing_on`: a torch
+    profiler records, or ``MOSAIC_TRACE_STAGES=1``), the single-device
+    lane records the stage spans ``join.pip.h2d``, ``join.pip.cells``,
+    ``join.pip.counts``, ``join.pip.prepare``, ``join.pip.probe`` and
+    ``join.pip.d2h`` under ``join.pip``, the cells and the probe
+    device-timed, read once the answer is on the host. The meshed lane
+    and the recheck's narrow re-join record none.
+
     ``mesh`` routes each chunk through the dispatch core's bucketed
     data-parallel lane (`dispatch.DispatchCore`): points padded to the
     ladder bucket and sharded over the mesh with the ChipIndex
@@ -1418,17 +1426,24 @@ def pip_join(
 
     def assign(chunk: np.ndarray):
         """Cells (and margins) of a chunk and its three probe counts."""
-        pts = torch.from_numpy(np.ascontiguousarray(chunk)).to(dev).to(cdt)
-        if recheck:
-            cells, margins = _dispatch.cells_prog(
-                index_system, resolution, "margin"
-            )(pts)
-        else:
-            cells = _dispatch.cells_prog(index_system, resolution, "cells")(pts)
-            margins = None
-        counts = (
-            _probe_counts(cells, chip_index).tolist() if need_counts else None
-        )
+        host_pts = np.ascontiguousarray(chunk)
+        with _obs_trace.stage_span("join.pip.h2d", bytes=host_pts.nbytes):
+            pts = torch.from_numpy(host_pts).to(dev)
+        with _obs_trace.stage_span(
+            "join.pip.cells", device=dev, points=host_pts.shape[0]
+        ):
+            pts = pts.to(cdt)
+            if recheck:
+                cells, margins = _dispatch.cells_prog(
+                    index_system, resolution, "margin"
+                )(pts)
+            else:
+                cells = _dispatch.cells_prog(index_system, resolution, "cells")(pts)
+                margins = None
+        counts = None
+        if need_counts:
+            with _obs_trace.stage_span("join.pip.counts"):
+                counts = _probe_counts(cells, chip_index).tolist()
         return pts, cells, margins, counts
 
     def run(chunk: np.ndarray) -> np.ndarray:
@@ -1482,7 +1497,11 @@ def pip_join(
                     "probe_route", n=m, probe=probe,
                     found=nf, heavy=nh, convex=nc, light=nf - nc,
                 )
-        shifted = torch.from_numpy((chunk - shift).astype(np_dtype)).to(dev)
+        with _obs_trace.stage_span("join.pip.prepare"):
+            host_shifted = (chunk - shift).astype(np_dtype)
+        with _obs_trace.stage_span("join.pip.h2d", bytes=host_shifted.nbytes):
+            shifted = torch.from_numpy(host_shifted).to(dev)
+        del host_shifted
         # every cap that exists escalates together toward the row-count
         # ceiling, at which overflow is structurally impossible
         grow = {k: v for k, v in caps.items() if v is not None}
@@ -1492,16 +1511,18 @@ def pip_join(
         def attempt(c):
             # the copy back ends the attempt, so the watchdog's deadline
             # covers the device work
-            r = pip_join_points(
-                shifted, cells, chip_index,
-                heavy_cap=c.get("heavy_cap", hcap),
-                found_cap=c.get("found_cap", fcap), edge_eps2=band,
-                writeback=writeback, lookup=lookup, probe=probe,
-                convex_cap=c.get("convex_cap", ccap),
-            )
-            if band is None:
-                return r.cpu().numpy()
-            return r[0].cpu().numpy(), r[1].cpu().numpy()
+            with _obs_trace.stage_span("join.pip.probe", device=dev, points=m):
+                r = pip_join_points(
+                    shifted, cells, chip_index,
+                    heavy_cap=c.get("heavy_cap", hcap),
+                    found_cap=c.get("found_cap", fcap), edge_eps2=band,
+                    writeback=writeback, lookup=lookup, probe=probe,
+                    convex_cap=c.get("convex_cap", ccap),
+                )
+            with _obs_trace.stage_span("join.pip.d2h"):
+                if band is None:
+                    return r.cpu().numpy()
+                return r[0].cpu().numpy(), r[1].cpu().numpy()
 
         if not recheck:
             out, _ = run_escalating(
@@ -1590,8 +1611,11 @@ def pip_join(
         return run_resilient(chunk)
 
     # one span per pip_join call: escalation/retry/degradation/recheck
-    # events inside attach to it
-    with _obs_trace.span("join.pip", n=n, recheck=bool(recheck), probe=probe):
+    # events inside attach to it; its device-timed stages are read once
+    # the answer is on the host
+    with _obs_trace.span(
+        "join.pip", n=n, recheck=bool(recheck), probe=probe
+    ), _obs_trace.device_stages():
         if batch_size is None or n <= batch_size:
             return run_spanned(raw)
         out = np.empty(n, dtype=np.int32)

@@ -309,6 +309,12 @@ def build_stream_programs(
     including one assign past the last batch, the carry a snapshot
     stores for `resume`. ``acc`` is a (3,) int64 device tensor holding
     int32 values; nothing in the loop reads a value back to the host.
+
+    While stage timing is on (`obs/trace.py`), each ``assign`` and
+    ``join`` of the loop is a ``stream.assign`` / ``stream.join`` stage
+    span, device-timed (not on a mesh) and read when `StreamJoin.run`
+    pulls its fold; under `run_durable` and `compile` they are plain
+    spans.
     """
 
     def assign(pts):
@@ -334,18 +340,28 @@ def build_stream_programs(
         else _dispatch.sharded_pointwise(join_one, mesh)
     )
 
+    def timed(ring):
+        """The device a stage of ``ring``'s loop is timed on: none for a
+        sharded probe, which runs on every device of the mesh."""
+        return ring.device if mesh is None else None
+
     def seg(ring, chip_index, i0: int, acc, cells, nb: int, collect: bool):
-        k = ring.shape[0]
+        k, b, dev = ring.shape[0], ring.shape[1], timed(ring)
         outs = []
         for i in range(int(i0), int(i0) + nb):
             if prefetch:
                 # join batch i against the cells prefetched at i-1;
                 # assign batch i+1's cells in the same pass
-                out = join(ring[i % k], cells, chip_index)
-                cells = assign(ring[(i + 1) % k])
+                with _trace.stage_span("stream.join", device=dev, points=b):
+                    out = join(ring[i % k], cells, chip_index)
+                with _trace.stage_span("stream.assign", device=dev, points=b):
+                    cells = assign(ring[(i + 1) % k])
             else:
                 pts = ring[i % k]
-                out = join(pts, assign(pts), chip_index)
+                with _trace.stage_span("stream.assign", device=dev, points=b):
+                    pts_cells = assign(pts)
+                with _trace.stage_span("stream.join", device=dev, points=b):
+                    out = join(pts, pts_cells, chip_index)
             acc = _wrap_dev(acc + _fold_terms(out))
             if collect:
                 outs.append(out)
@@ -353,10 +369,13 @@ def build_stream_programs(
 
     def loop(ring, chip_index, nb: int, collect: bool):
         acc0 = torch.zeros(3, dtype=torch.int64, device=ring.device)
-        cells0 = (
-            assign(ring[0]) if prefetch
-            else torch.zeros(0, dtype=torch.int64, device=ring.device)
-        )
+        if prefetch:
+            with _trace.stage_span(
+                "stream.assign", device=timed(ring), points=ring.shape[1]
+            ):
+                cells0 = assign(ring[0])
+        else:
+            cells0 = torch.zeros(0, dtype=torch.int64, device=ring.device)
         acc, _cells, outs = seg(ring, chip_index, 0, acc0, cells0, nb, collect)
         return acc, outs
 
@@ -530,10 +549,11 @@ class StreamJoin:
         donation = {}
         with _trace.span(
             "stream.run", n_batches=n_batches, batch=batch, ring_k=k,
-        ):
+        ), _trace.device_stages():
             t0 = time.perf_counter()
             acc, outs = self._loop(ring, self._probe_index, n_batches, collect)
-            acc_np = acc.cpu().numpy()  # blocks: the loop's only host pull
+            with _trace.stage_span("stream.fold_pull"):
+                acc_np = acc.cpu().numpy()  # blocks: the loop's only host pull
             wall = time.perf_counter() - t0
             n_points = n_batches * batch
             if self.donate_ring:

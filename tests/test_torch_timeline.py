@@ -78,6 +78,21 @@ class TestKeysAndClasses:
     def test_classifier_table(self, key, cls):
         assert timeline.classify_key(key) == cls
 
+    @pytest.mark.parametrize("key,cls", [
+        ("span.join.pip.h2d", "transfer"),
+        ("span.join.pip.d2h", "transfer"),
+        ("span.join.pip.prepare", "host_callback"),
+        ("span.join.pip.cells", "device"),
+        ("span.join.pip.counts", "device"),
+        ("span.join.pip.probe", "device"),
+        ("span.stream.assign", "device"),
+        ("span.stream.join", "device"),
+        ("span.stream.fold_pull", "device"),
+    ])
+    def test_stage_span_classes(self, key, cls):
+        # the port's stage spans (recorded only while stage timing is on)
+        assert timeline.classify_key(key) == cls
+
     def test_containers_and_unknowns_stay_unclassified(self):
         for key in (
             "span.stream.durable_run", "stream_stage.durable_loop",
@@ -372,6 +387,32 @@ class TestRealDurableRunAttribution:
         ) <= 0.05 * rep["wall_s"]
         with open(out) as f:
             assert json.load(f)["metric"] == "stall_report"
+
+    def test_stall_report_on_a_stage_timed_stream_trail(
+        self, stream_setup, tmp_path, capsys
+    ):
+        from mosaic_tpu_torch.obs import trace
+
+        sj, ring = stream_setup
+        shares = {}
+        for on in (False, True):
+            trace.stage_timing(on)
+            try:
+                with telemetry.capture() as events:
+                    sj.run(ring, 6)
+            finally:
+                trace.stage_timing(False)
+            trail = str(tmp_path / f"t{int(on)}.jsonl")
+            export.write_jsonl(events, trail)
+            assert stall_report.main([trail]) == 0
+            rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+            assert rep["window"]["source"] == "stream_stage.join_loop"
+            assert rep["sum_ok"] is True
+            shares[on] = rep["classes"]["device"]["share"]
+        # a run's loop and its wait on the fold pull read as device
+        # only from the stage spans; without them the run is all idle
+        assert shares[False] == 0.0
+        assert shares[True] > 0.0
 
     def test_injected_slowdown_lands_in_the_right_class(
         self, stream_setup, tmp_path, monkeypatch, capsys
