@@ -11,9 +11,10 @@ names and file formats:
   ``trace.stage_timing(True)`` or with ``MOSAIC_TRACE_STAGES=1``, spans
   open profiler ranges of their names and the host entry and the stream
   loop record stage spans (``join.pip.{h2d,prepare,cells,counts,probe,
-  d2h}``, ``stream.{assign,join,fold_pull}``), the cells and probe
-  stages device-timed with no added sync, folded by the bridge into
-  ``trace.stage_device_seconds{stage}`` and ``trace.stage_points{stage}``.
+  d2h}``, ``stream.{assign,join,fold_pull}``), the prepare (the device's
+  shift and cast), cells and probe stages device-timed with no added
+  sync, folded by the bridge into ``trace.stage_device_seconds{stage}``
+  and ``trace.stage_points{stage}``.
   Off, a stage boundary costs one flag test and one profiler-state query
   (about 0.13 µs) and emits nothing;
 - **metrics** (`obs/metrics.py`) — typed counters/gauges/histograms with

@@ -26,9 +26,9 @@ from different threads land on one shared time axis; ``seq`` breaks
 ties for deterministic ordering.
 
 The stage spans of `obs/trace.py` (recorded only while stage timing is
-on) split a ``pip_join`` call into its copies (transfer), its numpy
-shift and cast (host_callback) and its device stages, and give a
-stream run's loop and its wait on the fold pull to device.
+on) split a ``pip_join`` call into its copies (transfer) and its device
+stages (the shift and cast among them), and give a stream run's loop
+and its wait on the fold pull to device.
 
 Classification
 --------------
@@ -100,7 +100,6 @@ CLASS_RULES: tuple = (
     ("host_callback", "stream_stage.pipeline_flush"),
     ("host_callback", "quarantine_stage.*"),
     ("host_callback", "recheck_narrow"),
-    ("host_callback", "span.join.pip.prepare"),
     # -- device: the useful work everything above steals from
     #    (the pipeline drain is the bounded window's one blocking pull:
     #    the wall it spends is device execution the host waits out)
@@ -113,6 +112,7 @@ CLASS_RULES: tuple = (
     ("device", "span.raster.tile"),
     ("device", "span.raster.assign"),
     ("device", "span.join.pip"),
+    ("device", "span.join.pip.prepare"),
     ("device", "span.join.pip.cells"),
     ("device", "span.join.pip.counts"),
     ("device", "span.join.pip.probe"),

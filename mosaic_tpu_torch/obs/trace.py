@@ -32,17 +32,18 @@ an operator's :func:`stage_timing` ``(True)``, or from import when
   Chrome trace on the kernels' clock (a detached span opens none);
 - :func:`stage_span` blocks record child spans at the stage boundaries of
   the host entry and the stream loop: ``join.pip.h2d`` (attribute
-  ``bytes``), ``join.pip.prepare``, ``join.pip.cells``,
-  ``join.pip.counts``, ``join.pip.probe`` and ``join.pip.d2h`` under
-  ``join.pip`` (`sql/join.py pip_join`, its single-device lane), and
+  ``bytes``), ``join.pip.prepare`` (the device's shift and cast of the
+  f64 points), ``join.pip.cells``, ``join.pip.counts``,
+  ``join.pip.probe`` and ``join.pip.d2h`` under ``join.pip``
+  (`sql/join.py pip_join`, its single-device lane), and
   ``stream.assign``, ``stream.join`` and ``stream.fold_pull`` under
   ``stream.run`` (`sql/stream.py`);
-- a stage given ``device=`` (``join.pip.cells``, ``join.pip.probe``,
-  ``stream.assign``, ``stream.join``) records a CUDA event pair on the
-  current stream (the host clock on the CPU, whose ops are synchronous);
-  its span event carries ``device_s`` and ``points``, read when the
-  owning path's :func:`device_stages` block ends at the sync the path
-  makes anyway (the answer's copy back, the fold pull). No
+- a stage given ``device=`` (``join.pip.prepare``, ``join.pip.cells``,
+  ``join.pip.probe``, ``stream.assign``, ``stream.join``) records a CUDA
+  event pair on the current stream (the host clock on the CPU, whose ops
+  are synchronous); its span event carries ``device_s`` and ``points``,
+  read when the owning path's :func:`device_stages` block ends at the
+  sync the path makes anyway (the answer's copy back, the fold pull). No
   ``synchronize`` and no read-back is added. The metric bridge folds
   those events into ``trace.stage_device_seconds{stage}`` and
   ``trace.stage_points{stage}``.

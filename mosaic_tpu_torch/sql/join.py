@@ -1279,7 +1279,10 @@ def pip_join(
     matched polygon row per point (-1 = no polygon) as a numpy int32 array.
 
     Runs on the card unless ``device="cpu"``; a prebuilt ``chip_index``
-    must live on that device. ``batch_size`` chunks the point axis. The
+    must live on that device. ``batch_size`` chunks the point axis. Each
+    chunk crosses to the device once, in float64; the device recentres it
+    on ``chip_index.border.shift`` and narrows it to the tables' dtype,
+    the same bits as numpy's ``(points - host.shift).astype(float32)``. The
     compaction caps are sized exactly from the three device counts
     (`_probe_counts`) and grow through `run_escalating` should a cap
     overflow anyway (shrunken by `runtime.faults`), so :data:`OVERFLOW`
@@ -1321,11 +1324,12 @@ def pip_join(
 
     While stage timing is on (`obs/trace.py stage_timing_on`: a torch
     profiler records, or ``MOSAIC_TRACE_STAGES=1``), the single-device
-    lane records the stage spans ``join.pip.h2d``, ``join.pip.cells``,
-    ``join.pip.counts``, ``join.pip.prepare``, ``join.pip.probe`` and
-    ``join.pip.d2h`` under ``join.pip``, the cells and the probe
-    device-timed, read once the answer is on the host. The meshed lane
-    and the recheck's narrow re-join record none.
+    lane records the stage spans ``join.pip.h2d``, ``join.pip.prepare``
+    (the device's shift and cast), ``join.pip.cells``, ``join.pip.counts``,
+    ``join.pip.probe`` and ``join.pip.d2h`` under ``join.pip``, the
+    prepare, cells and probe stages device-timed, read once the answer is
+    on the host. The meshed lane and the recheck's narrow re-join record
+    none.
 
     ``mesh`` routes each chunk through the dispatch core's bucketed
     data-parallel lane (`dispatch.DispatchCore`): points padded to the
@@ -1394,11 +1398,7 @@ def pip_join(
             "or restore it via HostRecheck.from_arrays"
         )
     raw = np.asarray(points, dtype=np.float64)
-    shift = (
-        host.shift if host is not None
-        else chip_index.border.shift.cpu().numpy()
-    )
-    np_dtype = np.dtype(str(chip_index.border.verts.dtype).removeprefix("torch."))
+    vdt = chip_index.border.verts.dtype
     if cell_dtype is not None:
         cdt = _as_torch_dtype(cell_dtype)
     elif recheck and not has_cell_margins(index_system):
@@ -1410,6 +1410,7 @@ def pip_join(
         # the edge band, rounded once to the table dtype on the host: the
         # probe and its kernel read it as a number, never from the device
         ebk = EDGE_BAND_K if edge_band_k is None else float(edge_band_k)
+        np_dtype = np.dtype(str(vdt).removeprefix("torch."))
         eps2 = float(np_dtype.type(
             (ebk * float(np.finfo(np_dtype).eps) * host.coord_scale) ** 2
         ))
@@ -1425,13 +1426,17 @@ def pip_join(
     )
 
     def assign(chunk: np.ndarray):
-        """Cells (and margins) of a chunk and its three probe counts."""
+        """A chunk's recentred points, cells (and margins), and its three
+        probe counts."""
         host_pts = np.ascontiguousarray(chunk)
+        m = host_pts.shape[0]
         with _obs_trace.stage_span("join.pip.h2d", bytes=host_pts.nbytes):
             pts = torch.from_numpy(host_pts).to(dev)
-        with _obs_trace.stage_span(
-            "join.pip.cells", device=dev, points=host_pts.shape[0]
-        ):
+        # recentre in f64 and narrow on the device, from the one f64 copy:
+        # a round-to-nearest cast of the f64 difference, numpy's bits
+        with _obs_trace.stage_span("join.pip.prepare", device=dev, points=m):
+            shifted = (pts - chip_index.border.shift).to(vdt)
+        with _obs_trace.stage_span("join.pip.cells", device=dev, points=m):
             pts = pts.to(cdt)
             if recheck:
                 cells, margins = _dispatch.cells_prog(
@@ -1444,7 +1449,7 @@ def pip_join(
         if need_counts:
             with _obs_trace.stage_span("join.pip.counts"):
                 counts = _probe_counts(cells, chip_index).tolist()
-        return pts, cells, margins, counts
+        return pts, shifted, cells, margins, counts
 
     def run(chunk: np.ndarray) -> np.ndarray:
         if core is not None:
@@ -1458,7 +1463,7 @@ def pip_join(
                 "pip_join.device", core.execute_padded, padded
             )[:nn]
         m = chunk.shape[0]
-        pts, cells, margins, counts = _dispatch.guarded_call(
+        pts, shifted, cells, margins, counts = _dispatch.guarded_call(
             "pip_join.device", assign, chunk
         )
         if writeback == "direct":
@@ -1497,11 +1502,6 @@ def pip_join(
                     "probe_route", n=m, probe=probe,
                     found=nf, heavy=nh, convex=nc, light=nf - nc,
                 )
-        with _obs_trace.stage_span("join.pip.prepare"):
-            host_shifted = (chunk - shift).astype(np_dtype)
-        with _obs_trace.stage_span("join.pip.h2d", bytes=host_shifted.nbytes):
-            shifted = torch.from_numpy(host_shifted).to(dev)
-        del host_shifted
         # every cap that exists escalates together toward the row-count
         # ceiling, at which overflow is structurally impossible
         grow = {k: v for k, v in caps.items() if v is not None}

@@ -206,6 +206,53 @@ def test_host_join_equals_reference(own_indexes, batches):
     np.testing.assert_array_equal(got, want)
 
 
+def _edge_points(host, rng):
+    """Raw f64 points on and beside the chips' edges (polygon edges and
+    cell boundaries alike): vertices, midpoints, and 1e-9 to 1e-6 off."""
+    e = np.concatenate([host.cell_edges.reshape(-1, 4), host.heavy_edges.reshape(-1, 4)])
+    e = e[np.abs(e).sum(axis=-1) > 0]
+    e = e[rng.permutation(len(e))[:500]]
+    a, b = e[:, :2], e[:, 2:]
+    on = np.concatenate([a, b, 0.5 * (a + b)])
+    off = [on + rng.normal(0, d, on.shape) for d in (1e-9, 1e-7, 1e-6)]
+    return np.concatenate([on, *off]) + host.shift
+
+
+@pytest.mark.parametrize("kind", ["built", "restored"])
+def test_pip_join_shifts_and_casts_like_numpy(own_indexes, batches, monkeypatch, kind):
+    """The recentred f32 points `pip_join` hands `pip_join_points` are
+    numpy's ``(points - host.shift).astype(float32)`` bit for bit, for an
+    index from `build_chip_index` and one restored from its arrays, at
+    NYC magnitudes and on cell and polygon edges."""
+    _, ix = own_indexes
+    if kind == "restored":
+        ix = TJ.ChipIndex.from_arrays(ix.to_arrays(), device="cpu")
+    host = ix.host
+    assert host.shift.dtype == np.float64
+    assert ix.border.shift.dtype == torch.float64
+    np.testing.assert_array_equal(ix.border.shift.numpy(), host.shift)
+    rng = np.random.default_rng(11)
+    pts = np.concatenate([batches["mixed"][0], batches["near_edge_band"][0],
+                          _edge_points(host, rng), host.shift[None]])
+    assert np.abs(pts[:, 0] + 74).max() < 1 and np.abs(pts[:, 1] - 40.7).max() < 1
+    seen = []
+    real = TJ.pip_join_points
+
+    def spy(points, *a, **k):
+        seen.append(points.clone())
+        return real(points, *a, **k)
+
+    monkeypatch.setattr(TJ, "pip_join_points", spy)
+    got = TJ.pip_join(pts, None, H3IndexSystem(), RES, chip_index=ix,
+                      probe="adaptive", recheck=False, device="cpu")
+    monkeypatch.undo()
+    want = (pts - host.shift).astype(np.float32)
+    (shifted,) = seen
+    assert shifted.dtype == torch.float32
+    np.testing.assert_array_equal(shifted.numpy().view(np.int32), want.view(np.int32))
+    assert got.shape == (len(pts),) and (got >= 0).any()
+
+
 @pytest.mark.parametrize(
     "kw", [{"mesh": 2}],
     ids=["mesh"],

@@ -50,7 +50,8 @@ N, B, K = 4096, 2048, 3
 JOIN_STAGES = ("join.pip.h2d", "join.pip.cells", "join.pip.counts",
                "join.pip.prepare", "join.pip.probe", "join.pip.d2h")
 STREAM_STAGES = ("stream.assign", "stream.join", "stream.fold_pull")
-TIMED = ("join.pip.cells", "join.pip.probe", "stream.assign", "stream.join")
+TIMED = ("join.pip.prepare", "join.pip.cells", "join.pip.probe", "stream.assign",
+         "stream.join")
 
 
 @pytest.fixture(autouse=True)
@@ -168,14 +169,14 @@ def test_profiled_pip_join_records_its_stages(port, tmp_path):
         assert all(s["trace_id"] == root["trace_id"] for s in spans), name
         assert name in ranges, name
     assert "join.pip" in ranges
-    # the two copies: the f64 points, then the shifted f32 points
-    assert [s["bytes"] for s in _spans(events, "join.pip.h2d")] == [N * 16, N * 8]
-    for name in ("join.pip.cells", "join.pip.probe"):
+    # one copy, the f64 points: the device shifts and casts them
+    assert [s["bytes"] for s in _spans(events, "join.pip.h2d")] == [N * 16]
+    for name in ("join.pip.prepare", "join.pip.cells", "join.pip.probe"):
         (s,) = _spans(events, name)
         assert s["device_s"] > 0 and s["points"] == N
         assert _counter("trace.stage_device_seconds", name) == pytest.approx(s["device_s"])
         assert _counter("trace.stage_points", name) == N
-    for name in ("join.pip.h2d", "join.pip.counts", "join.pip.prepare", "join.pip.d2h"):
+    for name in ("join.pip.h2d", "join.pip.counts", "join.pip.d2h"):
         assert all("device_s" not in s for s in _spans(events, name)), name
 
 

@@ -53,7 +53,8 @@ def _spans(events, name):
 
 def _sync_warnings(fn):
     """``fn()``'s result and the synchronizing CUDA calls torch's sync
-    debug mode reports while it runs."""
+    debug mode reports while it runs (not its once-a-process notice that
+    the mode is a prototype)."""
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -61,7 +62,7 @@ def _sync_warnings(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in seen)
+    return out, sum("called a synchronizing" in str(w.message) for w in seen)
 
 
 def test_h3_stream_loop_with_stage_timing_makes_no_host_sync(h3_index, cuda):
@@ -115,4 +116,48 @@ def test_pip_join_with_stage_timing_adds_no_sync(h3_index, cuda):
         (s,) = _spans(events, name)
         assert s["parent_id"] == root["span_id"]
         assert 0 < s["device_s"] < root["seconds"] and s["points"] == 200_000
-    assert len(_spans(events, "join.pip.h2d")) == 2
+    assert len(_spans(events, "join.pip.h2d")) == 1
+    (s,) = _spans(events, "join.pip.prepare")
+    assert 0 < s["device_s"] < root["seconds"] and s["points"] == 200_000
+
+
+def test_pip_join_copies_once_and_equals_the_cpu(h3_index, cuda):
+    """The f64 points cross once: `pip_join` makes no synchronizing CUDA
+    call beyond the f64 upload, the counts' read-back and the answer's
+    copy back (a pageable f32 upload of the shifted points, which the card
+    now computes, would add one); and its answer on the card equals the
+    CPU's on the same partition, at NYC magnitudes, on a grid whose f32
+    cells both devices compute alike."""
+    from mosaic_tpu_torch.core.index import CustomIndexSystem, GridConf
+    from mosaic_tpu_torch.core.tessellate import tessellate
+    from mosaic_tpu_torch.sql.join import _probe_counts, build_chip_index, pip_join
+
+    h3, ix = h3_index
+    pts = np.random.default_rng(37).uniform(BBOX[:2], BBOX[2:], (200_000, 2))
+    want = pip_join(pts, None, h3, 9, chip_index=ix, probe="adaptive", device=cuda)
+    got, syncs = _sync_warnings(
+        lambda: pip_join(pts, None, h3, 9, chip_index=ix, probe="adaptive", device=cuda))
+    np.testing.assert_array_equal(got, want)
+    on_card = torch.from_numpy(pts).to(cuda)
+    cells = torch.zeros(len(pts), dtype=torch.int64, device=cuda)
+    torch.cuda.synchronize()
+    _, upload = _sync_warnings(lambda: torch.from_numpy(pts).to(cuda))
+    _, f32_upload = _sync_warnings(lambda: torch.from_numpy(pts.astype(np.float32)).to(cuda))
+    _, counts = _sync_warnings(lambda: _probe_counts(cells, ix).tolist())
+    _, answer = _sync_warnings(lambda: on_card[:, 0].to(torch.int32).cpu().numpy())
+    assert f32_upload >= 1
+    assert syncs <= upload + counts + answer
+
+    grid = CustomIndexSystem(GridConf(-180, 180, -90, 90, 2, 10.0, 10.0))
+    table = tessellate(synthetic_zones(3, 3, bbox=BBOX, verts=128), grid, 9,
+                       keep_core_geoms=False)
+    ixs = {d: build_chip_index(table, edge_cap=8, device=d) for d in ("cpu", cuda)}
+    assert ixs[cuda].num_heavy_cells > 0
+    host = ixs["cpu"].host
+    e = np.concatenate([host.cell_edges.reshape(-1, 4), host.heavy_edges.reshape(-1, 4)])
+    e = e[np.abs(e).sum(axis=-1) > 0]
+    part = np.concatenate([pts, e[:, :2] + host.shift, 0.5 * (e[:, :2] + e[:, 2:]) + host.shift])
+    on = {d: pip_join(part, None, grid, 9, chip_index=ixs[d], probe="adaptive", device=d)
+          for d in ("cpu", cuda)}
+    assert (on["cpu"] >= 0).any()
+    np.testing.assert_array_equal(on[cuda], on["cpu"])

@@ -81,7 +81,7 @@ class TestKeysAndClasses:
     @pytest.mark.parametrize("key,cls", [
         ("span.join.pip.h2d", "transfer"),
         ("span.join.pip.d2h", "transfer"),
-        ("span.join.pip.prepare", "host_callback"),
+        ("span.join.pip.prepare", "device"),
         ("span.join.pip.cells", "device"),
         ("span.join.pip.counts", "device"),
         ("span.join.pip.probe", "device"),
