@@ -31,8 +31,9 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    gated calls around them;
 6b. the exact join: ``pip_join(probe="adaptive", recheck=True)`` on the
    4M batch must launch ``pip_heavy_tiled`` (banded), come back not
-   degraded and equal ``host_join`` exactly on its first ``N_EXACT``
-   points (agreement 1.0); prints its best warm points/s beside the
+   degraded and equal the recheck's f64 oracle (``recheck_oracle``:
+   ``host_join``, save at H3's cell-edge gap) exactly on its first
+   ``N_EXACT`` points (agreement 1.0); prints its best warm points/s beside the
    ``recheck=False`` figure, the cell band, ties and host-oracle rows,
    and its stage times (margin cells, banded probe, narrow re-join, host
    ties) on the host clock with a sync around each, and its device idle
@@ -200,7 +201,7 @@ Runs ``mosaic_tpu_torch`` (never the JAX package) on the card:
    carrying phase 3's chips joins: ``point_in_polygon_join`` of the 4M
    points under ``MOSAIC_TUNE_PROBE=adaptive`` equal to phase 6's join,
    and under the context's ``exact_recheck`` on the first ``N_EXACT``
-   equal to ``host_join``, each launching ``pip_heavy_tiled``;
+   equal to phase 6b's oracle, each launching ``pip_heavy_tiled``;
    ``intersects_join`` of 8i's two frames equal to the overlay's;
    ``rst_rastertogrid{avg,min,max,count}`` of the whole raster, each
    launching ``zonal_seq_fold``, equal on the crop to a numpy f64 host
@@ -453,7 +454,7 @@ N_POINTS = 4_000_000       # the bench's batch
 N_ZONE = 500_000           # the bench's zone-kernel lane
 N_ZONE_CHECK = 16_384      # subset held against the plain version
 N_ORACLE = 100_000         # subset held against the f64 host oracle
-N_EXACT = 1_000_000        # subset of the exact join held against host_join
+N_EXACT = 1_000_000        # subset of the exact join held against its f64 oracle
 N_DRIFT = 1_000_000        # global points a drift-sweep configuration
 N_FAULT = 200_000          # points of each fault-pass join
 WATCHDOG_S = 2.0           # the fault pass's watchdog deadline
@@ -1677,7 +1678,7 @@ def functions_phase(ix, table, H3, dev, zones, raw, joined, host_exact, main_pps
         and np.isnan(fj["polygon_zone_id"][~ok]).all())
     gates["frame_join_launched_pip_heavy_tiled"] = (
         fj_l["pip_heavy_tiled"] > 0 and fjw_l["pip_heavy_tiled"] > 0)
-    gates["frame_exact_equal_host_join"] = bool(np.array_equal(fe["polygon_row"], host_exact))
+    gates["frame_exact_equal_oracle"] = bool(np.array_equal(fe["polygon_row"], host_exact))
     gates["frame_exact_launched_pip_heavy_tiled"] = fe_l["pip_heavy_tiled"] > 0
     lc, rc = ov["left_chips"], ov["right_chips"]
     fl = MosaicFrame(geometry=left, resolution=OVERLAY_RES, chips=lc, chips_index=ogrid.name)
@@ -4961,10 +4962,10 @@ def main() -> int:
         t0 = time.perf_counter()
         J.pip_join(raw, None, H3, RES, chip_index=ix, probe="adaptive", recheck=True)
         warm_exact.append(time.perf_counter() - t0)
-    # host_join on the first N_EXACT points, in chunks
+    # the recheck's oracle on the first N_EXACT points, in chunks
     t0 = time.perf_counter()
     want = np.concatenate([
-        J.host_join(raw[i:min(i + 250_000, N_EXACT)], ix.host, H3, RES)
+        J.recheck_oracle(raw[i:min(i + 250_000, N_EXACT)], ix.host, H3, RES)
         for i in range(0, N_EXACT, 250_000)
     ])
     exact_oracle_s = time.perf_counter() - t0
@@ -4978,7 +4979,7 @@ def main() -> int:
                "host_ties": 0.0}
     host_rows = []
     real = {"margin": H3.point_to_cell_margin, "alt": H3.point_to_cell_alt,
-            "probe": J.pip_join_points, "host": J.host_join}
+            "probe": J.pip_join_points, "host": J.recheck_oracle}
 
     def synced(stage, fn):
         def run(*a, **k):
@@ -4999,14 +5000,14 @@ def main() -> int:
     J.pip_join_points = synced(
         lambda a, k: "banded_probe" if k.get("edge_eps2") is not None else "narrow_rejoin",
         real["probe"])
-    J.host_join = synced("host_ties", host_ties)
+    J.recheck_oracle = synced("host_ties", host_ties)
     try:
         t0 = time.perf_counter()
         staged = gated(raw, None, H3, RES, chip_index=ix, probe="adaptive", recheck=True)
         staged_s = time.perf_counter() - t0
     finally:
         del H3.point_to_cell_margin, H3.point_to_cell_alt
-        J.pip_join_points, J.host_join = real["probe"], real["host"]
+        J.pip_join_points, J.recheck_oracle = real["probe"], real["host"]
     busy_x, rows_x, prof_x_ms = profile_device(
         lambda: gated(raw, None, H3, RES, chip_index=ix, probe="adaptive", recheck=True))
     bad_events = [e for e in gated_events if e["event"] in FAULT_EVENTS]
@@ -5016,7 +5017,7 @@ def main() -> int:
         "pip_heavy_tiled_launches": recheck_launches,
         "pip_zone_launches": recheck_zone_launches,
         "degraded": bool(getattr(exact, "degraded", False)),
-        "host_join_agreement": exact_agree, "exact_points": N_EXACT,
+        "oracle_agreement": exact_agree, "exact_points": N_EXACT,
         "oracle_s": exact_oracle_s, "equal_to_staged_call": bool(np.array_equal(exact, staged)),
         "cold_s": exact_cold_s, "warm_s": warm_exact,
         "points_per_s": N_POINTS / min(warm_exact),
@@ -5036,7 +5037,7 @@ def main() -> int:
     if getattr(exact, "degraded", False) or isinstance(exact, DegradedResult):
         return fail("the exact join came back degraded")
     if exact_agree != 1.0:
-        return fail(f"the exact join agrees with host_join on {exact_agree} "
+        return fail(f"the exact join agrees with its f64 oracle on {exact_agree} "
                     f"of {N_EXACT} points (must be 1.0)")
     if len(narrow) != 1 or nar.get("mode") != "alt_rejoin":
         return fail(f"the exact join recorded {narrow[:2]} as its narrow re-join")
@@ -5095,7 +5096,7 @@ def main() -> int:
                 f_exhaust = fjoin()
             except RetryExhausted as e:
                 exhausted = e
-    f_host = J.host_join(fpts, ix.host, H3, RES)
+    f_host = J.recheck_oracle(fpts, ix.host, H3, RES)
     site = "pip_join.device"
     os.environ["MOSAIC_WATCHDOG_PIP_JOIN_DEVICE"] = str(WATCHDOG_S)
     try:
@@ -5124,7 +5125,7 @@ def main() -> int:
         and not getattr(f_stall, "degraded", False),
         "stall_events": [k for k in kinds(ev_s) if k != "probe_route"],
         "stall_retried_as": stall_retry[0]["error"][:80] if stall_retry else None,
-        "clean_equals_host_join": bool(np.array_equal(fclean, f_host)),
+        "clean_equals_oracle": bool(np.array_equal(fclean, f_host)),
     }
     emit({"phase": "faults", "points": N_FAULT, "watchdog_s": WATCHDOG_S,
           "exhausted_events": sorted(set(kinds(ev_x))), **checks})

@@ -14,8 +14,11 @@ Three metric kinds, Prometheus-compatible:
 
 Beyond the reference, the bridge folds every span event that carries
 ``device_s`` (a device-timed stage, `obs/trace.py stage_span`) into
-``trace.stage_device_seconds{stage}`` and ``trace.stage_points{stage}``;
-they grow only while stage timing is on.
+``trace.stage_device_seconds{stage}`` and ``trace.stage_points{stage}``,
+and the ``rows`` of the recheck's ``join.pip.narrow`` and
+``join.pip.oracle`` stages into ``join.recheck_rows{lane}`` (``band``:
+rows flagged for the narrow re-join; ``oracle``: rows the f64 oracle
+answered); they grow only while stage timing is on.
 
 Recording cost: one ``threading.Lock`` acquire and a dict update per
 observation. :func:`snapshot` returns one plain JSON-able dict;
@@ -265,6 +268,11 @@ def snapshot() -> dict:
 
 # --------------------------------------------------------- event bridge
 
+#: the recheck's stage spans (`sql/join.py pip_join`) by the lane of
+#: ``join.recheck_rows`` their ``rows`` count
+_RECHECK_LANES = {"join.pip.narrow": "band", "join.pip.oracle": "oracle"}
+
+
 def _on_event(evt: dict) -> None:
     """Fold one telemetry event into the standard metrics (see module
     docstring). Unknown events cost one dict lookup and pass through."""
@@ -310,11 +318,15 @@ def _on_event(evt: dict) -> None:
             counter("obs.compile_count").inc(kind="stream")
         if evt.get("stage") == "join_loop" and "points_per_sec" in evt:
             gauge("stream.points_per_sec").set(evt["points_per_sec"])
-    elif ev == "span" and "device_s" in evt:
-        # a device-timed stage span (`obs/trace.py stage_span`)
+    elif ev == "span":
         stage = evt.get("name", "")
-        counter("trace.stage_device_seconds").inc(evt["device_s"], stage=stage)
-        counter("trace.stage_points").inc(evt.get("points") or 0, stage=stage)
+        if "device_s" in evt:
+            # a device-timed stage span (`obs/trace.py stage_span`)
+            counter("trace.stage_device_seconds").inc(evt["device_s"], stage=stage)
+            counter("trace.stage_points").inc(evt.get("points") or 0, stage=stage)
+        lane = _RECHECK_LANES.get(stage)
+        if lane is not None and "rows" in evt:
+            counter("join.recheck_rows").inc(evt["rows"], lane=lane)
 
 
 def install_bridge() -> None:

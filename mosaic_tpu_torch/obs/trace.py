@@ -35,11 +35,17 @@ an operator's :func:`stage_timing` ``(True)``, or from import when
   ``bytes``), ``join.pip.prepare`` (the device's shift and cast of the
   f64 points), ``join.pip.cells``, ``join.pip.counts``,
   ``join.pip.probe`` and ``join.pip.d2h`` under ``join.pip``
-  (`sql/join.py pip_join`, its single-device lane), and
-  ``stream.assign``, ``stream.join`` and ``stream.fold_pull`` under
-  ``stream.run`` (`sql/stream.py`);
+  (`sql/join.py pip_join`, its single-device lane), with the exact
+  lane's (``recheck=True``) ``join.pip.narrow`` (the narrow re-join of
+  the cell band, attribute ``rows``: the band's rows) and
+  ``join.pip.oracle`` (the f64 oracle of the tie rows, attribute
+  ``rows``), and ``stream.assign``, ``stream.join`` and
+  ``stream.fold_pull`` under ``stream.run`` (`sql/stream.py`); the
+  metric bridge folds the two ``rows`` into
+  ``join.recheck_rows{lane="band"|"oracle"}``;
 - a stage given ``device=`` (``join.pip.prepare``, ``join.pip.cells``,
-  ``join.pip.probe``, ``stream.assign``, ``stream.join``) records a CUDA
+  ``join.pip.probe``, ``join.pip.narrow``, ``stream.assign``,
+  ``stream.join``) records a CUDA
   event pair on the current stream (the host clock on the CPU, whose ops
   are synchronous); its span event carries ``device_s`` and ``points``,
   read when the owning path's :func:`device_stages` block ends at the

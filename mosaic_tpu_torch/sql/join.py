@@ -254,6 +254,11 @@ class HostRecheck:
     heavy_slot_geom: np.ndarray
     shift: np.ndarray  # (2,) float64
     coord_scale: float  # max |recentered edge coordinate|
+    #: these tables on the device of the recheck's oracle, made on first
+    #: use (`_OracleTables.of`); never saved
+    oracle: "_OracleTables | None" = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
 
     _FIELDS = (
         "cells", "cell_edges", "cell_ebits", "cell_slot_geom",
@@ -339,6 +344,166 @@ def host_join(
         index_system.point_to_cell(np.asarray(points, np.float64), resolution)
     )
     return host_join_with_cells(points, cells, host)
+
+
+@dataclasses.dataclass
+class _OracleTables:
+    """A :class:`HostRecheck`'s f64 tables on one device, with the boundary
+    rings of its cells under one index system: what :func:`recheck_oracle`
+    reads."""
+
+    device: torch.device
+    index_system: IndexSystem
+    shift: torch.Tensor  # (2,) f64
+    cells: torch.Tensor  # (U,) int64 sorted
+    cell_edges: torch.Tensor
+    cell_ebits: torch.Tensor  # int32 bit patterns
+    cell_slot_geom: torch.Tensor
+    cell_slot_core: torch.Tensor
+    cell_heavy: torch.Tensor
+    heavy_edges: torch.Tensor
+    heavy_ebits: torch.Tensor
+    heavy_slot_geom: torch.Tensor
+    rings: torch.Tensor  # (U, B, 2) f64
+
+    @classmethod
+    def of(
+        cls, host: HostRecheck, index_system: IndexSystem, device: torch.device
+    ) -> "_OracleTables":
+        """The tables of ``host`` on ``device``: made on first use and kept
+        on ``host`` (one device and index system at a time)."""
+        t = host.oracle
+        if t is not None and t.device == device and t.index_system is index_system:
+            return t
+
+        def up(a):
+            a = np.asarray(a)
+            if a.dtype == np.uint32:
+                a = a.view(np.int32)
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        rings = np.asarray(index_system.cell_boundary(host.cells), np.float64)
+        host.oracle = cls(device, index_system, *(up(getattr(host, n)) for n in (
+            "shift", "cells", "cell_edges", "cell_ebits", "cell_slot_geom",
+            "cell_slot_core", "cell_heavy", "heavy_edges", "heavy_ebits",
+            "heavy_slot_geom")), up(rings))
+        return host.oracle
+
+    def lookup(self, cells: torch.Tensor):
+        """(row of each cell in the tables, whether the cell is indexed)."""
+        u = torch.searchsorted(self.cells, cells).clamp(max=self.cells.shape[0] - 1)
+        return u, self.cells[u] == cells
+
+    def answers(self, p: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
+        """(N,) int32: :func:`host_join_with_cells` of recentred f64 points
+        ``p``, the same operations in the same order on torch tensors."""
+        u, found = self.lookup(cells)
+        px, py = p[:, 0], p[:, 1]
+        best = _slot_best(
+            _ray_parity(px, py, self.cell_edges[u], self.cell_ebits[u]),
+            self.cell_slot_geom[u], self.cell_slot_core[u],
+        )
+        if self.heavy_edges.shape[0]:
+            hrow = torch.where(found, self.cell_heavy[u], -1)
+            hi = torch.nonzero(hrow >= 0).squeeze(1)
+            if hi.numel():
+                h = hrow[hi].long()
+                b2 = _slot_best(
+                    _ray_parity(px[hi], py[hi], self.heavy_edges[h], self.heavy_ebits[h]),
+                    self.heavy_slot_geom[h],
+                )
+                best[hi] = torch.minimum(best[hi], b2)
+        return torch.where(found & (best != _SENTINEL), best, -1).to(torch.int32)
+
+    def ring_holds(self, points: torch.Tensor, cells: torch.Tensor) -> torch.Tensor:
+        """(N,) bool: does the boundary ring of ``cells[i]`` (as the
+        tessellation clipped chips to it) hold the raw f64 ``points[i]``?"""
+        u, known = self.lookup(cells)
+        ring = self.rings[u]
+        if not bool(known.all()):
+            fresh = torch.as_tensor(np.asarray(
+                self.index_system.cell_boundary(cells[~known].cpu().numpy()),
+                np.float64)).to(self.device)
+            width = max(ring.shape[1], fresh.shape[1])
+
+            def pad(r):
+                # repeat the last vertex: a zero-length edge crosses nothing
+                return torch.cat([r, r[:, -1:].expand(-1, width - r.shape[1], -1)], dim=1)
+
+            ring = pad(ring)
+            ring[~known] = pad(fresh)
+        edges = torch.cat([ring, torch.roll(ring, -1, dims=1)], dim=2)
+        ones = torch.ones(edges.shape[:2], dtype=torch.int32, device=self.device)
+        return _ray_parity(points[:, 0], points[:, 1], edges, ones) == 1
+
+
+#: rows the recheck's oracle evaluates at once: a 4M chunk's tie rows
+#: (about 150k on curbside points) in one block, as each block costs a few
+#: hundred small launches, while its (rows, edges, 4) f64 gathers stay
+#: within about 2 GB
+ORACLE_BLOCK = 1 << 18
+
+
+def recheck_oracle(
+    points,
+    host: HostRecheck,
+    index_system: IndexSystem,
+    resolution: int,
+    device=None,
+) -> np.ndarray:
+    """(N,) int32 — the recheck's f64 answer for the rows it cannot settle
+    in f32: the smallest id among the chips, in every cell whose boundary
+    ring holds the point, that contain it.
+
+    The chips are clipped to each cell's ring, whose edges are straight
+    in the index system's coordinates; an H3 cell's own edges are not, so
+    a point within about 1e-9 degrees of a cell edge may lie outside the
+    ring of its f64 cell and inside a neighbour's. :func:`host_join`
+    tests only the f64 cell's chips and answers such a point as if no
+    zone held it there; here its answer comes from the neighbours
+    (`IndexSystem.k_ring`) whose ring holds it. Elsewhere, and where no
+    ring holds the point, the answer is :func:`host_join`'s: the same f64
+    operations in the same order, on torch tensors on ``device`` (default
+    the CPU), in blocks of :data:`ORACLE_BLOCK` rows. (On the card H3's f64
+    cells may differ from numpy's within a few ulps of a cell edge, where
+    the ring test decides.)"""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    pts = torch.as_tensor(np.asarray(points, np.float64)).to(dev)
+    out = np.full(pts.shape[0], -1, np.int32)
+    if not host.cells.shape[0]:
+        return out
+    t = _OracleTables.of(host, index_system, dev)
+    for s in range(0, pts.shape[0], ORACLE_BLOCK):
+        out[s : s + ORACLE_BLOCK] = _oracle_block(
+            pts[s : s + ORACLE_BLOCK], t, resolution
+        ).cpu().numpy()
+    return out
+
+
+def _oracle_block(pts: torch.Tensor, t: _OracleTables, resolution: int):
+    """:func:`recheck_oracle` of one block of raw f64 points on t's device."""
+    cells = torch.as_tensor(t.index_system.point_to_cell(pts, resolution)).to(t.device)
+    p = pts - t.shift
+    out = t.answers(p, cells)
+    gone = torch.nonzero(~t.ring_holds(pts, cells)).squeeze(1)
+    if not gone.numel():
+        return out
+    around = torch.as_tensor(
+        np.asarray(t.index_system.k_ring(cells[gone].cpu().numpy(), 1))
+    ).to(t.device)
+    best = torch.full((gone.numel(),), _SENTINEL, dtype=torch.int32, device=t.device)
+    held = torch.zeros(gone.numel(), dtype=torch.bool, device=t.device)
+    for col in around.T:
+        k = torch.nonzero((col >= 0) & (col != cells[gone])).squeeze(1)
+        k = k[t.ring_holds(pts[gone[k]], col[k])]
+        if not k.numel():
+            continue
+        held[k] = True
+        a = t.answers(p[gone[k]], col[k])
+        best[k] = torch.minimum(best[k], torch.where(a >= 0, a, _SENTINEL))
+    fix = gone[held]
+    out[fix] = torch.where(best[held] == _SENTINEL, -1, best[held])
+    return out
 
 
 def _build_hash(cells: np.ndarray, max_bucket: int = 8):
@@ -1297,15 +1462,22 @@ def pip_join(
     are never transient: they propagate.
 
     ``recheck`` (default: the ``exact_recheck`` config flag) switches on
-    the epsilon-band recheck — the answer then equals :func:`host_join`'s
-    exact f64 answer. Points whose f32 cell-rounding margin is below
+    the epsilon-band recheck — the answer is then the exact f64 answer.
+    Points whose f32 cell-rounding margin is below
     ``cell_margin_k``·eps (default :data:`CELL_MARGIN_K`) re-join once,
     band-compacted, against their runner-up cell
     (`IndexSystem.point_to_cell_alt`); only those whose two answers
     differ, cell-corner points, invalid alternates, and points within
     ``edge_band_k``·eps·coord_scale (default :data:`EDGE_BAND_K`) of a
-    probed chip edge go to the f64 host oracle. Requires the index's
-    ``host`` companion.
+    chip edge of either cell probed go to the f64 oracle
+    (:func:`recheck_oracle`, on the join's device). It answers from every
+    cell whose boundary ring holds the point: an H3 cell's edges are not
+    the straight edges of the ring its chips are clipped to, so a point
+    within about 1e-9 degrees of a cell edge may lie in a neighbour's
+    ring, whose chips then answer it where :func:`host_join`, which reads
+    only the f64 cell's chips, would miss a zone. Everywhere else the
+    answer is :func:`host_join`'s. Requires the index's ``host``
+    companion.
 
     ``cell_dtype`` is the dtype cells are computed in. The default is
     float32, the port's device coordinate type, except for an exact join
@@ -1328,7 +1500,11 @@ def pip_join(
     (the device's shift and cast), ``join.pip.cells``, ``join.pip.counts``,
     ``join.pip.probe`` and ``join.pip.d2h`` under ``join.pip``, the
     prepare, cells and probe stages device-timed, read once the answer is
-    on the host. The meshed lane and the recheck's narrow re-join record
+    on the host. With ``recheck`` it adds ``join.pip.narrow`` (the
+    narrow re-join, device-timed over the chunk's points) and
+    ``join.pip.oracle`` (the f64 oracle of the tie rows), each with its
+    ``rows``, which the metric bridge counts as
+    ``join.recheck_rows{lane="band"|"oracle"}``. The meshed lane records
     none.
 
     ``mesh`` routes each chunk through the dispatch core's bucketed
@@ -1544,10 +1720,15 @@ def pip_join(
             cmk = CELL_MARGIN_K if cell_margin_k is None else float(cell_margin_k)
             km = cmk * float(torch.finfo(margins.dtype).eps)
             t_rc = time.perf_counter()
-            nar = _dispatch.guarded_call(
-                "pip_join.device", _narrow_rejoin, pts, shifted, margins, km,
-                index_system, resolution, chip_index, lookup,
-            )
+            with _obs_trace.stage_span(
+                "join.pip.narrow", device=dev, points=m
+            ) as sp:
+                nar = _dispatch.guarded_call(
+                    "pip_join.device", _narrow_rejoin, pts, shifted, margins,
+                    km, index_system, resolution, chip_index, lookup, eps2,
+                )
+                if sp is not None:
+                    sp.set(rows=0 if nar is None else nar[0])
             if nar is not None:
                 n_flag, cap, src_np, alt_join = nar
                 if alt_join is None:  # system without alternate-rounding
@@ -1558,8 +1739,8 @@ def pip_join(
                         seconds=round(time.perf_counter() - t_rc, 6),
                     )
                 else:
-                    caps2, r_alt, vertex, alt_np = alt_join
-                    tie = (r_alt != out[src_np]) | vertex | (alt_np < 0)
+                    caps2, r_alt, near_alt, vertex, alt_np = alt_join
+                    tie = (r_alt != out[src_np]) | near_alt | vertex | (alt_np < 0)
                     host_mask[src_np[tie]] = True
                     _telemetry.record(
                         "recheck_narrow", n=m, band=n_flag, cap=cap,
@@ -1567,8 +1748,11 @@ def pip_join(
                         seconds=round(time.perf_counter() - t_rc, 6),
                     )
         rows = np.nonzero(host_mask)[0]
-        if rows.size:
-            out[rows] = host_join(chunk[rows], host, index_system, resolution)
+        with _obs_trace.stage_span("join.pip.oracle", rows=int(rows.size)):
+            if rows.size:
+                out[rows] = recheck_oracle(
+                    chunk[rows], host, index_system, resolution, device=dev
+                )
         return out
 
     def run_resilient(chunk: np.ndarray) -> np.ndarray:
@@ -1636,19 +1820,23 @@ def pip_join(
 
 
 def _narrow_rejoin(
-    pts, shifted, margins, km, index_system, resolution, chip_index, lookup
+    pts, shifted, margins, km, index_system, resolution, chip_index, lookup,
+    eps2,
 ):
     """The recheck's band-compacted narrow re-join, on the device.
 
     The points whose first cell margin is below ``km`` are compacted once
     (`_compact`) and re-joined once against their runner-up cell, on the
     scatter probe with caps sized exactly from the band's own counts (pad
-    rows duplicate row 0, so the counts bound the band from above). The
-    full point axis is never re-probed. Returns None when no point is in
-    the band, else ``(n_flag, cap, src, alt_join)`` on the host: ``src``
-    the band's row ids, and ``alt_join`` None for a system without an
-    alternate rounding, else ``([found_cap, heavy_cap], alt result,
-    vertex flags, alt cells)`` of the band's rows.
+    rows duplicate row 0, so the counts bound the band from above), and
+    with the main probe's edge band ``eps2``: a point near a chip edge of
+    its runner-up cell is a tie too, as its f32 answer there may be
+    wrong. The full point axis is never re-probed. Returns None when no
+    point is in the band, else ``(n_flag, cap, src, alt_join)`` on the
+    host: ``src`` the band's row ids, and ``alt_join`` None for a system
+    without an alternate rounding, else ``([found_cap, heavy_cap], alt
+    result, alt edge-band flags, vertex flags, alt cells)`` of the band's
+    rows.
     """
     flagged = margins[:, 0] < km
     n_flag = int(flagged.sum())
@@ -1665,13 +1853,16 @@ def _narrow_rejoin(
     hcap2 = (
         min(_next_pow2(nh2 + 1), fcap2) if chip_index.num_heavy_cells else None
     )
-    r_alt = pip_join_points(
+    r_alt, near_alt = pip_join_points(
         shifted[src], alt, chip_index, heavy_cap=hcap2, found_cap=fcap2,
-        lookup=lookup,
-    )[:n_flag].cpu().numpy()
+        edge_eps2=eps2, lookup=lookup,
+    )
     vertex = (margins[src[:n_flag], 1] < km).cpu().numpy()
     alt_np = alt[:n_flag].cpu().numpy()
-    return n_flag, cap, src_np, ([fcap2, hcap2], r_alt, vertex, alt_np)
+    return n_flag, cap, src_np, (
+        [fcap2, hcap2], r_alt[:n_flag].cpu().numpy(),
+        near_alt[:n_flag].cpu().numpy(), vertex, alt_np,
+    )
 
 
 def join_cache_stats(emit: bool = True) -> dict:

@@ -343,7 +343,8 @@ def test_zonal_fold_cuda_equals_cpu_lane_bits(cuda, case, dtype):
 
 def test_recheck_join_on_card_equals_host_oracle(cuda):
     """`pip_join(probe="adaptive", recheck=True)` on the card launches the
-    banded heavy kernel, is not degraded, and equals the f64 host oracle
+    banded heavy kernel, is not degraded, and equals the recheck's f64
+    oracle (`recheck_oracle`, `host_join` save at H3's cell-edge gap)
     exactly."""
     from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
     from mosaic_tpu_torch.core.tessellate import tessellate
@@ -364,7 +365,32 @@ def test_recheck_join_on_card_equals_host_oracle(cuda):
     kinds = {e["event"] for e in ev}
     assert "recheck_narrow" in kinds
     assert not kinds & {"transient_retry", "degraded", "retry_exhausted"}
-    np.testing.assert_array_equal(got, TJ.host_join(pts, ix.host, h3, 9))
+    np.testing.assert_array_equal(got, TJ.recheck_oracle(pts, ix.host, h3, 9))
+
+
+def test_recheck_oracle_on_card_equals_the_cpu(cuda):
+    """The recheck's f64 oracle gives the CPU's bits on the card: one IEEE
+    f64 operation a kernel, in the same order. Points on zone edges and a
+    few 1e-10 degrees either side of cell ring edges included."""
+    from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
+    from mosaic_tpu_torch.core.tessellate import tessellate
+    from mosaic_tpu_torch.sql import join as TJ
+
+    h3 = H3IndexSystem()
+    zones = synthetic_zones(4, 4, bbox=BBOX, verts=256)
+    ix = TJ.build_chip_index(tessellate(zones, h3, 9, keep_core_geoms=False), device=cuda)
+    rng = np.random.default_rng(19)
+    flat = rng.uniform(BBOX[:2], BBOX[2:], (100_000, 2))
+    xy = np.asarray(zones.xy)
+    on_edges = xy[rng.integers(0, len(xy), 50_000)] + rng.normal(0, 1e-7, (50_000, 2))
+    ring = np.asarray(h3.cell_boundary(ix.host.cells[:2000]))
+    a, d = ring[:, :-1], np.diff(ring, axis=1)
+    near_rings = np.concatenate([(a + 0.5 * d + t * d[..., ::-1] * [1, -1]).reshape(-1, 2)
+                                 for t in (-1e-6, 1e-6)])
+    pts = np.concatenate([flat, on_edges, near_rings])
+    card = TJ.recheck_oracle(pts, ix.host, h3, 9, device=cuda)
+    np.testing.assert_array_equal(card, TJ.recheck_oracle(pts, ix.host, h3, 9))
+    assert (card >= 0).any()
 
 
 @pytest.mark.parametrize("recheck", [False, True])

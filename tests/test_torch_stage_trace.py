@@ -25,6 +25,8 @@ from mosaic_tpu.core.index import (
     GridConf as RefGridConf,
 )
 from mosaic_tpu.core.tessellate import tessellate as ref_tessellate
+from mosaic_tpu.obs import health as ref_health
+from mosaic_tpu.obs import slo as ref_slo
 from mosaic_tpu.runtime import telemetry as ref_telemetry
 from mosaic_tpu.sql.join import (
     build_chip_index as ref_build_chip_index,
@@ -35,7 +37,7 @@ from mosaic_tpu.sql.stream import (
     ring_from_host as ref_ring_from_host,
 )
 from mosaic_tpu_torch.core.geometry.wkt import from_wkt
-from mosaic_tpu_torch.core.index import CustomIndexSystem, GridConf
+from mosaic_tpu_torch.core.index import CustomIndexSystem, GridConf, H3IndexSystem
 from mosaic_tpu_torch.core.tessellate import tessellate
 from mosaic_tpu_torch.obs import export, metrics, trace
 from mosaic_tpu_torch.runtime import telemetry
@@ -52,6 +54,10 @@ JOIN_STAGES = ("join.pip.h2d", "join.pip.cells", "join.pip.counts",
 STREAM_STAGES = ("stream.assign", "stream.join", "stream.fold_pull")
 TIMED = ("join.pip.prepare", "join.pip.cells", "join.pip.probe", "stream.assign",
          "stream.join")
+#: the exact lane's stages (``recheck=True``)
+RECHECK_STAGES = ("join.pip.narrow", "join.pip.oracle")
+NYC_WKT = ["POLYGON ((-74.02 40.70, -73.90 40.71, -73.92 40.80, -73.97 40.76, "
+           "-74.00 40.79, -74.02 40.70))"]
 
 
 @pytest.fixture(autouse=True)
@@ -83,8 +89,32 @@ def port():
 
 
 @pytest.fixture(scope="module")
+def h3port():
+    """An H3 index at res 9 and points over its box: a join with cell
+    margins, so the exact lane runs its narrow re-join."""
+    h3 = H3IndexSystem()
+    ix = build_chip_index(
+        tessellate(from_wkt(NYC_WKT), h3, 9, keep_core_geoms=False), device="cpu"
+    )
+    rng = np.random.default_rng(3)
+    pts = rng.uniform((-74.03, 40.69), (-73.89, 40.81), (N, 2))
+    return h3, ix, pts
+
+
+def _h3_join(h3port, recheck):
+    h3, ix, pts = h3port
+    return pip_join(pts, None, h3, 9, chip_index=ix, recheck=recheck, probe="adaptive",
+                    device="cpu")
+
+
+@pytest.fixture(scope="module")
 def reference_trails():
-    """The reference's trail (event, name or stage) of the same calls."""
+    """The reference's trail (event, name or stage) of the same calls,
+    from monitors as fresh as the port's (an earlier file in the same
+    process may leave the reference's health unhealthy, and its first
+    evaluation here would add transitions to the trail)."""
+    ref_health.MONITOR.reset()
+    ref_slo.MONITOR.reset()
     grid = RefCustomIndexSystem(RefGridConf(-180, 180, -90, 90, 2, 10.0, 10.0))
     ix = ref_build_chip_index(
         ref_tessellate(ref_wkt.from_wkt(WKT), grid, 3, keep_core_geoms=False)
@@ -154,6 +184,13 @@ def _counter(name, stage):
     return metrics.REGISTRY.counter(name).value(stage=stage)
 
 
+def _stage_counters():
+    """The stage timing's counters as the registry holds them now."""
+    snap = metrics.snapshot()
+    return {k: snap.get(k) for k in (
+        "trace.stage_device_seconds", "trace.stage_points", "join.recheck_rows")}
+
+
 # --------------------------------------------------- under the profiler
 
 
@@ -207,6 +244,48 @@ def test_profiled_stream_run_records_its_stages(port, tmp_path):
     assert 'trace_stage_points{stage="stream.assign"}' in text
 
 
+def test_profiled_exact_join_records_the_recheck_stages(h3port, tmp_path):
+    want = _h3_join(h3port, True)
+    out, events, ranges = _profiled(lambda: _h3_join(h3port, True), tmp_path)
+    np.testing.assert_array_equal(out, want)
+    (root,) = _spans(events, "join.pip")
+    for name in JOIN_STAGES + RECHECK_STAGES:
+        (s,) = _spans(events, name)
+        assert s["parent_id"] == root["span_id"], name
+        assert name in ranges, name
+    (narrow,) = _spans(events, "join.pip.narrow")
+    (oracle,) = _spans(events, "join.pip.oracle")
+    assert narrow["device_s"] > 0 and narrow["points"] == N
+    assert 0 < narrow["rows"] < N and 0 < oracle["rows"] < N
+    assert "device_s" not in oracle
+    assert _counter("trace.stage_device_seconds", "join.pip.narrow") == pytest.approx(
+        narrow["device_s"])
+    rows = metrics.REGISTRY.counter("join.recheck_rows")
+    assert rows.value(lane="band") == narrow["rows"]
+    assert rows.value(lane="oracle") == oracle["rows"]
+
+
+def test_profiled_float32_lane_keeps_its_trail(h3port, tmp_path):
+    _, events, ranges = _profiled(lambda: _h3_join(h3port, False), tmp_path)
+    (root,) = _spans(events, "join.pip")
+    children = {e["name"] for e in events
+                if e["event"] == "span" and e.get("parent_id") == root["span_id"]}
+    assert children == set(JOIN_STAGES)
+    assert not ranges & set(RECHECK_STAGES)
+    assert "join.recheck_rows" not in metrics.snapshot()
+
+
+def test_exact_join_off_records_no_recheck_stage(h3port, counted):
+    assert not trace.stage_timing_on()
+    before = _stage_counters()
+    with telemetry.capture() as events:
+        _h3_join(h3port, True)
+    for name in JOIN_STAGES + RECHECK_STAGES:
+        assert not _spans(events, name), name
+    assert counted == {"record_function": 0, "cuda_event": 0}
+    assert _stage_counters() == before
+
+
 # ------------------------------------------------------------ switched off
 
 
@@ -215,6 +294,7 @@ def test_off_trail_is_the_references_and_touches_no_profiler(
 ):
     join_ref, stream_ref = reference_trails
     assert not trace.stage_timing_on()
+    before = _stage_counters()
     with telemetry.capture() as join_ev:
         _join(port)
     with telemetry.capture() as stream_ev:
@@ -222,7 +302,9 @@ def test_off_trail_is_the_references_and_touches_no_profiler(
     assert _names(join_ev) == join_ref
     assert _names(stream_ev) == stream_ref
     assert counted == {"record_function": 0, "cuda_event": 0}
-    assert "trace.stage_device_seconds" not in metrics.snapshot()
+    # the registry is process-wide: what matters is that these calls
+    # added nothing to it
+    assert _stage_counters() == before
 
 
 def test_switch_turns_the_stages_on_without_a_profiler(port, counted):
@@ -233,6 +315,8 @@ def test_switch_turns_the_stages_on_without_a_profiler(port, counted):
         _run(port)
     for name in JOIN_STAGES + STREAM_STAGES:
         assert _spans(events, name), name
+    for name in RECHECK_STAGES:
+        assert not _spans(events, name), name
     for name in TIMED:
         assert all(s["device_s"] > 0 for s in _spans(events, name)), name
     assert counted["record_function"] > 0 and counted["cuda_event"] == 0
