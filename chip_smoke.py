@@ -599,6 +599,11 @@ OPS_BAND = 20
 #: f32 operations per (point, zone slot, edge) test of the zone kernel, the
 #: count bench.py uses for the same lane
 OPS_ZONE = 8
+#: instructions a point of the H3 cell kernel at res 9, counted from its
+#: source: ~100 for the four transcendentals, ~160 for the 20 face dots,
+#: ~80 for the projection (three divisions) and the hex rounding, ~60 for
+#: each of the nine digit levels, ~75 for the lookups and the packing
+OPS_H3 = 1000
 #: floor on the recheck=False join's agreement with the f64 host oracle.
 #: Exact agreement is not expected there (f32 cells and edges differ from
 #: f64 near cell and zone boundaries; phase 6b's recheck join must agree
@@ -768,6 +773,7 @@ KERNEL_OPS = {
     "pip_zone": ("pip_zone_kernel",),
     "zonal_tiled": ("zonal_tiled_partial_kernel", "zonal_tiled_merge_kernel"),
     "zonal_seq_fold": ("zonal_seq_fold_kernel",),
+    "h3_cells": ("h3_cells_kernel",),
 }
 
 
@@ -807,6 +813,15 @@ def timeline_shares(events) -> dict | None:
         return None
     return {"window": attr["window"]["source"], "wall_s": attr["wall_s"],
             **{c: v["share"] for c, v in attr["classes"].items()}}
+
+
+def h3_points() -> dict:
+    """``h3.cells_points`` of the ``cells`` variant by lane: the points
+    whose cells the kernel and the plain chain assigned so far."""
+    from mosaic_tpu_torch.obs import metrics
+
+    c = metrics.counter("h3.cells_points")
+    return {lane: c.value(lane=lane, variant="cells") for lane in ("kernel", "plain")}
 
 
 def count_syncs(fn) -> tuple:
@@ -4309,8 +4324,9 @@ def relaunch_child(index_path: str, store: str, result_path: str, spawned_at: st
         rungs = len(eng.ladder.buckets)
         gates.update({
             "loaded_every_entry_exported_none": warm.get("aot") == {
-                "loaded": 2 * rungs + 1, "exported": 0, "fallback": 0},
-            "library_bound_from_store": _build.ORIGINS.get("pip") == "store",
+                "loaded": 2 * rungs + 2, "exported": 0, "fallback": 0},
+            "library_bound_from_store": all(
+                _build.ORIGINS.get(n) == "store" for n in ("pip", "h3")),
             "no_nvcc_build": _build.nvcc_builds() == 0 and warm["backend_compiles"] == 0,
             "equal_to_pip_join": equal,
             "no_cold_compile_shed_or_degraded": m["cold_compiles"] == 0 and m["shed"] == 0
@@ -4359,10 +4375,10 @@ class RelaunchProcess:
             capture_s = eng.core.capture_seconds
         export_s = time.perf_counter() - t0
         rungs = len(BucketLadder(*SERVE_LADDER).buckets)
-        self.exported = 2 * rungs + 1
+        self.exported = 2 * rungs + 2  # a rung's cells and join, pip and h3
         keys = ProgramStore(self.store).keys()
         gates = {
-            "exported_two_a_rung_and_the_library": warm.get("aot") == {
+            "exported_two_a_rung_and_the_libraries": warm.get("aot") == {
                 "loaded": 0, "exported": self.exported, "fallback": 0},
             "entries_on_disk": len(keys) == self.exported,
             "no_nvcc_build": backend_compiles() == b0,
@@ -4497,12 +4513,12 @@ def store_refusals(ix, H3, dev, store: str, run_dir: str) -> str | None:
     _, ev3, eq3, meshed = run(corrupt, mesh=data_mesh(devices=mesh_devices(dev)))
     gates = {
         "corrupt_skipped_and_exported_again": "program_store_corrupt_skipped" in ev1
-        and w1["aot"] == {"loaded": 2 * rungs, "exported": 1, "fallback": 0},
+        and w1["aot"] == {"loaded": 2 * rungs + 1, "exported": 1, "fallback": 0},
         "healed_store_loads_clean": w1b["aot"] == {
-            "loaded": 2 * rungs + 1, "exported": 0, "fallback": 0}
+            "loaded": 2 * rungs + 2, "exported": 0, "fallback": 0}
         and "program_store_corrupt_skipped" not in ev1b,
         "mismatch_refused_and_exported_again": "program_store_mismatch" in ev2
-        and w2["aot"] == {"loaded": 2 * rungs, "exported": 1, "fallback": 0},
+        and w2["aot"] == {"loaded": 2 * rungs + 1, "exported": 1, "fallback": 0},
         "mesh_refused": ev3 == ["program_store_refused"] and meshed._programs is None
         and ProgramStore(corrupt).keys() == keys_before,
         "answers_equal_pip_join": eq1 and eq1b and eq2 and eq3,
@@ -4825,6 +4841,44 @@ def main() -> int:
     if not zone_ok:
         return fail("pip_zone differs from pip_zone_plain")
 
+    # 5b. H3 cell assignment: the kernel against the plain torch chain on the
+    # join's 4M points in float32 at the join's resolution, cells and margins
+    from mosaic_tpu_torch.kernels import h3 as KH
+
+    hk = KH.geo_to_cell_kernel(pts_f32, RES)
+    hkm = KH.geo_to_cell_kernel(pts_f32, RES, with_margin=True)
+    hp, hpm = KH.geo_to_cell_plain(pts_f32, RES), KH.geo_to_cell_plain(
+        pts_f32, RES, with_margin=True)
+    torch.cuda.synchronize()
+    h3_ok = (torch.equal(hk, hp) and torch.equal(hkm[0], hp)
+             and torch.equal(hkm[1].view(torch.int32), hpm[1].view(torch.int32)))
+    h3_diff = int((hk != hp).sum()) + int((hkm[1] != hpm[1]).any(dim=1).sum())
+    h3_ms = cuda_ms(lambda: KH.geo_to_cell_kernel(pts_f32, RES))
+    h3_dev_ms = device_ms(lambda: KH.geo_to_cell_kernel(pts_f32, RES), "h3_cells")
+    h3_margin_ms = device_ms(
+        lambda: KH.geo_to_cell_kernel(pts_f32, RES, with_margin=True), "h3_cells")
+    h3_plain_ms = cuda_ms(lambda: KH.geo_to_cell_plain(pts_f32, RES), reps=3)
+    h3_plain_margin_ms = cuda_ms(
+        lambda: KH.geo_to_cell_plain(pts_f32, RES, with_margin=True), reps=3)
+    h3_syncs, h3_sync_msg = count_syncs(
+        lambda: [KH.geo_to_cell_kernel(pts_f32, RES, with_margin=m)
+                 for m in (False, True) * 3])
+    h3_bound, h3_by = bound(N_POINTS * (8 + 8), OPS_H3 * N_POINTS)
+    h3_margin_bound, h3_margin_by = bound(N_POINTS * (8 + 8 + 8), OPS_H3 * N_POINTS)
+    emit({
+        "phase": "h3_cells", "points": N_POINTS, "res": RES, "dtype": "float32",
+        "equal_to_plain": h3_ok, "rows_differing": h3_diff,
+        "ms": h3_dev_ms, "wrapper_ms": h3_ms, "plain_ms": h3_plain_ms,
+        "margin_ms": h3_margin_ms, "plain_margin_ms": h3_plain_margin_ms,
+        "bound_ms": h3_bound, "bound_by": h3_by,
+        "margin_bound_ms": h3_margin_bound, "margin_bound_by": h3_margin_by,
+        "host_syncs_warm": h3_syncs, "first_sync": h3_sync_msg,
+    })
+    if not h3_ok:
+        return fail(f"the h3 kernel differs from its plain version on {h3_diff} rows")
+    if h3_syncs:
+        return fail(f"a warm h3 kernel call synchronised with the host: {h3_sync_msg}")
+
     # every gated join of phases 6 and 6b keeps its events, and none may be
     # a retry, a stall, an escalation or a degradation (the fault pass of 6d
     # injects its own); the warm timings call pip_join bare, as a user does
@@ -4841,10 +4895,12 @@ def main() -> int:
     # 6. the main paths, each with the counts set to 0 just before it
     K.pip_heavy_tiled.launches = 0
     K.pip_zone.launches = 0
+    KH.geo_to_cell_kernel.launches = 0
     t0 = time.perf_counter()
     out = gated(raw, None, H3, RES, chip_index=ix, probe="adaptive")
     cold_s = time.perf_counter() - t0
     heavy_launches = K.pip_heavy_tiled.launches
+    h3_join_launches = KH.geo_to_cell_kernel.launches
     zone_lane_launches_in_join = K.pip_zone.launches
     K.pip_heavy_tiled.launches = 0
     K.pip_zone.launches = 0
@@ -4854,10 +4910,14 @@ def main() -> int:
     base = gated(raw, None, H3, RES, chip_index=ix, probe="scatter")
     same = bool(np.array_equal(out, base))
     warm = []
+    cells0 = h3_points()
+    KH.geo_to_cell_kernel.launches = 0
     for _ in range(3):
         t0 = time.perf_counter()
         J.pip_join(raw, None, H3, RES, chip_index=ix, probe="adaptive")
         warm.append(time.perf_counter() - t0)
+    join_cells = {k: v - cells0[k] for k, v in h3_points().items()}
+    h3_warm_launches = KH.geo_to_cell_kernel.launches
     warm_scatter = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -4874,6 +4934,9 @@ def main() -> int:
         "phase": "main_path", "points": N_POINTS, "probe": "adaptive",
         "pip_heavy_tiled_launches": heavy_launches,
         "pip_zone_launches_in_join": zone_lane_launches_in_join,
+        "h3_cells_launches_join": h3_join_launches,
+        "h3_cells_launches_warm_joins": h3_warm_launches,
+        "h3_cells_points_warm_joins": join_cells,
         "pip_zone_lane_launches": zone_launches,
         "equal_to_scatter": same, "valid_output": valid,
         "match_rate": float((out >= 0).mean()),
@@ -4889,6 +4952,11 @@ def main() -> int:
         return fail("pip_join(probe='adaptive') never launched pip_heavy_tiled")
     if zone_launches <= 0:
         return fail("the zone lane never launched pip_zone")
+    if h3_join_launches < 1 or h3_warm_launches < 3:
+        return fail(f"pip_join launched the h3 kernel {h3_join_launches} times, and "
+                    f"{h3_warm_launches} times in 3 warm joins")
+    if join_cells["plain"] or join_cells["kernel"] < 3 * N_POINTS:
+        return fail(f"the warm joins' cells did not all come from the h3 kernel: {join_cells}")
     if not same:
         return fail("pip_join adaptive differs from scatter")
     if not valid:
@@ -5450,8 +5518,12 @@ def main() -> int:
                                  for nb in (1, 3))
     K.pip_heavy_tiled.launches = 0
     K.pip_zone.launches = 0
+    KH.geo_to_cell_kernel.launches = 0
+    cells0 = h3_points()
     stream_run = sj.run(ring, STREAM_BATCHES)
+    stream_cells = {k: v - cells0[k] for k, v in h3_points().items()}
     stream_launches = K.pip_heavy_tiled.launches
+    stream_h3_launches = KH.geo_to_cell_kernel.launches
     stream_zone_launches = K.pip_zone.launches
     stream_walls = [stream_run.wall_s]
     batched = sj.run_batched(ring, STREAM_BATCHES)
@@ -5554,6 +5626,10 @@ def main() -> int:
         "durable_every_batch_equal": every1["equal_to_run"],
         # a lower bound: torch's sync debug mode is a prototype
         "loop_free_of_host_syncs": s3 - s1 == 0,
+        # every batch's cells (and the prefetch past the last) on the kernel
+        "cells_on_the_kernel": stream_cells["plain"] == 0
+        and stream_cells["kernel"] >= STREAM_BATCHES * N_POINTS
+        and stream_h3_launches >= STREAM_BATCHES,
     }
     emit({
         "phase": "stream", "ring": [STREAM_RING, N_POINTS], "batches": STREAM_BATCHES,
@@ -5562,6 +5638,8 @@ def main() -> int:
         "ring_mb": ring.numel() * ring.element_size() / 1e6,
         "pip_heavy_tiled_launches": stream_launches,
         "pip_zone_launches": stream_zone_launches,
+        "h3_cells_points": stream_cells,
+        "h3_cells_launches": stream_h3_launches,
         "checksum": stream_run.checksum, "matches": stream_run.matches,
         "overflow": stream_run.overflow,
         "run_wall_s": stream_walls,
@@ -5867,6 +5945,16 @@ def main() -> int:
          "float_bound_ms": ff["bound_ms"], "float_bound_by": ff["bound_by"],
          "float_longest_sequential_run": ff["longest_sequential_run"],
          "dadd_latency_ns": dadd_ns},
+        # a jitted jnp chain in the reference, not a Pallas kernel
+        {"name": "h3_cells", "route": "cuda", "source": "mosaic_tpu_torch/kernels/csrc/h3.cu",
+         "replaces": "mosaic_tpu/core/index/h3/core.py:61",
+         "launches": h3_join_launches + h3_warm_launches + stream_h3_launches,
+         "launches_join": h3_join_launches, "launches_warm_joins": h3_warm_launches,
+         "launches_stream": stream_h3_launches,
+         "match": h3_ok, "rows_differing": h3_diff,
+         "ms": h3_dev_ms, "wrapper_ms": h3_ms, "plain_ms": h3_plain_ms,
+         "bound_ms": h3_bound, "bound_by": h3_by, "library_ms": None,
+         "margin_ms": h3_margin_ms, "margin_bound_ms": h3_margin_bound},
     ]}
     print(card, flush=True)
     emit(kernels)

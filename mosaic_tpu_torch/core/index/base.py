@@ -73,6 +73,12 @@ class IndexSystem(abc.ABC):
         alternate (callers escalate those rows to the exact host path)."""
         return None
 
+    def cell_kernel_libraries(self, device) -> list[str]:
+        """The hand-written kernel libraries (`kernels/_build.py`) that
+        ``point_to_cell`` and ``point_to_cell_margin`` launch for a tensor
+        on ``device``; none unless a system says otherwise."""
+        return []
+
     @abc.abstractmethod
     def cell_center(self, cells: Array) -> Array:
         """(N,) int64 -> (N, 2) cell center coordinates."""

@@ -169,8 +169,10 @@ def _geo_to_cell_device(
     lat, lng, res: int, xp, with_margin: bool = False, alt: bool = False
 ):
     """Device geo_to_cell over torch tensors (``xp`` a
-    :class:`~.hexmath.TorchNamespace`): int32 digit math of width ``res``,
-    one gather from the composed (face, ijk) -> (base cell, rotation,
+    :class:`~.hexmath.TorchNamespace`), eager, one torch op a step: the
+    plain version of the CUDA kernel that assigns cells on the card
+    (`kernels/h3.py`), and the path on the CPU. Int32 digit math of width
+    ``res``, one gather from the composed (face, ijk) -> (base cell, rotation,
     pentagon, cw-offset face) table (:func:`_combo_table`), one for each
     row's count of digit rotations, the pentagon correction's included
     (:data:`_TURNS`), and one that applies them.

@@ -444,6 +444,17 @@ def select_rows(idx, table, n_rows: int, xp):
     return xp.asarray(tab)[idx.long()]
 
 
+#: the floor of a point's dot with its face centre in `geo_to_hex2d`
+DOT_FLOOR = 0.2
+
+
+def _dot3(a, b):
+    """``sum(a * b, axis=-1)`` over three components, added left to
+    right: numpy's order, and torch's on the CPU; a torch reduction on the
+    card adds them in another order."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
 _COS_AP7 = float(np.cos(C.AP7_ROT_RADS))
 _SIN_AP7 = float(np.sin(C.AP7_ROT_RADS))
 
@@ -511,12 +522,12 @@ def geo_to_hex2d(lat, lng, res: int, face=None, xp=np):
     else:
         b = xp.asarray(basis, dtype=lat.dtype)[face.long()]
     fv = b[..., 0:3]
-    dot = xp.sum(v * fv, axis=-1)
+    dot = _dot3(v, fv)
     # nearest-face dot ≥ cos(face circumradius) ≈ 0.85; the floor only
     # guards exotic face-given calls from dividing by ~0
-    p = v / xp.maximum(dot, 0.2)[..., None] - fv
-    gx = xp.sum(p * b[..., 3:6], axis=-1)
-    gy = xp.sum(p * b[..., 6:9], axis=-1)
+    p = v / xp.maximum(dot, DOT_FLOOR)[..., None] - fv
+    gx = _dot3(p, b[..., 3:6])
+    gy = _dot3(p, b[..., 6:9])
     scale = float(C.SQRT7**res / C.RES0_U_GNOMONIC)
     x = gx * scale
     y = gy * scale
@@ -557,6 +568,16 @@ def pack(base_cell, digits, res: int, xp=np):
     return h
 
 
+def pack_const(res: int) -> int:
+    """The bits of a res-``res`` cell id other than its base cell and
+    digits: the cell mode, the resolution, and INVALID(7) at every level
+    past ``res``."""
+    pad = 0
+    for r in range(res, C.MAX_RES):
+        pad |= C.INVALID_DIGIT << ((C.MAX_RES - 1 - r) * C.PER_DIGIT_OFFSET)
+    return (C.MODE_CELL << C.MODE_OFFSET) | (res << C.RES_OFFSET) | pad
+
+
 def pack_packed(base_cell, digits, res: int, xp=np):
     """`pack` for width-``res`` digit arrays (N, res).
 
@@ -564,11 +585,7 @@ def pack_packed(base_cell, digits, res: int, xp=np):
     the digits are first packed into int32 words (10 levels of 3 bits per
     word) so the emulated-int64 work on TPU is at most two shift-ors per
     point instead of ``res``."""
-    pad = 0
-    for r in range(res, C.MAX_RES):
-        pad |= C.INVALID_DIGIT << ((C.MAX_RES - 1 - r) * C.PER_DIGIT_OFFSET)
-    const = (C.MODE_CELL << C.MODE_OFFSET) | (res << C.RES_OFFSET) | pad
-    h = (astype(base_cell, np.int64) << C.BASE_CELL_OFFSET) | const
+    h = (astype(base_cell, np.int64) << C.BASE_CELL_OFFSET) | pack_const(res)
     # digit r sits at bit (MAX_RES-1-r)*3; group levels in int32 words
     for g0 in range(0, res, 10):
         g1 = min(g0 + 10, res)

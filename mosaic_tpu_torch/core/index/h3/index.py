@@ -2,8 +2,9 @@
 
 Port of ``mosaic_tpu/core/index/h3/index.py``. ``point_to_cell`` is one
 fused array program: numpy on the host (float64, the exact path that
-tessellation and the host oracle use) and torch on a tensor's device (the
-join's cell assignment, float32 on the card). Everything else — centers,
+tessellation and the host oracle use) and, for a tensor, the CUDA kernel
+of `kernels/h3.py` on the card (the join's cell assignment, float32
+there) or its plain torch chain on the CPU. Everything else — centers,
 boundaries, neighbors, k-rings and loops, grid distance, polyfill
 candidates — runs on the host in numpy,
 as in the reference, and accepts tensors by moving them to the host.
@@ -24,6 +25,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ....kernels import _build
+from ....kernels import h3 as _h3_kernel
+from ....obs import metrics as _metrics
 from ..base import IndexSystem
 from . import constants as C
 from . import core
@@ -81,17 +85,40 @@ class H3IndexSystem(IndexSystem):
         )
 
     # ---------------------------------------------------------------- core
-    def _geo(self, xy, resolution: int, **variant):
-        if isinstance(xy, torch.Tensor):
-            xp = hm.TorchNamespace(xy.device)
-            lng = torch.deg2rad(xy[..., 0])
-            lat = torch.deg2rad(xy[..., 1])
-        else:
-            xp = np
+    def _geo(self, xy, resolution: int, with_margin: bool = False, alt: bool = False):
+        """Cell assignment: numpy on the host for an array; for a tensor,
+        the CUDA kernel on the card (`kernels/h3.py`), the plain torch
+        chain off it and for the ``alt`` variant. Each tensor call adds
+        its point count, read off the shape, to
+        ``h3.cells_points{lane, variant}`` once it has queued its work; a
+        call captured into a CUDA graph adds it at each replay."""
+        if not isinstance(xy, torch.Tensor):
             xy = np.asarray(xy)
             lng = np.radians(xy[..., 0])
             lat = np.radians(xy[..., 1])
-        return core.geo_to_cell(lat, lng, resolution, xp, **variant)
+            return core.geo_to_cell(lat, lng, resolution, np, with_margin, alt)
+        kernel = xy.device.type == "cuda" and not alt
+        if kernel:
+            out = _h3_kernel.geo_to_cell_kernel(xy, resolution, with_margin)
+        else:
+            out = _h3_kernel.geo_to_cell_plain(xy, resolution, with_margin, alt)
+        n = xy.numel() // 2
+        labels = {"lane": "kernel" if kernel else "plain",
+                  "variant": "alt" if alt else "margin" if with_margin else "cells"}
+
+        def count():
+            _metrics.counter("h3.cells_points").inc(n, **labels)
+
+        if xy.device.type == "cuda":
+            _build.on_each_run(count)
+        else:
+            count()
+        return out
+
+    def cell_kernel_libraries(self, device) -> list[str]:
+        """``["h3"]`` on the card, where a tensor's cells come from the
+        kernel of `kernels/h3.py`; none on the CPU."""
+        return ["h3"] if torch.device(device).type == "cuda" else []
 
     def point_to_cell(self, xy, resolution: int):
         """(N, 2) lng/lat degrees -> (N,) int64 cells: numpy for a numpy

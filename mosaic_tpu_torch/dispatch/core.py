@@ -657,7 +657,8 @@ class DispatchCore:
     def _load_or_export(self, bucket: int):
         fp = self._index_fingerprint()
         out = []
-        for kind, libs in (("cells", ()), ("join", self.kernel_libraries())):
+        cell_libs = self.index_system.cell_kernel_libraries(self.device)
+        for kind, libs in (("cells", cell_libs), ("join", self.kernel_libraries())):
             statics = core_program_statics(self, bucket, kind)
             out.append(_programs.one_program(
                 self._programs, program_key(fp, kind, **statics),
@@ -883,11 +884,12 @@ class DispatchCore:
     # ----------------------------------------------------------- warmup
 
     def load_kernels(self) -> list[str]:
-        """Bind the kernel library the probe launches, so no request pays
-        for it: from the program store when one is bound (exported there
-        when it lacks it), else built once per machine; [] when none is
-        launched."""
-        names = self.kernel_libraries()
+        """Bind the kernel libraries the cell assignment and the probe
+        launch, so no request pays for them: from the program store when
+        one is bound (exported there when it lacks them), else built once
+        per machine; [] when none is launched."""
+        names = (self.index_system.cell_kernel_libraries(self.device)
+                 + self.kernel_libraries())
         if not names:
             return []
         from ..kernels import _build
@@ -902,7 +904,7 @@ class DispatchCore:
                         error=repr(e)[:200],
                     )
                     self.aot_stats["fallback"] += 1
-            _build.load(name)
+        _build.load_all(names)
         return names
 
     def warmup(self) -> dict:

@@ -1,3 +1,3 @@
-from . import pip, zonal
+from . import h3, pip, zonal
 
-__all__ = ["pip", "zonal"]
+__all__ = ["h3", "pip", "zonal"]

@@ -36,6 +36,7 @@ _HERE = Path(__file__).resolve().parent
 SOURCES = {
     "pip": _HERE / "csrc" / "pip.cu",
     "zonal": _HERE / "csrc" / "zonal.cu",
+    "h3": _HERE / "csrc" / "h3.cu",
 }
 BUILD_DIR = _HERE / ".build"
 NVCC_FLAGS = (
@@ -75,6 +76,17 @@ SIGNATURES = {
         "mosaic_zonal_seq_fold_f64": (_P, _P, _I, _P, _P, _P, _P, _P),
         # x, step, n, out, cycles, stream
         "mosaic_dadd_chain": (_D, _D, _I, _P, _P, _P),
+    },
+    "h3": {
+        # xy, n, row stride, column stride, face vec3, face basis, combo,
+        # turns, rotation powers, scalars (8 doubles), pack constant, res,
+        # cells, margins (or null), stream
+        "mosaic_h3_cells_f32": (
+            _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _P,
+        ),
+        "mosaic_h3_cells_f64": (
+            _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _LL, _I, _P, _P, _P,
+        ),
     },
 }
 
@@ -184,10 +196,11 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def load_all() -> dict[str, ctypes.CDLL]:
-    """Every library, bound; the missing ones are built in parallel."""
+def load_all(names=None) -> dict[str, ctypes.CDLL]:
+    """The libraries ``names`` (every library by default), bound; the
+    missing ones are built in parallel. Returns every bound library."""
     with _LOCK:
-        missing = [n for n in SOURCES if n not in _LIBS]
+        missing = [n for n in (SOURCES if names is None else names) if n not in _LIBS]
         compile_libraries(missing)
         for name in missing:
             _bind(name)
@@ -279,13 +292,22 @@ def count_launch(wrapper) -> None:
     wrapper.launches += 1
 
 
+class _Record(dict):
+    """A capture's record: ``{wrapper: launches}``, and in ``actions`` the
+    host-side counts to repeat at each replay (`on_each_run`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.actions: list = []
+
+
 @contextlib.contextmanager
 def captured_launches():
     """Record the kernel launches captured into a CUDA graph in this
     thread during the block; yields ``{wrapper: launches}``, which
     `count_replay` adds to the wrappers' counts at each replay."""
     outer = getattr(_CAPTURE, "record", None)
-    record: dict = {}
+    record = _Record()
     _CAPTURE.record = record
     try:
         yield record
@@ -293,7 +315,23 @@ def captured_launches():
         _CAPTURE.record = outer
 
 
+def on_each_run(fn) -> None:
+    """Call ``fn()`` for work just queued on the card: now, or, under a
+    CUDA graph capture, at each replay of the graph instead (nothing ran
+    at the capture). For host-side counts of what the card did; call it
+    only for work on a CUDA tensor."""
+    if torch.cuda.is_current_stream_capturing():
+        record = getattr(_CAPTURE, "record", None)
+        if record is not None:
+            record.actions.append(fn)
+        return
+    fn()
+
+
 def count_replay(record: dict) -> None:
-    """Count the launches one replay of a captured graph makes."""
+    """Count the launches one replay of a captured graph makes, and
+    repeat its recorded host-side counts."""
     for wrapper, n in record.items():
         wrapper.launches += n
+    for fn in getattr(record, "actions", ()):
+        fn()

@@ -22,13 +22,13 @@ Completion is forced by :func:`fold_stats` — a device-side (checksum,
 matches, overflow) fold, so no per-point data crosses to the host inside
 a measured region. The loop is a Python loop over ring slots whose join
 and fold read nothing back to the host: the one pull is the final (3,)
-fold. With H3 the cell assignment runs on the device too, keeps its
-constant tables there and has no data-dependent branch
-(`core/index/h3/core.py _geo_to_cell_device`), so a warm loop queues its
-batches without a host sync; `chip_smoke.py` counts the syncs torch's
-sync debug mode reports in it (a lower bound: the mode is a prototype)
-and fails on any. The custom grid and BNG assign cells on the host, so
-their loop copies each batch there and back.
+fold. With H3 the cell assignment runs on the device too (on the card
+one kernel, `kernels/h3.py`), keeps its constant tables there and reads
+nothing back, so a warm loop queues its batches without a host sync;
+`chip_smoke.py` counts the syncs torch's sync debug mode reports in it (a
+lower bound: the mode is a prototype) and fails on any. The custom grid
+and BNG assign cells on the host, so their loop copies each batch there
+and back.
 
 The fold is exact int32 arithmetic, as the reference's: each batch's
 terms are summed in int64 on the device and wrapped to the int32
@@ -509,17 +509,19 @@ class StreamJoin:
         return self._programs.step_stats(pts, self._probe_index)
 
     def _load_kernels(self) -> list[str]:
-        """Build/bind the kernel library the probe launches (on the card,
-        once per stream); returns the libraries loaded by this call."""
+        """Build/bind the kernel libraries the cell assignment and the
+        probe launch (on the card, once per stream); returns the libraries
+        loaded by this call."""
         if self._loaded or self.device.type != "cuda":
             return []
         self._loaded = True
-        if not _uses_kernel(self.probe, self.index):
-            return []
+        names = list(self.index_system.cell_kernel_libraries(self.device))
+        if _uses_kernel(self.probe, self.index):
+            names.append("pip")
         from ..kernels import _build
 
-        _build.load("pip")
-        return ["pip"]
+        _build.load_all(names)
+        return names
 
     def compile(self, ring: torch.Tensor, n_batches: int, collect=False):
         """Warm the loop: load the kernel library and run the loop once

@@ -728,8 +728,9 @@ def test_serve_dispatch_on_card_is_free_of_host_syncs(cuda):
 def test_serve_dispatch_on_card_replays_its_rungs_graph(cuda):
     """Every warmed rung holds a captured graph; a replay equals the eager
     probe bit for bit and counts the heavy kernel's launches as the eager
-    probe does."""
+    probe does; the rung's graph holds the cell kernel's launch too."""
     from mosaic_tpu_torch.dispatch import BucketLadder, DispatchCore
+    from mosaic_tpu_torch.kernels import h3 as KH
 
     h3, ix = _serve_index(cuda)
     core = DispatchCore(ix, h3, 9, probe="adaptive", ladder=BucketLadder(64, 1024))
@@ -742,7 +743,7 @@ def test_serve_dispatch_on_card_replays_its_rungs_graph(cuda):
         l1 = TP.pip_heavy_tiled.launches
         np.testing.assert_array_equal(core.execute_padded(pts), eager)
         assert TP.pip_heavy_tiled.launches - l1 == l1 - l0 == 1
-        assert core._graphs[b]["launches"] == {TP.pip_heavy_tiled: 1}
+        assert core._graphs[b]["launches"] == {TP.pip_heavy_tiled: 1, KH.geo_to_cell_kernel: 1}
 
 
 def test_graph_capture_counts_launches_at_each_replay(cuda):

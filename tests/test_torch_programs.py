@@ -755,8 +755,9 @@ def test_stored_pip_library_binds_without_nvcc_on_card(cuda, tmp_path):
 @pytest.mark.gpu
 def test_card_core_stores_its_library_and_rungs(cuda, tmp_path):
     """A core on the card whose probe launches pip_heavy_tiled exports two
-    entries a rung and the library; a second core loads all of them, and
-    its join manifests name the library."""
+    entries a rung and the two libraries (pip, and h3 for its cells); a
+    second core loads all of them, its join manifests name pip and its
+    cells manifests h3."""
     from mosaic_tpu_torch.core.index.h3 import H3IndexSystem
     from mosaic_tpu_torch.datasets import synthetic_zones
     from mosaic_tpu_torch.sql.join import pip_join
@@ -767,13 +768,14 @@ def test_card_core_stores_its_library_and_rungs(cuda, tmp_path):
     ix = build_chip_index(tessellate(zones, h3, 9, keep_core_geoms=False), device=cuda)
     lad = BucketLadder(64, 256)
     c1 = DispatchCore(ix, h3, 9, ladder=lad, probe="adaptive", program_store=str(tmp_path))
-    assert c1.warmup()["aot"] == {"loaded": 0, "exported": 7, "fallback": 0}
+    assert c1.warmup()["aot"] == {"loaded": 0, "exported": 8, "fallback": 0}
     c2 = DispatchCore(ix, h3, 9, ladder=lad, probe="adaptive", program_store=str(tmp_path))
-    assert c2.warmup()["aot"] == {"loaded": 7, "exported": 0, "fallback": 0}
-    key = program_key(checkpoint.index_identity(ix), "join",
-                      **programs.core_program_statics(c2, 64, "join"))
-    doc = json.loads(ProgramStore(str(tmp_path)).load(key))
-    assert doc["libraries"] == [{"name": "pip", "source": _build.source_hash("pip")}]
+    assert c2.warmup()["aot"] == {"loaded": 8, "exported": 0, "fallback": 0}
+    for kind, lib in (("join", "pip"), ("cells", "h3")):
+        key = program_key(checkpoint.index_identity(ix), kind,
+                          **programs.core_program_statics(c2, 64, kind))
+        doc = json.loads(ProgramStore(str(tmp_path)).load(key))
+        assert doc["libraries"] == [{"name": lib, "source": _build.source_hash(lib)}]
     pts = np.random.default_rng(3).uniform(bbox[:2], bbox[2:], (200, 2))
     want = np.asarray(pip_join(pts, None, h3, 9, chip_index=ix, probe="adaptive",
                                recheck=False))
